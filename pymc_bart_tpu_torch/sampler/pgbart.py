@@ -1,0 +1,329 @@
+"""PGBART: the particle-Gibbs BART step, batched over chains (PyTorch).
+
+Counterpart of ``pymc_bart_tpu/sampler/pgbart.py``, restricted to the
+per-round kernel route of the fused-Gaussian likelihood (the
+``use_pallas``/``fused_gauss`` branch of ``_update_one_tree`` and the
+per-tree loop of ``_pgbart_step_dispatch``): per tree ``D`` growth rounds
+(``ops/grow.py``), ``D-1`` SMC resampling steps (``ops/smc.py``) and one
+winner selection with Metropolis leaf refinement (``ops/select.py``), then
+the forest and sum-of-trees commit and, while tuning, the split-prior and
+Welford ``leaf_sd`` adaptation.
+
+Chains are a leading tensor axis ``C`` where the JAX package uses ``vmap``.
+The step TAKES its random numbers (``StepRands``) as an argument, in the
+layout of ``pymc_bart_tpu/ops/draw_pallas.py::_rands_reference`` with the
+tree axis first and the chain axis second; ``draw_rands`` makes one step's
+blocks from a ``torch.Generator``.  Tests feed the JAX package's own blocks.
+
+Not ported yet: the non-Gaussian likelihood codes, the sufficient-statistics
+and generic ``loglik_fn`` paths, rejuvenation and row sharding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..config import BartConfig, PgbartConfig
+from ..ops.grow import grow_round
+from ..ops.predict import tree_predict
+from ..ops.select import select_refine
+from ..ops.smc import smc_resample
+from ..ops.trees import Forest, init_forest
+
+
+@dataclasses.dataclass
+class PgbartState:
+    """Carried sampler state of one BART variable, all chains (axis 0)."""
+
+    forest: Forest            # (C, m, S) tensors; leaf (C, m, S, k)
+    tree_pred: torch.Tensor   # float32[C, m, n, k] cached per-tree predictions
+    sum_trees: torch.Tensor   # float32[C, n, k]
+    alpha_vec: torch.Tensor   # float32[C, p] adaptive split-variable weights
+    leaf_sd: torch.Tensor     # float32[C, k] leaf-value proposal scale
+    # Welford accumulator over per-tree predictions, for leaf_sd adaptation
+    wf_count: torch.Tensor    # float32[C]
+    wf_mean: torch.Tensor     # float32[C, n, k]
+    wf_m2: torch.Tensor       # float32[C, n, k]
+    batch_offset: torch.Tensor  # int32[C] rotating tree pointer
+    iteration: torch.Tensor   # int32[C] Gibbs iterations done
+
+    def clone(self) -> "PgbartState":
+        out = {f.name: getattr(self, f.name).clone()
+               for f in dataclasses.fields(self)}
+        return PgbartState(**out)
+
+
+@dataclasses.dataclass
+class StepRands:
+    """Random blocks of one step: ``B`` trees, ``C`` chains.
+
+    ``rg`` holds Gumbel draws; ``epsr`` is UNSCALED standard normal (the
+    step multiplies by ``0.3 * leaf_sd``); ``sb`` is the ``int32`` bit
+    pattern of the JAX ``uint32`` salts.
+    """
+
+    ug: torch.Tensor    # float32[B, C, P, Gtot] grow uniforms
+    uv: torch.Tensor    # float32[B, C, P, Gtot] split-variable uniforms
+    rg: torch.Tensor    # float32[B, D, C, P, n] row Gumbels
+    eps: torch.Tensor   # float32[B, C, P, k, 2*Gtot] child leaf normals
+    sb: torch.Tensor    # int32[B, C, P, Gtot] subset-rule salts
+    ures: torch.Tensor  # float32[B, D, C] resampling uniforms
+    usel: torch.Tensor  # float32[B, C] selection uniforms
+    epsr: torch.Tensor  # float32[B, C, R, k, S] refinement normals
+    uacc: torch.Tensor  # float32[B, C, R] refinement accept uniforms
+
+
+def init_state(X, Y_target, cfg: BartConfig, split_prior=None, *,
+               chains: int, device) -> PgbartState:
+    """Initial all-root-leaf state, replicated over ``chains``.
+
+    Each tree starts as a single leaf predicting mean(Y)/m, so the initial
+    sum of trees equals Y.mean(); leaf_sd starts at std(Y)/sqrt(m).
+    """
+    device = torch.device(device)
+    X = torch.as_tensor(X, dtype=torch.float32, device=device)
+    n, p = X.shape
+    k = cfg.n_outputs
+    C = chains
+    Y = torch.as_tensor(Y_target, dtype=torch.float32,
+                        device=device).reshape(n, k)
+    y_mean = Y.mean(dim=0)
+    f1 = init_forest(cfg.m, cfg.n_nodes, k, y_mean / cfg.m, n, device)
+    forest = Forest(*(getattr(f1, f.name).unsqueeze(0).repeat(
+        (C,) + (1,) * getattr(f1, f.name).dim())
+        for f in dataclasses.fields(f1)))
+    if split_prior is None or len(split_prior) == 0:
+        alpha_vec = torch.ones((p,), dtype=torch.float32, device=device)
+    else:
+        alpha_vec = torch.as_tensor(split_prior, dtype=torch.float32,
+                                    device=device)
+    leaf_sd = Y.std(dim=0, unbiased=False) / float(cfg.m) ** 0.5
+    leaf_sd = leaf_sd.clamp_min(1e-6)
+
+    def rep(a):
+        return a.unsqueeze(0).repeat((C,) + (1,) * a.dim()).contiguous()
+
+    zero_nk = torch.zeros((C, n, k), dtype=torch.float32, device=device)
+    return PgbartState(
+        forest=forest,
+        tree_pred=rep((y_mean / cfg.m).expand(cfg.m, n, k)),
+        sum_trees=rep(y_mean.expand(n, k)),
+        alpha_vec=rep(alpha_vec),
+        leaf_sd=rep(leaf_sd),
+        wf_count=torch.zeros((C,), dtype=torch.float32, device=device),
+        wf_mean=zero_nk.clone(),
+        wf_m2=zero_nk.clone(),
+        batch_offset=torch.zeros((C,), dtype=torch.int32, device=device),
+        iteration=torch.zeros((C,), dtype=torch.int32, device=device),
+    )
+
+
+def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
+               n: int, k: int, S: int, num_refinements: int,
+               device) -> StepRands:
+    """One step's random blocks from ``gen`` (which lives on ``device``)."""
+    Gtot = 2**D - 1
+    R = max(num_refinements, 1)
+    f32 = torch.float32
+
+    def unif(*shape):
+        return torch.rand(shape, generator=gen, device=device, dtype=f32)
+
+    def norm(*shape):
+        return torch.randn(shape, generator=gen, device=device, dtype=f32)
+
+    # Gumbel = -log(-log(u)) with u clamped away from 0 and 1
+    tiny = torch.finfo(f32).tiny
+    u = unif(B, D, C, P, n).clamp_(tiny, 1.0 - 2.0**-24)
+    rg = u.log_().neg_().log_().neg_()
+    bits = torch.randint(0, 2**32, (B, C, P, Gtot), generator=gen,
+                         device=device, dtype=torch.int64)
+    sb = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+    if num_refinements > 0:
+        epsr, uacc = norm(B, C, R, k, S), unif(B, C, R)
+    else:
+        epsr = torch.zeros((B, C, R, k, S), dtype=f32, device=device)
+        uacc = torch.ones((B, C, R), dtype=f32, device=device)
+    return StepRands(ug=unif(B, C, P, Gtot), uv=unif(B, C, P, Gtot), rg=rg,
+                     eps=norm(B, C, P, k, 2 * Gtot), sb=sb,
+                     ures=unif(B, D, C), usel=unif(B, C), epsr=epsr,
+                     uacc=uacc)
+
+
+def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
+                     leaf_sd, X, rules, cfg: BartConfig, pg: PgbartConfig,
+                     gauss_w, impl: Optional[str]):
+    """Conditional SMC for tree ``b`` of the batch, all chains.
+
+    ``tree`` holds (C, S[, k]) tensors; ``resid``/``gauss_w`` (C, n, k).
+    Returns ``(sv, sl, st (C, S), leaf (C, S, k), ct (C, S), pred (C, n, k))``.
+    """
+    P = pg.num_particles
+    S = cfg.n_nodes
+    n, _p = X.shape
+    k = cfg.n_outputs
+    D = cfg.max_depth
+    C = resid.shape[0]
+    dev = resid.device
+    f32, i32 = torch.float32, torch.int32
+
+    # particle 0 = frozen copy of the current tree; the others = root leaves
+    def broadcast0(old, fresh):
+        return torch.cat([old[:, None], fresh[:, None].expand(
+            (C, P - 1) + fresh.shape[1:])], dim=1).contiguous()
+
+    root_mu = resid.sum(dim=1) / float(n) / cfg.m                 # (C, k)
+    sv = broadcast0(tree.split_var, torch.full((C, S), -1, dtype=i32,
+                                               device=dev))
+    sl = broadcast0(tree.split_val, torch.zeros((C, S), dtype=f32,
+                                                device=dev))
+    st = broadcast0(tree.split_set, torch.zeros((C, S), dtype=i32,
+                                                device=dev))
+    fresh_lf = torch.zeros((C, k, S), dtype=f32, device=dev)
+    fresh_lf[:, :, 0] = root_mu
+    lf = broadcast0(tree.leaf.transpose(1, 2), fresh_lf)          # (C,P,k,S)
+    fresh_ct = torch.zeros((C, S), dtype=f32, device=dev)
+    fresh_ct[:, 0] = float(n)
+    ct = broadcast0(tree.count, fresh_ct)
+    sp = broadcast0(tree.slope.transpose(1, 2),
+                    torch.zeros((C, k, S), dtype=f32, device=dev))
+    leaf_idx = torch.zeros((C, P, n), dtype=i32, device=dev)
+    frozen = torch.zeros((C, P), dtype=i32, device=dev)
+    frozen[:, 0] = 1
+    ident = torch.arange(P, dtype=i32, device=dev).expand(C, P).contiguous()
+
+    alpha_cdf = torch.cumsum(alpha_vec.clamp_min(1e-12), dim=1)
+    residT = resid.transpose(1, 2).contiguous()                   # (C, k, n)
+    llwT = gauss_w.transpose(1, 2).contiguous()
+
+    # all rows sit at the root: prediction = root leaf value
+    pred = lf[:, :, :, 0:1].expand(C, P, k, n).contiguous()
+    diff = residT[:, None] - pred
+    ll = -0.5 * (llwT[:, None] * diff * diff).sum(dim=(2, 3))     # (C, P)
+    log_w = ll
+    ll_prev = ll
+    take = ident
+
+    for d in range(D):
+        off = 2**d - 1
+        G = 2**d
+        sv, sl, st, lf, ct, sp, leaf_idx, pred, ll = grow_round(
+            take, frozen, sv, sl, st, lf, ct, sp, leaf_idx, pred,
+            X, residT, rules, alpha_cdf, leaf_sd, llwT,
+            rands.ug[b, :, :, off:off + G], rands.uv[b, :, :, off:off + G],
+            rands.rg[b, d], rands.eps[b, :, :, :, 2 * off:2 * off + 2 * G],
+            rands.sb[b, :, :, off:off + G], None, d=d, cfg=cfg, impl=impl)
+        take = ident
+        if d < D - 1:
+            # weight update + ESS-gated systematic resampling; the ancestor
+            # gather is folded into the next growth round through `take`
+            log_w, take, ll_prev = smc_resample(
+                ll, ll_prev, log_w, rands.ures[b, d], impl=impl)
+        else:
+            log_w = log_w + ll - ll_prev
+
+    R = max(pg.num_refinements, 1)
+    eps_r = rands.epsr[b]                                         # (C,R,k,S)
+    if pg.num_refinements > 0:
+        eps_r = eps_r * (0.3 * leaf_sd)[:, None, :, None]
+    half_inv_var = 0.5 / (leaf_sd[:, 0] * leaf_sd[:, 0])
+    sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine(
+        sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
+        eps_r.contiguous(), rands.uacc[b], rands.usel[b], half_inv_var,
+        num_refinements=R, m=cfg.m, impl=impl)
+    return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w,
+            pred_w.transpose(1, 2))
+
+
+def split_var_counts(forest: Forest, p: int) -> torch.Tensor:
+    """Histogram of splitting variables over all internal nodes: float32[C, p]
+    (the per-draw ``variable_inclusion`` statistic)."""
+    sv = forest.split_var.reshape(forest.split_var.shape[0], -1)
+    ar = torch.arange(p, dtype=sv.dtype, device=sv.device)
+    return (sv[:, :, None] == ar).to(torch.float32).sum(dim=1)
+
+
+def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
+                cfg: BartConfig, pg: PgbartConfig, tuning: bool, gauss_w,
+                impl: Optional[str] = None):
+    """One PGBART MCMC step for all chains: update a rotating batch of trees.
+
+    ``X`` (n, p) and ``Y_target`` (n, k) are shared by the chains;
+    ``gauss_w`` (C, n, k) is the per-observation Gaussian precision.
+    The state's tensors are UPDATED IN PLACE (forest, tree_pred and the
+    Welford buffers are large and the step is the hot loop); clone the state
+    first to keep the old one.  Returns ``(state, variable_inclusion (C, p))``.
+    """
+    if cfg.response != "constant":
+        raise NotImplementedError(
+            f"response={cfg.response!r}: the select-refine round supports "
+            "the constant response only")
+    if cfg.n_outputs != 1:
+        raise NotImplementedError(
+            f"n_outputs={cfg.n_outputs}: the select-refine round supports "
+            "one output only")
+    if pg.ancestor_sampling:
+        raise NotImplementedError("ancestor_sampling is not ported yet")
+    m = cfg.m
+    B = pg.batch_size(m, tuning)
+    n, p = X.shape
+    C = state.sum_trees.shape[0]
+    dev = state.sum_trees.device
+    Y = Y_target.reshape(n, cfg.n_outputs)
+    forest = state.forest
+    ar = torch.arange(C, device=dev)
+    offset0 = state.batch_offset.to(torch.int64)
+    p_range = torch.arange(p, dtype=torch.int32, device=dev)
+
+    for i in range(B):
+        jt = (offset0 + i) % m
+        tree = Forest(forest.split_var[ar, jt], forest.split_val[ar, jt],
+                      forest.split_set[ar, jt], forest.leaf[ar, jt],
+                      forest.count[ar, jt], forest.slope[ar, jt])
+        sum_noi = state.sum_trees - state.tree_pred[ar, jt]
+        resid = Y - sum_noi
+        sv_w, sl_w, st_w, lf_w, ct_w, pred = _update_one_tree(
+            i, rands, tree, resid, state.alpha_vec, state.leaf_sd, X, rules,
+            cfg, pg, gauss_w, impl)
+        forest.split_var[ar, jt] = sv_w
+        forest.split_val[ar, jt] = sl_w
+        forest.split_set[ar, jt] = st_w
+        forest.leaf[ar, jt] = lf_w
+        forest.count[ar, jt] = ct_w
+        forest.slope[ar, jt] = 0.0
+        state.tree_pred[ar, jt] = pred
+        state.sum_trees = sum_noi + pred
+        state.iteration = state.iteration + 1
+
+        if tuning:
+            # Dirichlet-style split-prior adaptation: +1 per split node
+            tcounts = (sv_w[:, :, None] == p_range).to(torch.float32).sum(1)
+            state.alpha_vec = (state.alpha_vec * pg.split_prior_decay
+                               + tcounts)
+            # running variance of per-tree predictions -> leaf_sd
+            state.wf_count = state.wf_count + 1.0
+            wc = state.wf_count[:, None, None]
+            delta = pred - state.wf_mean
+            state.wf_mean = state.wf_mean + delta / wc
+            state.wf_m2 = state.wf_m2 + delta * (pred - state.wf_mean)
+            sd = torch.sqrt((state.wf_m2 / wc.clamp_min(1.0))
+                            .clamp_min(1e-12)).sum(dim=1) / float(n)
+            state.leaf_sd = torch.where(
+                (state.iteration > m)[:, None], sd.clamp_min(1e-6),
+                state.leaf_sd)
+
+    state.batch_offset = ((offset0 + B) % m).to(torch.int32)
+    return state, split_var_counts(forest, p)
+
+
+def refresh_tree_pred(state: PgbartState, X, rules,
+                      cfg: BartConfig) -> PgbartState:
+    """Recompute the per-tree prediction cache from the forest."""
+    f = state.forest
+    per_tree = tree_predict(f.split_var, f.split_val, f.split_set, f.leaf,
+                            f.slope, X, rules, cfg.max_depth)
+    return dataclasses.replace(state, tree_pred=per_tree,
+                               sum_trees=per_tree.sum(dim=1))
