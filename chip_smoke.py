@@ -14,25 +14,38 @@ line:
 3. ``kernels`` each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main-path shapes (C=4, P=20, n=1000, p=10, S=127,
    every level d for the growth round) and one small mixed growth case (NaNs,
-   one-hot and subset columns, linear response, k=2).  Integer outputs must
-   be equal; floats within rtol 1e-4 / atol 1e-5 (split values rtol 1e-5 /
-   atol 1e-6): the sums are taken in another order.
+   one-hot and subset columns, linear response, k=2).  The whole-step kernel
+   ``pgbart_step_fused`` runs two consecutive steps from a grown state
+   against its plain version, same random blocks: at the main shapes (m=50)
+   for gauss with tuning on and off, bernoulli, het_abs, het_exp and
+   cat_logit, at p=1000 (n=200) and on a small mixed case (NaNs, one-hot and
+   subset columns).  Integer outputs must be equal; floats within rtol 1e-4
+   / atol 1e-5 (split values rtol 1e-5 / atol 1e-6; sums of trees rtol 1e-4
+   / atol 1e-4): the sums are taken in another order.
 4. ``step``    one tuning and one draw step of ``pgbart_step`` for 4 chains on
-   the kernel route and on ``impl="plain"``, same random blocks.
-5. ``sample``  the Friedman model (n=1000, p=10, m=50, max_depth=6, 4 chains,
-   20 particles, 5 refinements) through ``sample()`` on the card: finite
-   draws, the variable-inclusion recount invariant over the stored forests,
-   RMSE against the true f below 1.5.  Kernel launch counts are set to 0
-   just before and read just after.
+   the fused route, on the per-round kernel route and on ``impl="plain"``,
+   same random blocks; a non-Gaussian code must refuse the per-round route
+   on the card (its selection kernel is Gaussian).
+5. ``sample``  through ``sample()`` on the card at full width (4 chains, 20
+   particles, m=50, max_depth=6, n=1000, p=10): the Friedman model on the
+   fused route (finite draws, the variable-inclusion recount invariant over
+   the stored forests, RMSE against the true f below 1.5), the logistic
+   classifier ``y ~ Bernoulli(sigmoid(BART))`` on the fused route at four
+   times the steps (finite draws, train accuracy above the majority-class
+   rate, mean log-likelihood above the constant-rate model's), and a shorter
+   Friedman run on the per-round route.  Kernel launch counts are set to 0 just before each run
+   and read just after: a fused run launches the whole-step kernel once a
+   step and none of the per-round kernels, a per-round run the reverse.
 6. ``timing``  CUDA-event times of each kernel and its plain version at the
    main-path shapes: ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
-   (the host's cost of a call included); the time of one whole step; the
-   least time the card could take (bytes over 3.35 TB/s, operations over
-   67 TFLOP/s fp32).
+   (the host's cost of a call included); the time of one whole step on both
+   routes; the least time the card could take (bytes over 3.35 TB/s,
+   operations over 67 TFLOP/s fp32).
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over a short
-``sample()`` run: device busy share and the device time by kernel name.
+``sample()`` run on the fused route: device busy share and the device time by
+kernel name.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -59,12 +72,15 @@ REPLACES = {
     "grow_round": "pymc_bart_tpu/ops/grow_pallas.py:564",
     "smc_resample": "pymc_bart_tpu/ops/smc_pallas.py:82",
     "select_refine": "pymc_bart_tpu/ops/select_pallas.py:138",
+    "pgbart_step_fused": "pymc_bart_tpu/ops/draw_pallas.py:992",
 }
 SOURCES = {
     "grow_round": "pymc_bart_tpu_torch/csrc/grow.cu",
     "smc_resample": "pymc_bart_tpu_torch/csrc/smc.cu",
     "select_refine": "pymc_bart_tpu_torch/csrc/select.cu",
+    "pgbart_step_fused": "pymc_bart_tpu_torch/csrc/draw.cu",
 }
+ROUND_KERNELS = ("grow_round", "smc_resample", "select_refine")
 
 
 def emit(phase, **kw):
@@ -78,6 +94,14 @@ def friedman(n, p, seed=0):
          + 20 * (X[:, 2] - 0.5) ** 2 + 10 * X[:, 3] + 5 * X[:, 4])
     Y = (f + rng.normal(0, 1.0, n)).astype(np.float32)
     return X, Y, f
+
+
+def logistic(n, p, seed=2):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n, p)).astype(np.float32)
+    logit = 4 * np.sin(np.pi * X[:, 0] * X[:, 1]) + 4 * X[:, 3] - 2
+    Y = rng.binomial(1, 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return X, Y
 
 
 def nvidia_smi_line():
@@ -279,6 +303,169 @@ def mixed_grow_case(dev, seed=3):
     return args, dict(d=d, cfg=cfg)
 
 
+STATE_TOL = {  # field: (rtol, atol); None = exactly equal
+    "split_var": None, "split_set": None, "count": None, "iteration": None,
+    "batch_offset": None, "split_val": (1e-5, 1e-6), "leaf": (1e-4, 1e-5),
+    "slope": (1e-4, 1e-5), "sum_trees": (1e-4, 1e-4),
+    "tree_pred": (1e-4, 1e-4), "alpha_vec": (1e-6, 1e-6),
+    "leaf_sd": (1e-5, 1e-6), "wf_count": (0.0, 0.0), "wf_mean": (1e-4, 1e-5),
+    "wf_m2": (1e-3, 1e-5),
+}
+
+
+def compare_state(tag, got, want):
+    """Every field of two ``PgbartState``s: integers and counts equal, floats
+    within ``STATE_TOL``; returns the max abs error of the float fields."""
+    worst = 0.0
+    for name, tol in STATE_TOL.items():
+        holder = (got, want) if hasattr(got, name) else (got.forest,
+                                                         want.forest)
+        ta, tb = (getattr(h, name) for h in holder)
+        if tol is None:
+            check_close(f"{tag} {name}", ta, tb, 0.0, 0.0)
+        else:
+            worst = max(worst, check_close(f"{tag} {name}", ta, tb, *tol))
+    return worst
+
+
+FUSED_CASES = ("gauss_tune", "gauss_draw", "bernoulli", "het_abs", "het_exp",
+               "cat_logit", "gauss_p1000", "gauss_mixed")
+
+
+def fused_case(dev, name, seed=0):
+    """Inputs of one whole-step case: ``dict(cfg, pg, X, Y, rules, row, lik,
+    lik_const, chains, tunings)`` with every tensor on the card.  ``row`` is
+    the (C, n, 1) row data of the code, or None; ``tunings`` the tuning flag
+    of the two compared steps."""
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+
+    rng = np.random.default_rng(100 + seed)
+    cfg = BartConfig(m=M, max_depth=DEPTH)
+    pg = PgbartConfig(num_particles=P, num_refinements=R)
+    chains, lik, lik_const, rules = C, name, 0.0, None
+    tunings = (True, False)
+    X, Y, _ = friedman(N, PCOLS)
+    chain_shift = np.arange(chains, dtype=np.float32)[:, None, None]
+    if name.startswith("gauss"):
+        lik = "gauss"
+        tunings = (False, False) if name == "gauss_draw" else (True, True)
+        if name == "gauss_p1000":           # the width of the p=1000 config
+            X = rng.uniform(size=(200, 1000)).astype(np.float32)
+            Y = (5 * X[:, 0] + 3 * X[:, 1] - 4 * X[:, 2]
+                 + rng.normal(0, 0.5, 200)).astype(np.float32)
+        elif name == "gauss_mixed":         # NaNs, one-hot and subset columns
+            chains = 2
+            cfg = BartConfig(m=5, max_depth=4)
+            pg = PgbartConfig(num_particles=6, num_refinements=R,
+                              batch=(0.4, 0.4))
+            X = rng.normal(size=(200, 4)).astype(np.float32)
+            X[:, 1:] = rng.integers(0, 5, size=(200, 3)).astype(np.float32)
+            Y = (np.sin(2 * X[:, 0]) + 0.5 * (X[:, 1] == 2) + 0.3 * X[:, 3]
+                 + rng.normal(0, 0.2, 200)).astype(np.float32)
+            X[rng.random(size=X.shape) < 0.1] = np.nan
+            rules = np.array([0, 1, 2, 2], np.int32)
+            chain_shift = chain_shift[:chains]
+        row = np.broadcast_to(1.0 + 0.2 * chain_shift,
+                              (chains, X.shape[0], 1))
+    elif name == "bernoulli":
+        X, Y = logistic(N, PCOLS)
+        row = None
+    elif name in ("het_abs", "het_exp"):
+        # the scale forest of a heteroscedastic model: row data (y - mu0)^2
+        # and the link-aware growth target of the scale
+        lik_const = 0.05 if name == "het_abs" else 0.0
+        mu0 = Y.mean() + 0.1 * chain_shift
+        row = (Y[None, :, None] - mu0) ** 2
+        s_hat = np.abs(Y - Y.mean()) / 0.7978845608
+        Y = (s_hat - lik_const if name == "het_abs"
+             else np.log(np.maximum(s_hat, 1e-3))).astype(np.float32)
+    elif name == "cat_logit":
+        # one class forest of a 3-class softmax: target +-2, row data the
+        # logsumexp of the other two classes' outputs
+        labels = (3 * X[:, 0]).astype(np.int64) % 3
+        Y = (4.0 * (labels == 0) - 2.0).astype(np.float32)
+        others = rng.normal(0.0, 0.5, size=(chains, N, 2))
+        row = np.log(np.exp(others).sum(axis=2, keepdims=True))
+    else:
+        raise ValueError(name)
+    if rules is None:
+        rules = np.zeros(X.shape[1], np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return dict(cfg=cfg, pg=pg, X=t(X), Y=t(Y.astype(np.float32))[:, None],
+                rules=t(rules), lik=lik, lik_const=lik_const, chains=chains,
+                row=None if row is None else t(row.astype(np.float32)),
+                tunings=tunings)
+
+
+def fused_step(case, state, rands, tuning, impl=None):
+    from pymc_bart_tpu_torch.ops.draw import pgbart_step_fused
+
+    return pgbart_step_fused(
+        state, rands, case["X"], case["Y"], case["rules"], case["cfg"],
+        case["pg"], case["row"], tuning, lik=case["lik"],
+        lik_const=case["lik_const"], impl=impl)
+
+
+def fused_rands(case, gen, tuning, dev):
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    cfg, pg = case["cfg"], case["pg"]
+    return pgbart.draw_rands(
+        gen, B=pg.batch_size(cfg.m, tuning), C=case["chains"],
+        P=pg.num_particles, D=cfg.max_depth, n=case["X"].shape[0], k=1,
+        S=cfg.n_nodes, num_refinements=pg.num_refinements, device=dev)
+
+
+def grown_state(case, gen, dev, steps=11):
+    """A state in which every tree has been updated at least once and the
+    ``leaf_sd`` adaptation has begun: ``steps`` tuning steps of the kernel."""
+    from pymc_bart_tpu_torch.ops.draw import check_status
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    state = pgbart.init_state(case["X"], case["Y"], case["cfg"],
+                              chains=case["chains"], device=dev)
+    for _ in range(steps):
+        state, _ = fused_step(case, state, fused_rands(case, gen, True, dev),
+                              True)
+    torch.cuda.synchronize()
+    check_status()
+    if not bool(torch.isfinite(state.sum_trees).all()):
+        raise AssertionError("warm-up steps left a non-finite sum of trees")
+    return state
+
+
+def compare_fused(dev, name, seed=17):
+    """Two consecutive steps of the whole-step kernel against its plain
+    version from one grown state; returns (max abs err, split nodes)."""
+    from pymc_bart_tpu_torch.ops.draw import check_status
+
+    case = fused_case(dev, name)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s_kernel = grown_state(case, gen, dev)
+    s_plain = s_kernel.clone()
+    worst = 0.0
+    for i, tuning in enumerate(case["tunings"]):
+        rands = fused_rands(case, gen, tuning, dev)
+        s_kernel, vi_k = fused_step(case, s_kernel, rands, tuning, "kernel")
+        torch.cuda.synchronize()
+        check_status()
+        s_plain, vi_p = fused_step(case, s_plain, rands, tuning, "plain")
+        torch.cuda.synchronize()
+        tag = f"pgbart_step_fused {name} step {i}"
+        check_close(f"{tag} vi", vi_k, vi_p, 0.0, 0.0)
+        worst = max(worst, compare_state(tag, s_kernel, s_plain))
+    sv = s_kernel.forest.split_var
+    splits = int((sv >= 0).sum())
+    if splits == 0:
+        raise AssertionError(f"{name}: the forest has no split at all")
+    if name == "gauss_mixed" and not bool((sv >= 1).any()):
+        raise AssertionError("mixed case: no categorical column was split on")
+    return worst, splits
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -331,26 +518,26 @@ def phase_kernels(dev, calls, cfg):
         errs["select_refine"] = max(
             errs["select_refine"],
             check_close(f"select_refine {name}", g, w, *tol))
+    fused = {}
+    for name in FUSED_CASES:
+        err, splits = compare_fused(dev, name)
+        fused[name] = dict(max_abs_err=err, split_nodes=splits)
+    errs["pgbart_step_fused"] = max(v["max_abs_err"] for v in fused.values())
     emit("kernels", max_abs_err=errs, grow_mixed_max_abs_err=mixed_err,
          grown_nodes=grown, smc_calls_that_resampled=resampled,
+         pgbart_step_fused_cases=fused,
          tolerance={"integers": "equal", "split_val": "rtol 1e-5 atol 1e-6",
-                    "other floats": "rtol 1e-4 atol 1e-5"},
-         shapes=dict(C=C, P=P, n=N, p=PCOLS, S=cfg.n_nodes))
+                    "other floats": "rtol 1e-4 atol 1e-5",
+                    "state of a whole step": {
+                        k: "equal" if v is None else f"rtol {v[0]} atol {v[1]}"
+                        for k, v in STATE_TOL.items()}},
+         shapes=dict(C=C, P=P, n=N, p=PCOLS, S=cfg.n_nodes, m=M))
     return errs
-
-
-STATE_TOL = {  # field: (rtol, atol); None = exactly equal
-    "split_var": None, "split_set": None, "count": None, "iteration": None,
-    "batch_offset": None, "split_val": (1e-5, 1e-6), "leaf": (1e-4, 1e-5),
-    "slope": (1e-4, 1e-5), "sum_trees": (1e-4, 1e-4),
-    "tree_pred": (1e-4, 1e-4), "alpha_vec": (1e-6, 1e-6),
-    "leaf_sd": (1e-5, 1e-6), "wf_count": (0.0, 0.0), "wf_mean": (1e-4, 1e-5),
-    "wf_m2": (1e-3, 1e-5),
-}
 
 
 def phase_step(dev):
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+    from pymc_bart_tpu_torch.ops.draw import check_status
     from pymc_bart_tpu_torch.sampler import pgbart
 
     cfg = BartConfig(m=M, max_depth=DEPTH)
@@ -361,75 +548,88 @@ def phase_step(dev):
     rules = torch.zeros(PCOLS, dtype=torch.int32, device=dev)
     gauss_w = torch.ones((C, N, 1), device=dev)
     gen = torch.Generator(device=dev).manual_seed(11)
-    s_kernel = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
-    s_plain = s_kernel.clone()
-    worst = 0.0
+    routes = {"fused": dict(route="fused"), "rounds": dict(route="rounds"),
+              "plain": dict(impl="plain")}
+    first = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
+    states = {k: first.clone() for k in routes}
+    worst = {"fused": 0.0, "rounds": 0.0}
     for tuning in (True, False):
         rands = pgbart.draw_rands(
             gen, B=pg.batch_size(M, tuning), C=C, P=P, D=DEPTH, n=N, k=1,
             S=cfg.n_nodes, num_refinements=R, device=dev)
-        s_kernel, vi_k = pgbart.pgbart_step(s_kernel, rands, X, Y, rules, cfg,
-                                            pg, tuning, gauss_w)
-        s_plain, vi_p = pgbart.pgbart_step(s_plain, rands, X, Y, rules, cfg,
-                                           pg, tuning, gauss_w, impl="plain")
+        vis = {}
+        for k, kw in routes.items():
+            states[k], vis[k] = pgbart.pgbart_step(
+                states[k], rands, X, Y, rules, cfg, pg, tuning, gauss_w, **kw)
         torch.cuda.synchronize()
-        check_close("step vi", vi_k, vi_p, 0.0, 0.0)
-        for name, tol in STATE_TOL.items():
-            holder = (s_kernel, s_plain) if hasattr(s_kernel, name) else (
-                s_kernel.forest, s_plain.forest)
-            ta, tb = (getattr(h, name) for h in holder)
-            if tol is None:
-                check_close(f"step {name}", ta, tb, 0.0, 0.0)
-            else:
-                worst = max(worst, check_close(f"step {name}", ta, tb, *tol))
-    splits = int((s_kernel.forest.split_var >= 0).sum())
+        check_status()
+        for k in worst:
+            check_close(f"step {k} vi", vis[k], vis["plain"], 0.0, 0.0)
+            worst[k] = max(worst[k], compare_state(f"step {k}", states[k],
+                                                   states["plain"]))
+    splits = int((states["fused"].forest.split_var >= 0).sum())
     if splits == 0:
         raise AssertionError("two steps grew no split at all")
-    emit("step", max_abs_err=worst, split_nodes=splits, chains=C)
+    # the per-round selection kernel is Gaussian: on the card another code
+    # must refuse that route, not reach a plain version
+    try:
+        pgbart.pgbart_step(first.clone(), rands, X, Y, rules, cfg, pg, False,
+                           None, lik="bernoulli", route="rounds")
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("bernoulli ran on the per-round route on the card")
+    emit("step", max_abs_err_vs_plain=worst, split_nodes=splits, chains=C,
+         rounds_route_refuses_bernoulli=refusal)
 
 
-def phase_sample(dev, tune, draws):
+def sample_run(model, route, tune, draws):
+    """One ``sample()`` run on the card with every launch count set to 0
+    just before and read just after; checks the counts of the route."""
     import pymc_bart_tpu_torch as pmb
+    from pymc_bart_tpu_torch.ops.draw import pgbart_step_fused
     from pymc_bart_tpu_torch.ops.grow import grow_round
     from pymc_bart_tpu_torch.ops.select import select_refine
     from pymc_bart_tpu_torch.ops.smc import smc_resample
 
-    X, Y, f_true = friedman(N, PCOLS)
     wrappers = {"grow_round": grow_round, "smc_resample": smc_resample,
-                "select_refine": select_refine}
+                "select_refine": select_refine,
+                "pgbart_step_fused": pgbart_step_fused}
     timings = {}
     with pmb.Model():
-        mu = pmb.BART("mu", X, Y, m=M, max_depth=DEPTH)
-        sigma = pmb.HalfNormal("sigma", 1.0)
-        pmb.Normal("y", mu, sigma, observed=Y)
+        rv = model(pmb)
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
         idata = pmb.sample(tune=tune, draws=draws, chains=C, random_seed=0,
                            num_particles=P, num_refinements=R,
                            chunk_size=max(1, draws // 2), timings=timings,
-                           convergence_checks=False)
+                           convergence_checks=False, pgbart_route=route)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: int(w.launches) for k, w in wrappers.items()}
     steps = tune + draws
     B = 5
-    want = {"grow_round": steps * B * DEPTH,
-            "smc_resample": steps * B * (DEPTH - 1),
-            "select_refine": steps * B}
+    if route == "rounds":
+        want = {"grow_round": steps * B * DEPTH,
+                "smc_resample": steps * B * (DEPTH - 1),
+                "select_refine": steps * B, "pgbart_step_fused": 0}
+    else:
+        want = {"grow_round": 0, "smc_resample": 0, "select_refine": 0,
+                "pgbart_step_fused": steps}
     for k, v in launches.items():
-        if v == 0:
-            raise AssertionError(f"the main path never launched {k}")
+        if want[k] and v == 0:
+            raise AssertionError(f"the {route} route never launched {k}")
         if v != want[k]:
-            raise AssertionError(f"{k}: {v} launches, expected {want[k]}")
-    post = np.asarray(idata.posterior["mu"].values)
-    sig = np.asarray(idata.posterior["sigma"].values)
-    if post.shape != (C, draws, N) or sig.shape != (C, draws):
-        raise AssertionError(f"posterior shapes {post.shape} {sig.shape}")
-    if not (np.isfinite(post).all() and np.isfinite(sig).all()):
+            raise AssertionError(f"{route} route, {k}: {v} launches, "
+                                 f"expected {want[k]}")
+    post = np.asarray(idata.posterior[rv.name].values)
+    if post.shape != (C, draws, N):
+        raise AssertionError(f"posterior shape {post.shape}")
+    if not np.isfinite(post).all():
         raise AssertionError("non-finite posterior draws")
     vi = np.asarray(idata["sample_stats"]["variable_inclusion"].values)
-    sv = mu.all_trees.split_var
+    sv = rv.all_trees.split_var
     if sv.shape != (C, draws, M, 2 ** (DEPTH + 1) - 1):
         raise AssertionError(f"stored forests have shape {sv.shape}")
     recount = np.stack([(sv == j).sum(axis=(2, 3)) for j in range(PCOLS)],
@@ -439,20 +639,79 @@ def phase_sample(dev, tune, draws):
     for c in range(1, C):
         if np.array_equal(post[0], post[c]):
             raise AssertionError(f"chain {c} repeats chain 0")
-    rmse = float(np.sqrt(np.mean((post.mean(axis=(0, 1)) - f_true) ** 2)))
-    if not rmse < RMSE_BOUND:
-        raise AssertionError(f"rmse vs true f {rmse} >= {RMSE_BOUND}")
-    emit("sample", tune=tune, draws=draws, chains=C, seconds=seconds,
-         tune_seconds=timings["tune_seconds"],
-         draw_seconds_total=timings["draw_seconds_total"],
-         chain_draws_per_s=C * draws / timings["draw_seconds_total"],
-         rmse_vs_true_f=rmse, sigma_mean=float(sig.mean()),
-         vi_top5=np.argsort(vi.sum(axis=(0, 1))[0])[::-1][:5].tolist(),
-         launches=launches)
-    return launches
+    out = dict(route=route, tune=tune, draws=draws, chains=C, seconds=seconds,
+               tune_seconds=timings["tune_seconds"],
+               draw_seconds_total=timings["draw_seconds_total"],
+               chain_draws_per_s=C * draws / timings["draw_seconds_total"],
+               vi_top5=np.argsort(vi.sum(axis=(0, 1))[0])[::-1][:5].tolist(),
+               launches=launches)
+    return idata, post, out
 
 
-def phase_timing(dev, calls, cfg, smi):
+def phase_sample(dev, tune, draws):
+    """Friedman and logistic on the fused route, then a shorter Friedman run
+    on the per-round route.  Returns the launch counts of every kernel on
+    the path that drives it."""
+    X, Y, f_true = friedman(N, PCOLS)
+
+    def friedman_model(pmb):
+        mu = pmb.BART("mu", X, Y, m=M, max_depth=DEPTH)
+        sigma = pmb.HalfNormal("sigma", 1.0)
+        pmb.Normal("y", mu, sigma, observed=Y)
+        return mu
+
+    def friedman_quality(idata, post, out):
+        sig = np.asarray(idata.posterior["sigma"].values)
+        if sig.shape != post.shape[:2] or not np.isfinite(sig).all():
+            raise AssertionError("sigma draws are missing or not finite")
+        rmse = float(np.sqrt(np.mean((post.mean(axis=(0, 1)) - f_true) ** 2)))
+        if not rmse < RMSE_BOUND:
+            raise AssertionError(f"rmse vs true f {rmse} >= {RMSE_BOUND}")
+        return dict(out, model="friedman", rmse_vs_true_f=rmse,
+                    sigma_mean=float(sig.mean()))
+
+    runs = {}
+    runs["friedman_fused"] = friedman_quality(
+        *sample_run(friedman_model, "fused", tune, draws))
+
+    Xl, Yl = logistic(N, PCOLS)
+
+    def logistic_model(pmb):
+        lo = pmb.BART("lo", Xl, Yl, m=M, max_depth=DEPTH)
+        pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Yl)
+        return lo
+
+    # no NUTS step, so a step is cheap: four times the steps of the others
+    idata, post, out = sample_run(logistic_model, "fused", 4 * tune, 4 * draws)
+    lo_hat = post.mean(axis=(0, 1))
+    acc = float(((lo_hat > 0) == (Yl > 0.5)).mean())
+    ph = np.clip(1 / (1 + np.exp(-lo_hat)), 1e-6, 1 - 1e-6)
+    ll = float(np.mean(Yl * np.log(ph) + (1 - Yl) * np.log(1 - ph)))
+    rate = float(Yl.mean())
+    majority = max(rate, 1 - rate)
+    ll_const = rate * np.log(rate) + (1 - rate) * np.log(1 - rate)
+    if not acc > majority:
+        raise AssertionError(f"train accuracy {acc} <= majority {majority}")
+    if not ll > ll_const:
+        raise AssertionError(f"mean log-likelihood {ll} <= {ll_const} of the "
+                             "constant-rate model")
+    runs["logistic_fused"] = dict(out, model="logistic", train_accuracy=acc,
+                                  majority_rate=majority, mean_loglik=ll,
+                                  constant_rate_loglik=float(ll_const))
+
+    short = max(2, draws // 4)
+    runs["friedman_rounds"] = friedman_quality(
+        *sample_run(friedman_model, "rounds", short, 2 * short))
+    emit("sample", runs=runs)
+    launches = {k: runs["friedman_rounds"]["launches"][k]
+                for k in ROUND_KERNELS}
+    launches["pgbart_step_fused"] = (
+        runs["friedman_fused"]["launches"]["pgbart_step_fused"]
+        + runs["logistic_fused"]["launches"]["pgbart_step_fused"])
+    return launches, runs
+
+
+def phase_timing(dev, calls, cfg, smi, runs=None):
     from pymc_bart_tpu_torch.config import PgbartConfig
     from pymc_bart_tpu_torch.ops.grow import grow_round
     from pymc_bart_tpu_torch.ops.select import select_refine
@@ -512,19 +771,57 @@ def phase_timing(dev, calls, cfg, smi):
         **timed(lambda: select_refine(*a, impl="kernel", **kw),
                 lambda: select_refine(*a, impl="plain", **kw)))
 
-    # one whole PGBART step (B = 5 trees), kernel route, host clock + sync
+    # the whole-step kernel at the main shapes, from a grown state; every
+    # launch advances the state in place, as on the main path
+    case = fused_case(dev, "gauss_draw")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    st_k = grown_state(case, gen, dev)
+    st_p = st_k.clone()
+    rands = fused_rands(case, gen, False, dev)
+    B = case["pg"].batch_size(M, False)
+    S = cfg.n_nodes
+    # every random block read once; per updated tree the forest rows and
+    # tree_pred row read and written; sum_trees read and written; X, y, the
+    # row data, alpha_vec and leaf_sd read; the forest's split variables read
+    # for the histogram; the histogram written
+    bts = (nbytes(*(getattr(rands, f) for f in
+                    ("ug", "uv", "rg", "eps", "sb", "ures", "usel", "epsr",
+                     "uacc")))
+           + 4 * C * B * (2 * 6 * S + 2 * N) + 4 * 2 * C * N
+           + nbytes(case["X"], case["Y"], case["row"], st_k.alpha_vec,
+                    st_k.leaf_sd) + 4 * C * M * S + 4 * C * PCOLS)
+    # per row, particle and level as the growth round; per row and sweep the
+    # refinement's gather, difference, square, weight, add
+    ops = B * DEPTH * C * P * N * 7 + B * C * (R + 2) * N * 5
+    b_ms, by = bound(bts, ops)
+    out["pgbart_step_fused"] = dict(
+        bound_ms=b_ms, bound_by=by, bytes=bts,
+        **timed(lambda: fused_step(case, st_k, rands, False, "kernel"),
+                lambda: fused_step(case, st_p, rands, False, "plain")))
+
+    # the same kernel on the logistic data and at the p=1000 width
+    for key, name in (("bernoulli_ms", "bernoulli"),
+                      ("p1000_n200_ms", "gauss_p1000")):
+        other = fused_case(dev, name)
+        st_o = grown_state(other, gen, dev)
+        rands_o = fused_rands(other, gen, False, dev)
+        out["pgbart_step_fused"][key] = cuda_ms(
+            lambda: fused_step(other, st_o, rands_o, False, "kernel"))[0]
+
+    # one whole PGBART step (B = 5 trees) on each route, host clock + sync
     pg = PgbartConfig(num_particles=P, num_refinements=R)
     X_np, Y_np, _ = friedman(N, PCOLS)
     X = torch.from_numpy(X_np).to(dev)
     Y = torch.from_numpy(Y_np).to(dev)[:, None]
     rules = torch.zeros(PCOLS, dtype=torch.int32, device=dev)
     gauss_w = torch.ones((C, N, 1), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(5)
     state = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
     step_ms, rands_ms = {}, []
-    for impl in ("kernel", "plain"):
+    for name, kw, reps in (("fused", dict(route="fused"), 12),
+                           ("rounds", dict(route="rounds"), 12),
+                           ("plain", dict(impl="plain"), 4)):
         times = []
-        for i in range(12 if impl == "kernel" else 4):
+        for i in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rands = pgbart.draw_rands(gen, B=5, C=C, P=P, D=DEPTH, n=N, k=1,
@@ -533,15 +830,18 @@ def phase_timing(dev, calls, cfg, smi):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             state, _ = pgbart.pgbart_step(state, rands, X, Y, rules, cfg, pg,
-                                          False, gauss_w, impl=impl)
+                                          False, gauss_w, **kw)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             rands_ms.append((t1 - t0) * 1e3)
-        step_ms[impl] = float(np.median(times[2:]))
-    emit("timing", card=smi, kernels=out, step_ms_kernel_route=step_ms["kernel"],
+        step_ms[name] = float(np.median(times[2:]))
+    rates = {k: v["chain_draws_per_s"] for k, v in (runs or {}).items()}
+    emit("timing", card=smi, kernels=out, chain_draws_per_s=rates,
+         step_ms_fused_route=step_ms["fused"],
+         step_ms_kernel_route=step_ms["rounds"],
          step_ms_plain_route=step_ms["plain"],
          draw_rands_ms=float(np.median(rands_ms[2:])),
-         launches_per_step={"grow_round": 5 * DEPTH,
+         launches_per_step={"pgbart_step_fused": 1, "grow_round": 5 * DEPTH,
                             "smc_resample": 5 * (DEPTH - 1),
                             "select_refine": 5})
     return out
@@ -549,41 +849,55 @@ def phase_timing(dev, calls, cfg, smi):
 
 def phase_profile(dev, steps=20):
     """Device busy share and device time by kernel over ``steps`` draw steps
-    of the Friedman model (after a warm-up run)."""
+    on the fused route (after a warm-up run), for the Friedman model (PGBART
+    + NUTS) and the logistic model (PGBART alone)."""
     import pymc_bart_tpu_torch as pmb
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     X, Y, _ = friedman(N, PCOLS)
+    Xl, Yl = logistic(N, PCOLS)
 
-    def run(tune, draws):
+    def friedman_model():
+        mu = pmb.BART("mu", X, Y, m=M, max_depth=DEPTH)
+        sigma = pmb.HalfNormal("sigma", 1.0)
+        pmb.Normal("y", mu, sigma, observed=Y)
+
+    def logistic_model():
+        lo = pmb.BART("lo", Xl, Yl, m=M, max_depth=DEPTH)
+        pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Yl)
+
+    def run(model, tune, draws):
         with pmb.Model():
-            mu = pmb.BART("mu", X, Y, m=M, max_depth=DEPTH)
-            sigma = pmb.HalfNormal("sigma", 1.0)
-            pmb.Normal("y", mu, sigma, observed=Y)
+            model()
             pmb.sample(tune=tune, draws=draws, chains=C, random_seed=1,
                        num_particles=P, num_refinements=R,
-                       convergence_checks=False)
+                       convergence_checks=False, pgbart_route="fused")
         torch.cuda.synchronize()
 
-    run(5, 5)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(0, steps)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        # kernels and copies only: an operator's row repeats its kernels' time
-        if dev_us > 0 and e.device_type == DeviceType.CUDA:
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    emit("profile", steps=steps, wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=1.0 - busy_ms / wall_ms,
-         device_events=sum(r[1] for r in rows),
-         top=[dict(ms=r[0], count=r[1], name=r[2][:80]) for r in rows[:15]])
+    for name, model in (("friedman", friedman_model),
+                        ("logistic", logistic_model)):
+        run(model, 5, 5)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(model, 0, steps)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            # kernels and copies only: an operator's row repeats its kernels'
+            if dev_us > 0 and e.device_type == DeviceType.CUDA:
+                rows.append((dev_us / 1e3, e.count, e.key))
+        rows.sort(reverse=True)
+        busy_ms = sum(r[0] for r in rows)
+        emit("profile", model=name, route="fused", steps=steps,
+             wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=1.0 - busy_ms / wall_ms,
+             device_events=sum(r[1] for r in rows),
+             top=[dict(ms=r[0], count=r[1], name=r[2][:80])
+                  for r in rows[:12]])
 
 
 def main(argv=None):
@@ -626,21 +940,21 @@ def main(argv=None):
     calls = cfg = None
     if need_calls:
         calls, cfg = main_path_inputs(dev)
-    errs = launches = times = None
+    errs = launches = times = runs = None
     if "kernels" in phases:
         errs = phase_kernels(dev, calls, cfg)
     if "step" in phases:
         phase_step(dev)
     if "sample" in phases:
-        launches = phase_sample(dev, args.tune, args.draws)
+        launches, runs = phase_sample(dev, args.tune, args.draws)
     if "timing" in phases:
-        times = phase_timing(dev, calls, cfg, smi)
+        times = phase_timing(dev, calls, cfg, smi, runs)
     if "profile" in phases:
         phase_profile(dev)
 
     if set(ALL_PHASES) <= set(phases):
         kernels = []
-        for name in ("grow_round", "smc_resample", "select_refine"):
+        for name in ROUND_KERNELS + ("pgbart_step_fused",):
             t = times[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],

@@ -16,8 +16,10 @@ Usage (PyMC-shaped)::
         idata = pmb.sample(tune=200, draws=600, chains=4)   # on the GPU
 
 ``sample`` runs on ``cuda`` unless ``device="cpu"`` is passed.  On CUDA
-tensors the growth, SMC-resampling and select-refine rounds run as
-hand-written CUDA kernels built from ``csrc/`` at first use.
+tensors a PGBART step is one launch of the whole-step kernel where its gate
+admits the configuration, else one launch per growth, SMC-resampling and
+select-refine round; all four are hand-written CUDA kernels built from
+``csrc/`` at first use.
 """
 
 __version__ = "0.1.0"

@@ -70,30 +70,8 @@ inline size_t smem_bytes(int G, int k, int response) {
   return 8 * (size_t)G + 4 * words;
 }
 
-// order-preserving key of (value, row): larger value wins, then lower row
-__device__ __forceinline__ unsigned long long pack_key(float v, int i) {
-  unsigned int b = __float_as_uint(v);
-  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((unsigned long long)b << 32)
-      | (unsigned long long)(0xFFFFFFFFu - (unsigned int)i);
-}
-
-// Split decision for one row (ops/trees.py decide_left, with the kernel
-// route's own-category test by float equality): NaN routes RIGHT.
-__device__ __forceinline__ bool go_left(float x, float v, int salt, int rule) {
-  const bool xnan = isnan(x);
-  const bool anynan = xnan || isnan(v);
-  const float xv = xnan ? 0.f : x;
-  const bool cont = !anynan && xv <= v;
-  const bool eq = !anynan && xv == v;
-  if (rule == 0) return cont;
-  if (rule == 1) return eq;
-  const int cat = __float2int_rz(xv);  // saturating, as XLA's convert
-  uint32_t h = (uint32_t)salt ^ ((uint32_t)cat * 1103515245u);
-  h = (h ^ (h >> 15)) * 73244475u;
-  h ^= h >> 13;
-  return (eq || (h & 1u)) && !xnan;
-}
+using bart::go_left;
+using bart::pack_key;
 
 extern __shared__ unsigned long long smem_u64[];
 

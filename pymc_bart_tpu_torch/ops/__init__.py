@@ -1,3 +1,5 @@
+from .draw import (fused_draw_supported, fused_draw_unsupported_reason,
+                   pgbart_step_fused, pgbart_step_fused_plain)
 from .grow import grow_round, grow_round_plain
 from .predict import forest_predict, leaf_values_at, tree_leaf_index, tree_predict
 from .select import select_refine, select_refine_plain
@@ -5,8 +7,9 @@ from .smc import smc_resample, smc_resample_plain
 from .trees import Forest, decide_left, init_forest, level_slots, subset_member
 
 __all__ = [
-    "Forest", "decide_left", "forest_predict", "grow_round",
-    "grow_round_plain", "init_forest", "leaf_values_at", "level_slots",
-    "select_refine", "select_refine_plain", "smc_resample",
+    "Forest", "decide_left", "forest_predict", "fused_draw_supported",
+    "fused_draw_unsupported_reason", "grow_round", "grow_round_plain",
+    "init_forest", "leaf_values_at", "level_slots", "pgbart_step_fused",
+    "pgbart_step_fused_plain", "select_refine", "select_refine_plain", "smc_resample",
     "smc_resample_plain", "subset_member", "tree_leaf_index", "tree_predict",
 ]

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNEL_SOURCES = ("grow", "smc", "select")
+KERNEL_SOURCES = ("grow", "smc", "select", "draw")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

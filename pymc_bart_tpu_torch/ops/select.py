@@ -29,8 +29,11 @@ from . import _build
 
 def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
                         ll_weight, eps, u_acc, u_sel, half_inv_var, *,
-                        num_refinements: int, m: int = 1):
-    """Plain PyTorch version (same signature and outputs as the kernel)."""
+                        num_refinements: int, m: int = 1, ll_fn=None):
+    """Plain PyTorch version (same signature and outputs as the kernel).
+
+    ``ll_fn(pred (C, n)) -> (C,)`` replaces the Gaussian log-likelihood for
+    the other closed-form codes (the kernel is Gaussian only)."""
     C, P, S = sv.shape
     n = leaf_idx.shape[2]
     if lf.shape[2] != 1:
@@ -62,6 +65,8 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     hiv = half_inv_var
 
     def ll_of(pred_x):
+        if ll_fn is not None:
+            return ll_fn(pred_x)
         diff = r - pred_x
         return -0.5 * (llw * diff * diff).sum(dim=1)
 

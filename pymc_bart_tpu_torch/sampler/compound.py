@@ -6,10 +6,14 @@ per-draw compound step, chain management and draw storage.  Chains are a
 leading tensor axis ``C`` of one eager program (the JAX package vmaps them);
 per-chain model expressions are batched with ``torch.func.vmap``.
 
-Ported: the fused-Gaussian likelihood pattern (``y ~ Normal(BART, sigma)``)
-with constant response and one output, chunked tune/draw loops, adaptation
-harmonisation, timings, stored posterior forests and convergence checks.
-Arguments that wait for later work raise ``NotImplementedError`` by name.
+Ported: the fused likelihood patterns ``y ~ Normal(BART, sigma)`` (code
+``gauss``) and ``y ~ Bernoulli(sigmoid(BART))`` (code ``bernoulli``) with
+constant response and one output, on the whole-step route of
+``pgbart.pgbart_step`` where its gate admits the configuration and on the
+per-round route otherwise (``sample(pgbart_route=...)`` forces one); chunked
+tune/draw loops, adaptation harmonisation, timings, stored posterior forests
+and convergence checks.  Arguments and models that wait for later work raise
+``NotImplementedError`` by name.
 
 Device policy: ``sample(device=None)`` runs on ``cuda`` and raises if no
 CUDA device is present; the CPU is used only for ``device="cpu"``.
@@ -20,16 +24,18 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import PgbartConfig
-from ..models.distributions import NormalDist
+from ..models.distributions import BernoulliDist, NormalDist
 from ..models.expr import Expr, Op, evaluate
 from ..models.inference_data import DataArray, Dataset, InferenceData
 from ..models.model import BARTRV, Deterministic, Model
+from ..ops.draw import check_status, fused_draw_unsupported_reason
 from ..utils.posterior import PosteriorForests
 from . import hmc, nuts, pgbart
 
@@ -72,11 +78,13 @@ def _unwrap_det(e):
 
 
 def _fused_likelihood(model: Model, brv: BARTRV):
-    """Detect the closed-form Gaussian SMC likelihood.
+    """Detect a closed-form SMC likelihood code.
 
     Returns ``{"kind": "gauss", "sigma_expr": e}`` for
     ``y ~ Normal(BART, sigma(env))`` with ``sigma`` not depending on the
-    BART variable (per-step row data = 1/sigma^2), else ``None``.
+    BART variable (per-step row data = 1/sigma^2),
+    ``{"kind": "bernoulli"}`` for ``y ~ Bernoulli(sigmoid(BART))`` (the
+    labels ride the growth target; no row data), else ``None``.
     """
     if len(model.bart_rvs) != 1 or len(model.observed_rvs) != 1:
         return None
@@ -85,6 +93,13 @@ def _fused_likelihood(model: Model, brv: BARTRV):
     n = brv.X.shape[0]
     if obs.shape[0] != n or not np.allclose(
             obs, np.asarray(brv.Y, np.float64).reshape(-1)):
+        return None
+    if orv.dist is BernoulliDist and brv.config.n_outputs == 1:
+        p_expr = _unwrap_det(orv.params[0]) if orv.params else None
+        if (isinstance(p_expr, Op) and p_expr.fn is torch.sigmoid
+                and len(p_expr.args) == 1
+                and _unwrap_det(p_expr.args[0]) is brv):
+            return {"kind": "bernoulli"}
         return None
     if orv.dist is not NormalDist or len(orv.params) < 2:
         return None
@@ -397,6 +412,7 @@ def sample(
     convergence_checks: bool = True,
     timings: Optional[Dict[str, Any]] = None,
     device=None,
+    pgbart_route: Optional[str] = None,
 ) -> InferenceData:
     """Run the compound PGBART(+NUTS) sampler and return InferenceData.
 
@@ -407,11 +423,16 @@ def sample(
     ``draw_chunk_sizes`` and ``draw_seconds_total`` (host clock after a
     device synchronisation).  ``harmonize_adaptation`` averages the adapted
     ``leaf_sd`` / ``alpha_vec`` across chains at the tune/draw boundary.
+    ``pgbart_route``: ``None`` lets every PGBART step take the whole-step
+    function where its gate admits the configuration (a warning says why a
+    forest does not); ``"fused"`` / ``"rounds"`` force one route.
 
     Not ported yet (``NotImplementedError``): ``mesh``, ``checkpoint_dir``,
     ``resume``, ``profile_dir``, ``debug_nans``, ``posterior_dtype``,
-    ``ancestor_sampling``, ``separate_trees``, a likelihood that is not the
-    fused Gaussian pattern, ``response != "constant"``, ``n_outputs != 1``.
+    ``ancestor_sampling``, ``separate_trees`` (and with it the
+    heteroscedastic and Categorical models), a likelihood that is neither
+    ``Normal(BART, sigma)`` nor ``Bernoulli(sigmoid(BART))``,
+    ``response != "constant"``, ``n_outputs != 1``.
     """
     passed = dict(mesh=mesh, checkpoint_dir=checkpoint_dir, resume=resume,
                   profile_dir=profile_dir, debug_nans=debug_nans,
@@ -461,15 +482,17 @@ def sample(
         if cfg.n_outputs != 1:
             raise NotImplementedError(
                 f"BART variable {brv.name!r}: n_outputs={cfg.n_outputs} is "
-                "not ported yet (n_outputs != 1, separate_trees)")
+                "not ported yet (n_outputs != 1; nor is separate_trees, "
+                "which the heteroscedastic and Categorical models need)")
         if pg_cfgs[brv.name].ancestor_sampling:
             raise NotImplementedError(
                 "PGBART(ancestor_sampling=True) is not ported yet")
         fused = _fused_likelihood(model, brv)
         if fused is None:
             raise NotImplementedError(
-                f"BART variable {brv.name!r}: only the fused Gaussian "
-                "likelihood y ~ Normal(BART, sigma) is ported yet")
+                f"BART variable {brv.name!r}: only the fused likelihoods "
+                "y ~ Normal(BART, sigma) and y ~ Bernoulli(sigmoid(BART)) "
+                "are ported yet")
         X_raw = np.asarray(brv.X, np.float32)
         rules_np = brv.rules_array()
         X_np = X_raw
@@ -487,6 +510,23 @@ def sample(
             all_cont=bool((rules_np == 0).all()), fused=fused))
     n_bart = len(bart_static)
     p_max = max((bs["X"].shape[1] for bs in bart_static), default=1)
+    if pgbart_route not in (None, "fused", "rounds"):
+        raise ValueError("pgbart_route must be None, 'fused' or 'rounds', "
+                         f"got {pgbart_route!r}")
+    if pgbart_route is None:
+        # say WHY a forest leaves the whole-step route instead of silently
+        # running the slower per-round one
+        for bs in bart_static:
+            kind = bs["fused"]["kind"]
+            probe = (None if kind == "bernoulli"
+                     else torch.ones((C, bs["X"].shape[0], 1), device=device))
+            reason = fused_draw_unsupported_reason(
+                bs["cfg"], bs["pg"], bs["X"], probe, lik=kind, chains=C)
+            if reason is not None:
+                warnings.warn(
+                    f"BART variable {bs['name']!r} falls back to the "
+                    "per-round sampler route (slower than the whole-step "
+                    f"kernel): {reason}", stacklevel=2)
 
     # -- init ----------------------------------------------------------------
     theta0 = torch.as_tensor(compiled.initial_theta(), device=device)
@@ -516,7 +556,9 @@ def sample(
                                    device=device)
         return per_chain(_sigma)
 
-    sigma_fns = [make_sigma(bs["fused"]["sigma_expr"]) for bs in bart_static]
+    sigma_fns = [make_sigma(bs["fused"]["sigma_expr"])
+                 if bs["fused"]["kind"] == "gauss" else None
+                 for bs in bart_static]
 
     def _logp(theta, *bart):
         return compiled.logdensity(theta, dict(zip(names, bart)))
@@ -539,11 +581,14 @@ def sample(
         for i, bs in enumerate(bart_static):
             cfg, pg = bs["cfg"], bs["pg"]
             n_i, k_i = bs["X"].shape[0], cfg.n_outputs
-            bart_now = tuple(st.sum_trees for st in bart_states)
-            sigma = sigma_fns[i](h.theta, *bart_now)            # (C,) | (C, n)
-            w = 1.0 / sigma.clamp_min(1e-12) ** 2
-            gauss_w = torch.broadcast_to(
-                w.reshape(C, -1, 1), (C, n_i, k_i)).contiguous()
+            lik = bs["fused"]["kind"]
+            lik_row = None      # bernoulli: the labels ride Yt, no row data
+            if lik == "gauss":
+                bart_now = tuple(st.sum_trees for st in bart_states)
+                sigma = sigma_fns[i](h.theta, *bart_now)        # (C,) | (C, n)
+                w = 1.0 / sigma.clamp_min(1e-12) ** 2
+                lik_row = torch.broadcast_to(
+                    w.reshape(C, -1, 1), (C, n_i, k_i)).contiguous()
             rands = pgbart.draw_rands(
                 gen, B=pg.batch_size(cfg.m, tuning), C=C,
                 P=pg.num_particles, D=cfg.max_depth, n=n_i, k=k_i,
@@ -551,7 +596,8 @@ def sample(
                 device=device)
             bart_states[i], vi = pgbart.pgbart_step(
                 bart_states[i], rands, bs["X"], bs["Yt"], bs["rules"], cfg,
-                pg, tuning, gauss_w)
+                pg, tuning, lik_row, lik=lik,
+                lik_const=bs["fused"].get("const", 0.0), route=pgbart_route)
             vis.append(vi)
 
         if compiled.theta_size > 0:
@@ -589,6 +635,7 @@ def sample(
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+            check_status()
 
     if chunk_size is None:
         chunk_size = max(1, min(200, draws))
@@ -702,6 +749,7 @@ def sample(
     if timings is not None:
         sync()
         timings["draw_seconds_total"] = time.perf_counter() - draw_t0
+    check_status()      # a whole-step launch that gave up raises here
 
     def cat(parts):
         return np.concatenate(parts, axis=1)

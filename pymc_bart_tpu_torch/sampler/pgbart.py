@@ -1,13 +1,19 @@
 """PGBART: the particle-Gibbs BART step, batched over chains (PyTorch).
 
-Counterpart of ``pymc_bart_tpu/sampler/pgbart.py``, restricted to the
-per-round kernel route of the fused-Gaussian likelihood (the
-``use_pallas``/``fused_gauss`` branch of ``_update_one_tree`` and the
-per-tree loop of ``_pgbart_step_dispatch``): per tree ``D`` growth rounds
-(``ops/grow.py``), ``D-1`` SMC resampling steps (``ops/smc.py``) and one
-winner selection with Metropolis leaf refinement (``ops/select.py``), then
-the forest and sum-of-trees commit and, while tuning, the split-prior and
-Welford ``leaf_sd`` adaptation.
+Counterpart of ``pymc_bart_tpu/sampler/pgbart.py`` for the closed-form
+likelihood codes (gauss, bernoulli, het_abs, het_exp, cat_logit), constant
+response and one output.  ``pgbart_step`` is the counterpart of
+``_pgbart_step_dispatch``; it has two routes:
+
+* ``"fused"``: the whole step in one launch (``ops/draw.py``), taken
+  wherever its gate admits the configuration;
+* ``"rounds"``: per tree ``D`` growth rounds (``ops/grow.py``), ``D-1`` SMC
+  resampling steps (``ops/smc.py``) and one winner selection with Metropolis
+  leaf refinement (``ops/select.py``), then the forest and sum-of-trees
+  commit and, while tuning, the split-prior and Welford ``leaf_sd``
+  adaptation (``step_rounds``).  With ``impl="plain"`` this route is the
+  plain version of the fused one.  Its selection kernel is Gaussian, so on a
+  CUDA device the other codes run on the fused route only.
 
 Chains are a leading tensor axis ``C`` where the JAX package uses ``vmap``.
 The step TAKES its random numbers (``StepRands``) as an argument, in the
@@ -15,8 +21,9 @@ layout of ``pymc_bart_tpu/ops/draw_pallas.py::_rands_reference`` with the
 tree axis first and the chain axis second; ``draw_rands`` makes one step's
 blocks from a ``torch.Generator``.  Tests feed the JAX package's own blocks.
 
-Not ported yet: the non-Gaussian likelihood codes, the sufficient-statistics
-and generic ``loglik_fn`` paths, rejuvenation and row sharding.
+Not ported yet: the sufficient-statistics and generic ``loglik_fn`` paths,
+multi-output and linear/mix responses in the step, rejuvenation and row
+sharding.
 """
 
 from __future__ import annotations
@@ -27,9 +34,10 @@ from typing import Optional
 import torch
 
 from ..config import BartConfig, PgbartConfig
+from ..ops import draw as _draw
 from ..ops.grow import grow_round
 from ..ops.predict import tree_predict
-from ..ops.select import select_refine
+from ..ops.select import select_refine, select_refine_plain
 from ..ops.smc import smc_resample
 from ..ops.trees import Forest, init_forest
 
@@ -153,12 +161,43 @@ def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
                      uacc=uacc)
 
 
+def alpha_cdf_of(alpha_vec: torch.Tensor) -> torch.Tensor:
+    """CDF of the split weights (C, p): prefix sums accumulated in float64
+    in index order and rounded to float32 once per entry, the order the
+    whole-step kernel uses (a float32 scan would round differently from one
+    device to the next; integer-valued weights give the same bits anyway)."""
+    return torch.cumsum(alpha_vec.clamp_min(1e-12).to(torch.float64),
+                        dim=1).to(torch.float32)
+
+
+def closed_form_ll(lik: str, lik_const: float, F, y, row):
+    """Per-row log-likelihood terms of a non-Gaussian code at the sum-of-trees
+    value ``F`` (the closed forms of ``pymc_bart_tpu/sampler/pgbart.py``
+    ``eval_ll``); ``y`` and ``row`` broadcast against ``F``."""
+    if lik == "bernoulli":
+        return y * F - (F.clamp_min(0.0) + torch.log1p(torch.exp(-F.abs())))
+    if lik == "het_abs":
+        sg = F.abs() + lik_const
+        return -0.5 * row / (sg * sg) - torch.log(sg)
+    if lik == "het_exp":
+        return -0.5 * row * torch.exp(-2.0 * F) - F
+    if lik == "cat_logit":
+        lse = torch.maximum(F, row) + torch.log1p(torch.exp(-(F - row).abs()))
+        return (y > 0).to(F.dtype) * F - lse
+    raise ValueError(f"no closed form for likelihood code {lik!r}")
+
+
 def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
                      leaf_sd, X, rules, cfg: BartConfig, pg: PgbartConfig,
-                     gauss_w, impl: Optional[str]):
+                     gauss_w, impl: Optional[str], lik: str = "gauss",
+                     lik_const: float = 0.0, sum_noi=None, Y=None):
     """Conditional SMC for tree ``b`` of the batch, all chains.
 
     ``tree`` holds (C, S[, k]) tensors; ``resid``/``gauss_w`` (C, n, k).
+    For a non-Gaussian code the particle log-likelihood after each round is
+    the closed form on ``sum_noi (C, n, k) + pred`` with the labels ``Y``
+    (n, k) (the growth round's Gaussian value is ignored), and the winner is
+    refined under the same closed form.
     Returns ``(sv, sl, st (C, S), leaf (C, S, k), ct (C, S), pred (C, n, k))``.
     """
     P = pg.num_particles
@@ -195,14 +234,38 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     frozen[:, 0] = 1
     ident = torch.arange(P, dtype=i32, device=dev).expand(C, P).contiguous()
 
-    alpha_cdf = torch.cumsum(alpha_vec.clamp_min(1e-12), dim=1)
+    alpha_cdf = alpha_cdf_of(alpha_vec)
     residT = resid.transpose(1, 2).contiguous()                   # (C, k, n)
-    llwT = gauss_w.transpose(1, 2).contiguous()
+    gauss = lik == "gauss"
+    if gauss:
+        llwT = gauss_w.transpose(1, 2).contiguous()
+    else:
+        if impl == "kernel" or (impl is None and resid.is_cuda):
+            raise NotImplementedError(
+                f"likelihood code {lik!r} on a CUDA device runs on the "
+                "fused route only (route='fused'): the per-round selection "
+                "kernel is Gaussian")
+        llwT = torch.zeros((C, k, n), dtype=f32, device=dev)
+        noiT = sum_noi.transpose(1, 2)                            # (C, k, n)
+        yT = Y.reshape(n, k).transpose(0, 1)                      # (k, n)
+        rowT = (gauss_w.transpose(1, 2) if gauss_w is not None else None)
+
+    def eval_ll(pred_all):
+        """(C, P, k, n) or (C, k, n) predictions -> log-likelihood."""
+        lead = pred_all.dim() == 4
+        if gauss:
+            r_, w_ = (residT[:, None], llwT[:, None]) if lead else (residT,
+                                                                    llwT)
+            diff = r_ - pred_all
+            return -0.5 * (w_ * diff * diff).sum(dim=(-2, -1))
+        noi_ = noiT[:, None] if lead else noiT
+        row_ = None if rowT is None else (rowT[:, None] if lead else rowT)
+        return closed_form_ll(lik, lik_const, noi_ + pred_all, yT,
+                              row_).sum(dim=(-2, -1))
 
     # all rows sit at the root: prediction = root leaf value
     pred = lf[:, :, :, 0:1].expand(C, P, k, n).contiguous()
-    diff = residT[:, None] - pred
-    ll = -0.5 * (llwT[:, None] * diff * diff).sum(dim=(2, 3))     # (C, P)
+    ll = eval_ll(pred)                                            # (C, P)
     log_w = ll
     ll_prev = ll
     take = ident
@@ -216,6 +279,8 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
             rands.ug[b, :, :, off:off + G], rands.uv[b, :, :, off:off + G],
             rands.rg[b, d], rands.eps[b, :, :, :, 2 * off:2 * off + 2 * G],
             rands.sb[b, :, :, off:off + G], None, d=d, cfg=cfg, impl=impl)
+        if not gauss:
+            ll = eval_ll(pred)
         take = ident
         if d < D - 1:
             # weight update + ESS-gated systematic resampling; the ancestor
@@ -230,10 +295,17 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     if pg.num_refinements > 0:
         eps_r = eps_r * (0.3 * leaf_sd)[:, None, :, None]
     half_inv_var = 0.5 / (leaf_sd[:, 0] * leaf_sd[:, 0])
-    sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine(
-        sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
-        eps_r.contiguous(), rands.uacc[b], rands.usel[b], half_inv_var,
-        num_refinements=R, m=cfg.m, impl=impl)
+    if gauss:
+        sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine(
+            sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
+            eps_r.contiguous(), rands.uacc[b], rands.usel[b], half_inv_var,
+            num_refinements=R, m=cfg.m, impl=impl)
+    else:
+        sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine_plain(
+            sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
+            eps_r.contiguous(), rands.uacc[b], rands.usel[b], half_inv_var,
+            num_refinements=R, m=cfg.m,
+            ll_fn=lambda pred_x: eval_ll(pred_x[:, None, :]))
     return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w,
             pred_w.transpose(1, 2))
 
@@ -248,11 +320,17 @@ def split_var_counts(forest: Forest, p: int) -> torch.Tensor:
 
 def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
                 cfg: BartConfig, pg: PgbartConfig, tuning: bool, gauss_w,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None, *, lik: str = "gauss",
+                lik_const: float = 0.0, route: Optional[str] = None):
     """One PGBART MCMC step for all chains: update a rotating batch of trees.
 
     ``X`` (n, p) and ``Y_target`` (n, k) are shared by the chains;
-    ``gauss_w`` (C, n, k) is the per-observation Gaussian precision.
+    ``gauss_w`` (C, n, k) is the row data of the likelihood code ``lik``
+    (the per-observation Gaussian precision for ``"gauss"``; ``None`` for
+    ``"bernoulli"``; see ``ops/draw.py``).  ``route=None`` takes the whole-step
+    function (``"fused"``) where its gate admits the configuration, else the
+    per-round route (``"rounds"``); naming one forces it.  ``impl`` forces the
+    kernels or the plain versions on either route.
     The state's tensors are UPDATED IN PLACE (forest, tree_pred and the
     Welford buffers are large and the step is the hot loop); clone the state
     first to keep the old one.  Returns ``(state, variable_inclusion (C, p))``.
@@ -267,6 +345,34 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
             "one output only")
     if pg.ancestor_sampling:
         raise NotImplementedError("ancestor_sampling is not ported yet")
+    if route not in (None, "fused", "rounds"):
+        raise ValueError(f"route must be 'fused' or 'rounds', got {route!r}")
+    if route != "rounds":
+        reason = _draw.fused_draw_unsupported_reason(
+            cfg, pg, X, gauss_w, lik, chains=state.sum_trees.shape[0])
+        if reason is None:
+            return _draw.pgbart_step_fused(
+                state, rands, X, Y_target, rules, cfg, pg, gauss_w, tuning,
+                lik=lik, lik_const=lik_const, impl=impl)
+        if route == "fused":
+            raise ValueError(f"route='fused': {reason}")
+    return step_rounds(state, rands, X, Y_target, rules, cfg, pg, tuning,
+                       gauss_w, impl=impl, lik=lik, lik_const=lik_const)
+
+
+def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
+                cfg: BartConfig, pg: PgbartConfig, tuning: bool, gauss_w,
+                impl: Optional[str] = None, *, lik: str = "gauss",
+                lik_const: float = 0.0):
+    """The per-round route of ``pgbart_step`` (same arguments and outputs):
+    one call per growth round, resampling step and selection, with the
+    commit and the adaptation in plain PyTorch between them."""
+    if lik not in _draw.LIK_CODES:
+        raise NotImplementedError(
+            f"likelihood code {lik!r}: only the closed-form codes "
+            f"{sorted(_draw.LIK_CODES)} are ported")
+    if lik not in ("gauss", "bernoulli") and gauss_w is None:
+        raise ValueError(f"likelihood code {lik!r} needs its row data")
     m = cfg.m
     B = pg.batch_size(m, tuning)
     n, p = X.shape
@@ -287,7 +393,7 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
         resid = Y - sum_noi
         sv_w, sl_w, st_w, lf_w, ct_w, pred = _update_one_tree(
             i, rands, tree, resid, state.alpha_vec, state.leaf_sd, X, rules,
-            cfg, pg, gauss_w, impl)
+            cfg, pg, gauss_w, impl, lik, lik_const, sum_noi, Y)
         forest.split_var[ar, jt] = sv_w
         forest.split_val[ar, jt] = sl_w
         forest.split_set[ar, jt] = st_w

@@ -1,6 +1,6 @@
-"""The ported path as a whole: the Friedman model through the port's
-``sample(device="cpu")`` at a small size, against the JAX package's
-``sample()`` on the same data.
+"""The ported path as a whole: the Friedman model and the logistic
+classifier through the port's ``sample(device="cpu")`` at a small size,
+against the JAX package's ``sample()`` on the same data.
 
 The two packages draw from different random streams, so draws cannot match;
 posterior summaries are held to a Monte-Carlo band instead.  At this size
@@ -150,17 +150,89 @@ def test_sample_refuses_arguments_that_wait(kwargs, word):
             tpmb.sample(tune=1, draws=1, chains=1, device="cpu", **kwargs)
 
 
+def _logistic(n, p, seed=2):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n, p)).astype(np.float32)
+    logit = 8 * (X[:, 0] - 0.5) + 5 * (X[:, 1] - 0.5)
+    return X, rng.binomial(1, 1 / (1 + np.exp(-logit))).astype(np.float32)
+
+
+def _fit_logistic(pmb, seed, **kw):
+    X, Y = _logistic(N, P_COLS)
+    with pmb.Model():
+        lo = pmb.BART("lo", X, Y, m=M)
+        pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Y)
+        idata = pmb.sample(tune=TUNE, draws=DRAWS, chains=CHAINS,
+                           num_particles=PARTICLES, random_seed=seed,
+                           convergence_checks=False, **kw)
+    lo_hat = np.asarray(idata.posterior["lo"].values).mean(axis=(0, 1))
+    acc = float(((lo_hat > 0) == (Y > 0.5)).mean())
+    return idata, acc, float(lo_hat.mean()), float(np.abs(lo_hat).mean())
+
+
+def test_logistic_model_within_monte_carlo_band_of_jax():
+    """``y ~ Bernoulli(sigmoid(BART))``: no free parameter, so no NUTS step
+    (``theta_size == 0``); the bernoulli code drives every PGBART step.  Over
+    seeds 0..3 the two packages give train accuracy 0.84..0.91, mean posterior
+    logit 0.03..0.10 and mean absolute logit 0.56..0.90 at this size; the
+    bands are 0.1, 0.3 and 0.45."""
+    idata, acc_t, mean_t, abs_t = _fit_logistic(tpmb, 0, device="cpu")
+    post = idata.posterior["lo"].values
+    assert post.shape == (CHAINS, DRAWS, N) and np.isfinite(post).all()
+    assert set(idata.posterior.keys()) == {"lo"}          # theta_size == 0
+    assert (idata["sample_stats"]["mean_accept"].values == 1.0).all()
+    assert idata["sample_stats"]["variable_inclusion"].values.sum() > 0
+    _, Y = _logistic(N, P_COLS)
+    assert acc_t > max(Y.mean(), 1 - Y.mean()) + 0.05
+    _, acc_j, mean_j, abs_j = _fit_logistic(jpmb, 0)
+    assert abs(acc_t - acc_j) < 0.1, (acc_t, acc_j)
+    assert abs(mean_t - mean_j) < 0.3, (mean_t, mean_j)
+    assert abs(abs_t - abs_j) < 0.45, (abs_t, abs_j)
+
+
+def test_sample_route_keyword(port_fit):
+    """``pgbart_route`` forces a route; on the CPU both give the same draws
+    (the fused route's plain version is the per-round route's)."""
+    idata, _, _ = port_fit
+    again, _ = _fit(tpmb, 0, device="cpu", pgbart_route="rounds")
+    np.testing.assert_array_equal(idata.posterior["mu"].values,
+                                  again.posterior["mu"].values)
+    X, Y, _ = _toy(30, 3)
+    with tpmb.Model():
+        mu = tpmb.BART("mu", X, Y, m=4)
+        tpmb.Normal("y", mu, 1.0, observed=Y)
+        with pytest.raises(ValueError, match="pgbart_route"):
+            tpmb.sample(tune=1, draws=1, chains=1, device="cpu",
+                        pgbart_route="mega")
+
+
+def _het_model(X, Y):
+    w = tpmb.BART("w", X, Y, m=4, shape=(2, 30), separate_trees=True)
+    return tpmb.Normal("y", w[0], tpmb.math.abs(w[1]) + 0.05, observed=Y)
+
+
+def _categorical_model(X, Y):
+    labels = (Y > Y.mean()) * 1.0
+    lo = tpmb.BART("lo", X, labels, m=4, shape=(2, 30), separate_trees=True)
+    return tpmb.Categorical("y", p=tpmb.math.softmax(lo.T, axis=-1),
+                            observed=labels)
+
+
 @pytest.mark.parametrize("build, word", [
     (lambda X, Y: tpmb.Bernoulli(
-        "y", tpmb.math.sigmoid(tpmb.BART("mu", X, (Y > Y.mean()) * 1.0, m=4)),
-        observed=(Y > Y.mean()) * 1.0), "Gaussian"),
+        "y", tpmb.math.sigmoid(
+            2.0 * tpmb.BART("mu", X, (Y > Y.mean()) * 1.0, m=4)),
+        observed=(Y > Y.mean()) * 1.0), "fused likelihoods"),
+    (_het_model, "separate_trees"),
+    (_categorical_model, "separate_trees"),
     (lambda X, Y: tpmb.Normal(
         "y", tpmb.BART("mu", X, Y, m=4, response="linear"), 1.0, observed=Y),
      "response"),
     (lambda X, Y: tpmb.Normal(
         "y", tpmb.BART("mu", X, Y, m=4, shape=(2, 30))[0], 1.0, observed=Y),
      "n_outputs"),
-], ids=["bernoulli", "linear", "two_outputs"])
+], ids=["bernoulli", "heteroscedastic", "categorical", "linear",
+        "two_outputs"])
 def test_sample_refuses_models_that_wait(build, word):
     X, Y, _ = _toy(30, 3)
     with tpmb.Model():
