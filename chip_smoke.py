@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--phases device,build,kernels,step,sample,timing]
                           [--ptxas] [--tune N] [--draws N]
+                          [--large-tune N] [--large-draws N]
 
 Drives ``pymc_bart_tpu_torch`` on the card and exits non-zero if any phase
 fails (no exception is caught and carried past).  Each phase prints one JSON
@@ -21,11 +22,25 @@ line:
    cat_logit, at p=1000 (n=200) and on a small mixed case (NaNs, one-hot and
    subset columns).  Integer outputs must be equal; floats within rtol 1e-4
    / atol 1e-5 (split values rtol 1e-5 / atol 1e-6; sums of trees rtol 1e-4
-   / atol 1e-4): the sums are taken in another order.
+   / atol 1e-4): the sums are taken in another order.  The large-n kernel
+   ``pgbart_step_bign`` likewise, two steps against its plain version on
+   pre-drawn Gumbels: at C=4, P=10, n=50,000, p=10, m=20 for gauss with
+   tuning on and off (5 refinements), bernoulli, het_abs, het_exp and
+   cat_logit (0 refinements), at the n=1000 shapes above (also with a
+   hundredth of the precision, where the ESS gate falls both ways), and at
+   n=50,001.
+   Then its generated-Gumbel mode: the kernel run from a seed equals the
+   plain version on the block ``ops.bign.gumbel_block`` writes out for that
+   seed, two runs from one seed are identical, and the block's mean and
+   variance are a Gumbel's within 1 %, no two of its rows equal, and 216
+   million generated values are all finite.
 4. ``step``    one tuning and one draw step of ``pgbart_step`` for 4 chains on
    the fused route, on the per-round kernel route and on ``impl="plain"``,
    same random blocks; a non-Gaussian code must refuse the per-round route
-   on the card (its selection kernel is Gaussian).
+   on the card (its selection kernel is Gaussian).  Then one step at
+   n=50,000 three ways on the same blocks: the large-n kernel, its plain
+   version (must agree as above) and the whole-step kernel (reported: it
+   sums rows in float32 in another order, so at this n a decision may flip).
 5. ``sample``  through ``sample()`` on the card at full width (4 chains, 20
    particles, m=50, max_depth=6, n=1000, p=10): the Friedman model on the
    fused route (finite draws, the variable-inclusion recount invariant over
@@ -33,19 +48,29 @@ line:
    classifier ``y ~ Bernoulli(sigmoid(BART))`` on the fused route at four
    times the steps (finite draws, train accuracy above the majority-class
    rate, mean log-likelihood above the constant-rate model's), and a shorter
-   Friedman run on the per-round route.  Kernel launch counts are set to 0 just before each run
-   and read just after: a fused run launches the whole-step kernel once a
-   step and none of the per-round kernels, a per-round run the reverse.
+   Friedman run on the per-round route.  Then the two large-n models at
+   full width (4 chains, 10 particles, m=20, n=50,000, p=10, no
+   refinements, route chosen by ``sample()`` itself): the Friedman regression
+   (RMSE against the true f below half of std(f), the recount invariant) and
+   the logistic classifier (``store_trees=False``; accuracy and
+   log-likelihood as above), on the large-n route with generated Gumbels.
+   Kernel launch counts are set to 0 just before each run and read just
+   after: a fused run launches the whole-step kernel once a step and none
+   of the others, a per-round run the three round kernels, a large-n run
+   the large-n kernel once a step and none of the others.
 6. ``timing``  CUDA-event times of each kernel and its plain version at the
    main-path shapes: ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
    (the host's cost of a call included); the time of one whole step on both
    routes; the least time the card could take (bytes over 3.35 TB/s,
-   operations over 67 TFLOP/s fp32).
+   operations over 67 TFLOP/s fp32).  For the large-n kernel also the
+   traffic of its row passes, and the crossover table: device time of one
+   step on the large-n and on the whole-step kernel at n = 1000 ... 200,000
+   (C=4, P=10, m=20), from which ``ops.bign.BIGN_MIN_ROWS`` is set.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over a short
-``sample()`` run on the fused route: device busy share and the device time by
-kernel name.
+``sample()`` run on the fused route and on the large-n route: device busy
+share and the device time by kernel name.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -68,17 +93,21 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 C, P, N, PCOLS, M, DEPTH, R = 4, 20, 1000, 10, 50, 6, 5
 RMSE_BOUND = 1.5
+# the large-n models: Friedman regression and logistic classifier at n=50,000
+LN = dict(C=4, P=10, N=50_000, PCOLS=10, M=20, DEPTH=6)
 REPLACES = {
     "grow_round": "pymc_bart_tpu/ops/grow_pallas.py:564",
     "smc_resample": "pymc_bart_tpu/ops/smc_pallas.py:82",
     "select_refine": "pymc_bart_tpu/ops/select_pallas.py:138",
     "pgbart_step_fused": "pymc_bart_tpu/ops/draw_pallas.py:992",
+    "pgbart_step_bign": "pymc_bart_tpu/ops/bign_pallas.py:1011",
 }
 SOURCES = {
     "grow_round": "pymc_bart_tpu_torch/csrc/grow.cu",
     "smc_resample": "pymc_bart_tpu_torch/csrc/smc.cu",
     "select_refine": "pymc_bart_tpu_torch/csrc/select.cu",
     "pgbart_step_fused": "pymc_bart_tpu_torch/csrc/draw.cu",
+    "pgbart_step_bign": "pymc_bart_tpu_torch/csrc/bign.cu",
 }
 ROUND_KERNELS = ("grow_round", "smc_resample", "select_refine")
 
@@ -467,6 +496,192 @@ def compare_fused(dev, name, seed=17):
 
 
 # ---------------------------------------------------------------------------
+# the large-n kernel: cases, steps, comparisons
+# ---------------------------------------------------------------------------
+
+BIGN_CASES = ("gauss_tune", "gauss_draw", "bernoulli", "het_abs", "het_exp",
+              "cat_logit", "gauss_n1000", "gauss_n50001", "gauss_flat")
+
+
+def bign_case(dev, name, n=None, seed=0):
+    """Inputs of one large-n case, every tensor on the card: ``dict(cfg, pg,
+    X, Y, lik, lik_const, chains, w_chain, llw, tunings)``.  The sizes are the
+    large-n models' (C=4, P=10, m=20, depth 6, p=10) at ``n`` rows (default
+    50,000); ``gauss_n1000`` has the n=1000 shapes (P=20, m=50), and so has
+    ``gauss_flat``, whose precision is a hundredth: the particles' weights
+    then stay close, the effective sample size falls on both sides of its
+    gate and the winner is not always the heaviest particle (at n=50,000 one
+    particle carries all the weight and the gate always fires)."""
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+
+    rng = np.random.default_rng(200 + seed)
+    chains, particles, m, refinements = LN["C"], LN["P"], LN["M"], 0
+    n = n or {"gauss_n1000": N, "gauss_flat": N,
+              "gauss_n50001": LN["N"] + 1}.get(name, LN["N"])
+    lik, lik_const, tunings = name, 0.0, (True, False)
+    X, Y, _ = friedman(n, LN["PCOLS"], seed=5)
+    chain_shift = np.arange(chains, dtype=np.float32)[:, None]
+    w_chain = llw = None
+    if name.startswith("gauss"):
+        lik, refinements = "gauss", R
+        tunings = (False, False) if name == "gauss_draw" else (True, True)
+        if name in ("gauss_n1000", "gauss_flat"):
+            particles, m = P, M
+        w_chain = (1.0 + 0.2 * chain_shift[:, 0]).astype(np.float32)
+        if name == "gauss_flat":
+            w_chain *= 0.01
+    elif name == "bernoulli":
+        X, Y = logistic(n, LN["PCOLS"], seed=7)
+    elif name in ("het_abs", "het_exp"):
+        lik_const = 0.05 if name == "het_abs" else 0.0
+        llw = (Y[None, :] - (Y.mean() + 0.1 * chain_shift)) ** 2
+        s_hat = np.abs(Y - Y.mean()) / 0.7978845608
+        Y = (s_hat - lik_const if name == "het_abs"
+             else np.log(np.maximum(s_hat, 1e-3))).astype(np.float32)
+    elif name == "cat_logit":
+        labels = (3 * X[:, 0]).astype(np.int64) % 3
+        Y = (4.0 * (labels == 0) - 2.0).astype(np.float32)
+        others = rng.normal(0.0, 0.5, size=(chains, n, 2))
+        llw = np.log(np.exp(others).sum(axis=2))
+    else:
+        raise ValueError(name)
+
+    def t(a):
+        return (None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.float32)).to(dev))
+
+    return dict(cfg=BartConfig(m=m, max_depth=LN["DEPTH"]),
+                pg=PgbartConfig(num_particles=particles,
+                                num_refinements=refinements),
+                X=t(X), Y=t(Y)[:, None], lik=lik, lik_const=lik_const,
+                chains=chains, w_chain=t(w_chain), llw=t(llw),
+                rules=torch.zeros(X.shape[1], dtype=torch.int32, device=dev),
+                row=(t(np.broadcast_to(w_chain[:, None, None], (chains, n, 1)))
+                     if lik == "gauss" else
+                     None if llw is None else t(llw)[:, :, None]),
+                tunings=tunings)
+
+
+def bign_step(case, state, rands, tuning, impl=None):
+    from pymc_bart_tpu_torch.ops.bign import pgbart_step_bign
+
+    return pgbart_step_bign(
+        state, rands, case["X"], case["Y"], case["cfg"], case["pg"],
+        case["w_chain"], tuning, lik=case["lik"], lik_const=case["lik_const"],
+        llw=case["llw"], impl=impl)
+
+
+def bign_rands(case, gen, tuning, dev, row_gumbels=True):
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    cfg, pg = case["cfg"], case["pg"]
+    return pgbart.draw_rands(
+        gen, B=pg.batch_size(cfg.m, tuning), C=case["chains"],
+        P=pg.num_particles, D=cfg.max_depth, n=case["X"].shape[0], k=1,
+        S=cfg.n_nodes, num_refinements=pg.num_refinements, device=dev,
+        row_gumbels=row_gumbels)
+
+
+def bign_grown_state(case, gen, dev, steps=11):
+    """A state in which every tree has been updated at least once and the
+    ``leaf_sd`` adaptation has begun: ``steps`` tuning steps of the large-n
+    kernel on generated Gumbels."""
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    state = pgbart.init_state(case["X"], case["Y"], case["cfg"],
+                              chains=case["chains"], device=dev)
+    for _ in range(steps):
+        state, _ = bign_step(case, state,
+                             bign_rands(case, gen, True, dev, False), True)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(state.sum_trees).all()):
+        raise AssertionError("warm-up steps left a non-finite sum of trees")
+    return state
+
+
+def compare_bign(dev, name, seed=23):
+    """Two consecutive steps of the large-n kernel against its plain version
+    from one grown state, on pre-drawn Gumbels; returns (max abs err, split
+    nodes)."""
+    case = bign_case(dev, name)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s_kernel = bign_grown_state(case, gen, dev)
+    s_plain = s_kernel.clone()
+    worst = 0.0
+    for i, tuning in enumerate(case["tunings"]):
+        rands = bign_rands(case, gen, tuning, dev)
+        s_kernel, vi_k = bign_step(case, s_kernel, rands, tuning, "kernel")
+        torch.cuda.synchronize()
+        s_plain, vi_p = bign_step(case, s_plain, rands, tuning, "plain")
+        torch.cuda.synchronize()
+        tag = f"pgbart_step_bign {name} step {i}"
+        check_close(f"{tag} vi", vi_k, vi_p, 0.0, 0.0)
+        worst = max(worst, compare_state(tag, s_kernel, s_plain))
+    splits = int((s_kernel.forest.split_var >= 0).sum())
+    if splits == 0:
+        raise AssertionError(f"{name}: the forest has no split at all")
+    return worst, splits
+
+
+def check_generated(dev, seed=29):
+    """The generated-Gumbel mode of the large-n kernel: equal to the plain
+    version on the written-out block, the same from run to run, and a Gumbel
+    in mean and variance."""
+    import dataclasses
+
+    from pymc_bart_tpu_torch.ops.bign import gumbel_block
+
+    case = bign_case(dev, "gauss_draw")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    first = bign_grown_state(case, gen, dev)
+    rands = bign_rands(case, gen, False, dev, row_gumbels=False)
+    cfg, pg = case["cfg"], case["pg"]
+    block = gumbel_block(rands.seed, B=pg.batch_size(cfg.m, False),
+                         C=case["chains"], P=pg.num_particles, D=cfg.max_depth,
+                         n=case["X"].shape[0])
+    s_gen, vi_gen = bign_step(case, first.clone(), rands, False, "kernel")
+    s_again, vi_again = bign_step(case, first.clone(), rands, False, "kernel")
+    s_plain, vi_plain = bign_step(case, first.clone(),
+                                  dataclasses.replace(rands, rg=block), False,
+                                  "plain")
+    torch.cuda.synchronize()
+    check_close("generated vi", vi_gen, vi_plain, 0.0, 0.0)
+    err = compare_state("pgbart_step_bign generated", s_gen, s_plain)
+    if not torch.equal(vi_gen, vi_again):
+        raise AssertionError("generated mode: two runs from one seed differ")
+    for name in STATE_TOL:
+        holder = ((s_gen, s_again) if hasattr(s_gen, name)
+                  else (s_gen.forest, s_again.forest))
+        ta, tb = (getattr(h, name) for h in holder)
+        if not torch.equal(ta, tb):
+            raise AssertionError(f"generated mode: {name} differs between two "
+                                 "runs from one seed")
+    mean, var = float(block.mean()), float(block.var())
+    euler, var_g = 0.5772156649, np.pi**2 / 6
+    if abs(mean - euler) > 0.01 * euler or abs(var - var_g) > 0.01 * var_g:
+        raise AssertionError(f"generated Gumbels: mean {mean}, variance {var}")
+    rows = block.reshape(-1, block.shape[-1])[:, :64]
+    if torch.unique(rows, dim=0).shape[0] != rows.shape[0]:
+        raise AssertionError("generated Gumbels: two (tree, level, particle) "
+                             "rows are equal")
+    # every value finite, over enough draws that a mapping which reaches
+    # u = 0 or u = 1 once in 2^24 values cannot slip through
+    checked = 0
+    for _ in range(9):
+        if not bool(torch.isfinite(block).all()):
+            raise AssertionError("generated Gumbels: not finite")
+        checked += block.numel()
+        seed = torch.randint(-2**31, 2**31, (2,), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        block = gumbel_block(seed, B=block.shape[0], C=block.shape[2],
+                             P=block.shape[3], D=block.shape[1],
+                             n=block.shape[4])
+    return dict(max_abs_err_vs_plain_on_block=err, identical_reruns=True,
+                mean=mean, variance=var, rows=int(rows.shape[0]),
+                values=int(block.numel()), finite_values_checked=checked)
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -523,9 +738,19 @@ def phase_kernels(dev, calls, cfg):
         err, splits = compare_fused(dev, name)
         fused[name] = dict(max_abs_err=err, split_nodes=splits)
     errs["pgbart_step_fused"] = max(v["max_abs_err"] for v in fused.values())
+    large = {}
+    for name in BIGN_CASES:
+        err, splits = compare_bign(dev, name)
+        large[name] = dict(max_abs_err=err, split_nodes=splits)
+    generated = check_generated(dev)
+    errs["pgbart_step_bign"] = max(
+        [v["max_abs_err"] for v in large.values()]
+        + [generated["max_abs_err_vs_plain_on_block"]])
     emit("kernels", max_abs_err=errs, grow_mixed_max_abs_err=mixed_err,
          grown_nodes=grown, smc_calls_that_resampled=resampled,
-         pgbart_step_fused_cases=fused,
+         pgbart_step_fused_cases=fused, pgbart_step_bign_cases=large,
+         pgbart_step_bign_generated=generated,
+         large_n_shapes=dict(LN, S=2 ** (LN["DEPTH"] + 1) - 1),
          tolerance={"integers": "equal", "split_val": "rtol 1e-5 atol 1e-6",
                     "other floats": "rtol 1e-4 atol 1e-5",
                     "state of a whole step": {
@@ -579,44 +804,91 @@ def phase_step(dev):
         refusal = str(e)
     else:
         raise AssertionError("bernoulli ran on the per-round route on the card")
+    # one step at n = 50,000 three ways, same pre-drawn blocks
+    from pymc_bart_tpu_torch.ops.draw import pgbart_step_fused
+
+    case = bign_case(dev, "gauss_draw")
+    start = bign_grown_state(case, gen, dev)
+    rands = bign_rands(case, gen, False, dev)
+    args = (case["X"], case["Y"], case["rules"], case["cfg"], case["pg"],
+            False, case["row"])
+    outs = {}
+    for k, kw in (("bign", dict(route="bign")),
+                  ("plain", dict(route="bign", impl="plain")),
+                  ("fused", dict(route="fused"))):
+        before = pgbart_step_fused.launches
+        outs[k] = pgbart.pgbart_step(start.clone(), rands, *args,
+                                     w_scalar=True, all_cont=True,
+                                     x_nan=False, **kw)
+        if (pgbart_step_fused.launches - before) != (k == "fused"):
+            raise AssertionError(f"step at n=50,000: route {k} and the "
+                                 "whole-step kernel's launch count disagree")
+    torch.cuda.synchronize()
+    check_status()
+    check_close("large-n step vi", outs["bign"][1], outs["plain"][1], 0.0, 0.0)
+    large_err = compare_state("large-n step", outs["bign"][0],
+                              outs["plain"][0])
+    sf, sb = outs["fused"][0], outs["bign"][0]
+    if not bool(torch.isfinite(sf.sum_trees).all()):
+        raise AssertionError("whole-step kernel at n=50,000: not finite")
+    check_close("large-n step iteration", sf.iteration, sb.iteration, 0, 0)
     emit("step", max_abs_err_vs_plain=worst, split_nodes=splits, chains=C,
-         rounds_route_refuses_bernoulli=refusal)
+         rounds_route_refuses_bernoulli=refusal,
+         large_n=dict(
+             n=LN["N"], bign_max_abs_err_vs_plain=large_err,
+             fused_split_vars_differing=int(
+                 (sf.forest.split_var != sb.forest.split_var).sum()),
+             fused_sum_trees_max_abs_diff=max_err(sf.sum_trees, sb.sum_trees)))
 
 
-def sample_run(model, route, tune, draws):
+def sample_run(model, route, tune, draws, shape=None):
     """One ``sample()`` run on the card with every launch count set to 0
-    just before and read just after; checks the counts of the route."""
+    just before and read just after; checks the counts of the route.
+
+    ``shape``: ``dict(C, P, N, PCOLS, M, DEPTH)`` plus the ``sample()``
+    arguments ``refinements`` and ``store_trees``; default the n=1000 shapes.
+    ``route``: ``"fused"`` / ``"rounds"`` force that route; ``"bign"`` leaves
+    the choice to ``sample()`` (``pgbart_route=None``), which must then take
+    the large-n route."""
     import pymc_bart_tpu_torch as pmb
+    from pymc_bart_tpu_torch.ops.bign import pgbart_step_bign
     from pymc_bart_tpu_torch.ops.draw import pgbart_step_fused
     from pymc_bart_tpu_torch.ops.grow import grow_round
     from pymc_bart_tpu_torch.ops.select import select_refine
     from pymc_bart_tpu_torch.ops.smc import smc_resample
 
+    sh = dict(C=C, P=P, N=N, PCOLS=PCOLS, M=M, DEPTH=DEPTH, refinements=R,
+              store_trees=True)
+    sh.update(shape or {})
     wrappers = {"grow_round": grow_round, "smc_resample": smc_resample,
                 "select_refine": select_refine,
-                "pgbart_step_fused": pgbart_step_fused}
+                "pgbart_step_fused": pgbart_step_fused,
+                "pgbart_step_bign": pgbart_step_bign}
     timings = {}
     with pmb.Model():
         rv = model(pmb)
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
-        idata = pmb.sample(tune=tune, draws=draws, chains=C, random_seed=0,
-                           num_particles=P, num_refinements=R,
+        idata = pmb.sample(tune=tune, draws=draws, chains=sh["C"],
+                           random_seed=0, num_particles=sh["P"],
+                           num_refinements=sh["refinements"],
+                           store_trees=sh["store_trees"],
                            chunk_size=max(1, draws // 2), timings=timings,
-                           convergence_checks=False, pgbart_route=route)
+                           convergence_checks=False,
+                           pgbart_route=None if route == "bign" else route)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: int(w.launches) for k, w in wrappers.items()}
     steps = tune + draws
-    B = 5
+    B = max(1, int(sh["M"] * 0.1))
+    want = dict.fromkeys(wrappers, 0)
     if route == "rounds":
-        want = {"grow_round": steps * B * DEPTH,
-                "smc_resample": steps * B * (DEPTH - 1),
-                "select_refine": steps * B, "pgbart_step_fused": 0}
+        want.update(grow_round=steps * B * sh["DEPTH"],
+                    smc_resample=steps * B * (sh["DEPTH"] - 1),
+                    select_refine=steps * B)
     else:
-        want = {"grow_round": 0, "smc_resample": 0, "select_refine": 0,
-                "pgbart_step_fused": steps}
+        want["pgbart_step_" + route] = steps
     for k, v in launches.items():
         if want[k] and v == 0:
             raise AssertionError(f"the {route} route never launched {k}")
@@ -624,34 +896,59 @@ def sample_run(model, route, tune, draws):
             raise AssertionError(f"{route} route, {k}: {v} launches, "
                                  f"expected {want[k]}")
     post = np.asarray(idata.posterior[rv.name].values)
-    if post.shape != (C, draws, N):
+    if post.shape != (sh["C"], draws, sh["N"]):
         raise AssertionError(f"posterior shape {post.shape}")
     if not np.isfinite(post).all():
         raise AssertionError("non-finite posterior draws")
     vi = np.asarray(idata["sample_stats"]["variable_inclusion"].values)
-    sv = rv.all_trees.split_var
-    if sv.shape != (C, draws, M, 2 ** (DEPTH + 1) - 1):
-        raise AssertionError(f"stored forests have shape {sv.shape}")
-    recount = np.stack([(sv == j).sum(axis=(2, 3)) for j in range(PCOLS)],
-                       axis=-1)
-    if not np.array_equal(vi[:, :, 0, :], recount):
-        raise AssertionError("variable_inclusion != recount over the forests")
-    for c in range(1, C):
+    if sh["store_trees"]:
+        sv = rv.all_trees.split_var
+        if sv.shape != (sh["C"], draws, sh["M"], 2 ** (sh["DEPTH"] + 1) - 1):
+            raise AssertionError(f"stored forests have shape {sv.shape}")
+        recount = np.stack([(sv == j).sum(axis=(2, 3))
+                            for j in range(sh["PCOLS"])], axis=-1)
+        if not np.array_equal(vi[:, :, 0, :], recount):
+            raise AssertionError("variable_inclusion != recount over the "
+                                 "forests")
+    elif not (vi.sum(axis=-1) > 0).all():
+        raise AssertionError("a draw's forest has no split at all")
+    for c in range(1, sh["C"]):
         if np.array_equal(post[0], post[c]):
             raise AssertionError(f"chain {c} repeats chain 0")
-    out = dict(route=route, tune=tune, draws=draws, chains=C, seconds=seconds,
+    out = dict(route=route, tune=tune, draws=draws, chains=sh["C"],
+               n=sh["N"], seconds=seconds,
                tune_seconds=timings["tune_seconds"],
                draw_seconds_total=timings["draw_seconds_total"],
-               chain_draws_per_s=C * draws / timings["draw_seconds_total"],
+               chain_draws_per_s=sh["C"] * draws
+               / timings["draw_seconds_total"],
                vi_top5=np.argsort(vi.sum(axis=(0, 1))[0])[::-1][:5].tolist(),
                launches=launches)
     return idata, post, out
 
 
-def phase_sample(dev, tune, draws):
-    """Friedman and logistic on the fused route, then a shorter Friedman run
-    on the per-round route.  Returns the launch counts of every kernel on
-    the path that drives it."""
+def classifier_quality(post, labels):
+    """Train accuracy above the majority rate and mean log-likelihood above
+    the constant-rate model's, from the posterior mean of the logit."""
+    lo_hat = post.mean(axis=(0, 1))
+    acc = float(((lo_hat > 0) == (labels > 0.5)).mean())
+    ph = np.clip(1 / (1 + np.exp(-lo_hat)), 1e-6, 1 - 1e-6)
+    ll = float(np.mean(labels * np.log(ph) + (1 - labels) * np.log(1 - ph)))
+    rate = float(labels.mean())
+    majority = max(rate, 1 - rate)
+    ll_const = rate * np.log(rate) + (1 - rate) * np.log(1 - rate)
+    if not acc > majority:
+        raise AssertionError(f"train accuracy {acc} <= majority {majority}")
+    if not ll > ll_const:
+        raise AssertionError(f"mean log-likelihood {ll} <= {ll_const} of the "
+                             "constant-rate model")
+    return dict(train_accuracy=acc, majority_rate=majority, mean_loglik=ll,
+                constant_rate_loglik=float(ll_const))
+
+
+def phase_sample(dev, tune, draws, large_tune, large_draws):
+    """Friedman and logistic on the fused route, a shorter Friedman run on
+    the per-round route, then the two n=50,000 models on the large-n route.
+    Returns the launch counts of every kernel on the path that drives it."""
     X, Y, f_true = friedman(N, PCOLS)
 
     def friedman_model(pmb):
@@ -683,31 +980,57 @@ def phase_sample(dev, tune, draws):
 
     # no NUTS step, so a step is cheap: four times the steps of the others
     idata, post, out = sample_run(logistic_model, "fused", 4 * tune, 4 * draws)
-    lo_hat = post.mean(axis=(0, 1))
-    acc = float(((lo_hat > 0) == (Yl > 0.5)).mean())
-    ph = np.clip(1 / (1 + np.exp(-lo_hat)), 1e-6, 1 - 1e-6)
-    ll = float(np.mean(Yl * np.log(ph) + (1 - Yl) * np.log(1 - ph)))
-    rate = float(Yl.mean())
-    majority = max(rate, 1 - rate)
-    ll_const = rate * np.log(rate) + (1 - rate) * np.log(1 - rate)
-    if not acc > majority:
-        raise AssertionError(f"train accuracy {acc} <= majority {majority}")
-    if not ll > ll_const:
-        raise AssertionError(f"mean log-likelihood {ll} <= {ll_const} of the "
-                             "constant-rate model")
-    runs["logistic_fused"] = dict(out, model="logistic", train_accuracy=acc,
-                                  majority_rate=majority, mean_loglik=ll,
-                                  constant_rate_loglik=float(ll_const))
+    runs["logistic_fused"] = dict(out, model="logistic",
+                                  **classifier_quality(post, Yl))
 
     short = max(2, draws // 4)
     runs["friedman_rounds"] = friedman_quality(
         *sample_run(friedman_model, "rounds", short, 2 * short))
+
+    # the two large-n models; sample() itself must choose the large-n route
+    big = dict(LN, refinements=0)
+    Xb, Yb, fb = friedman(LN["N"], LN["PCOLS"], seed=5)
+
+    def large_regression(pmb):
+        mu = pmb.BART("mu", Xb, Yb, m=LN["M"])
+        sigma = pmb.HalfNormal("sigma", 1.0)
+        pmb.Normal("y", mu, sigma, observed=Yb)
+        return mu
+
+    idata, post, out = sample_run(large_regression, "bign", large_tune,
+                                  large_draws, dict(big, store_trees=True))
+    rmse = float(np.sqrt(np.mean((post.mean(axis=(0, 1)) - fb) ** 2)))
+    if not rmse < 0.5 * float(np.std(fb)):
+        raise AssertionError(f"large-n rmse vs true f {rmse} >= half of "
+                             f"std(f) {float(np.std(fb))}")
+    sig = np.asarray(idata.posterior["sigma"].values)
+    if not np.isfinite(sig).all():
+        raise AssertionError("large-n sigma draws are not finite")
+    runs["large_n_regression"] = dict(
+        out, model="friedman n=50,000", rmse_vs_true_f=rmse,
+        std_f=float(np.std(fb)), sigma_mean=float(sig.mean()))
+    del idata, post
+
+    Xc, Yc = logistic(LN["N"], LN["PCOLS"], seed=7)
+
+    def large_classifier(pmb):
+        lo = pmb.BART("lo", Xc, Yc, m=LN["M"])
+        pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Yc)
+        return lo
+
+    idata, post, out = sample_run(large_classifier, "bign", large_tune,
+                                  large_draws, dict(big, store_trees=False))
+    runs["large_n_classifier"] = dict(out, model="logistic n=50,000",
+                                      **classifier_quality(post, Yc))
+    del idata, post
     emit("sample", runs=runs)
     launches = {k: runs["friedman_rounds"]["launches"][k]
                 for k in ROUND_KERNELS}
-    launches["pgbart_step_fused"] = (
-        runs["friedman_fused"]["launches"]["pgbart_step_fused"]
-        + runs["logistic_fused"]["launches"]["pgbart_step_fused"])
+    for name, used_by in (
+            ("pgbart_step_fused", ("friedman_fused", "logistic_fused")),
+            ("pgbart_step_bign", ("large_n_regression",
+                                  "large_n_classifier"))):
+        launches[name] = sum(runs[r]["launches"][name] for r in used_by)
     return launches, runs
 
 
@@ -808,6 +1131,8 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
         out["pgbart_step_fused"][key] = cuda_ms(
             lambda: fused_step(other, st_o, rands_o, False, "kernel"))[0]
 
+    out["pgbart_step_bign"], crossover = time_bign(dev, gen, bound, timed)
+
     # one whole PGBART step (B = 5 trees) on each route, host clock + sync
     pg = PgbartConfig(num_particles=P, num_refinements=R)
     X_np, Y_np, _ = friedman(N, PCOLS)
@@ -841,16 +1166,138 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
          step_ms_kernel_route=step_ms["rounds"],
          step_ms_plain_route=step_ms["plain"],
          draw_rands_ms=float(np.median(rands_ms[2:])),
+         large_n_crossover=crossover,
          launches_per_step={"pgbart_step_fused": 1, "grow_round": 5 * DEPTH,
                             "smc_resample": 5 * (DEPTH - 1),
-                            "select_refine": 5})
+                            "select_refine": 5, "pgbart_step_bign": 1})
     return out
+
+
+def bign_bytes(case, rands, state, tuning):
+    """``(io_bytes, pass_bytes, ops)`` of one large-n step.
+
+    ``io_bytes``: every input of the FUNCTION read once and every output
+    written once: X, y, the precision or row data, the random blocks (the row
+    Gumbels only when pre-drawn), per updated tree the four forest rows and
+    the ``tree_pred`` row read and written, ``sum_trees`` (and the Welford
+    buffers while tuning) read and written, ``alpha_vec``, ``leaf_sd``, the
+    forest's split variables for the histogram, the histogram.
+    ``pass_bytes``: what the row passes move when every particle has an
+    active node on every level: per tree the residual pass (sum_trees,
+    tree_pred, y read; noi, resid written) and the row set-up (li written);
+    per level li read and written by pass 1 (plus the Gumbel row when
+    pre-drawn), li, one X column and resid read by pass 2, li read and
+    written and one X column read by pass 3; the final pass (winner's li,
+    noi read; tree_pred, sum_trees written).  The row regime adds the
+    prediction row wherever li moves, and noi, y and the row data in pass 3.
+    ``ops``: float operations per row, particle and level (compare, square,
+    two float64 adds, routing compare, two logarithms of the Gumbel; the row
+    regime's closed form on top)."""
+    cfg, pg = case["cfg"], case["pg"]
+    Cc, Pp, m, S, D = (case["chains"], pg.num_particles, cfg.m, cfg.n_nodes,
+                       cfg.max_depth)
+    n, p = case["X"].shape
+    B = pg.batch_size(m, tuning)
+    rowll = case["lik"] != "gauss"
+    io = (nbytes(case["X"], case["Y"], case["w_chain"], case["llw"],
+                 *(getattr(rands, f) for f in
+                   ("ug", "uv", "rg", "eps", "ures", "usel", "epsr", "uacc",
+                    "seed")), state.alpha_vec, state.leaf_sd)
+          + 4 * Cc * B * (2 * 4 * S + 2 * n) + 4 * 2 * Cc * n
+          + (4 * 4 * Cc * n * B if tuning else 0)
+          + 4 * Cc * m * S + 4 * Cc * p)
+    CPn, Cn = Cc * Pp * n, Cc * n
+    row_state = 2 if rowll else 1          # li, and the prediction row
+    per_level = (2 * CPn * row_state + (CPn if rands.rg is not None else 0)
+                 + CPn + CPn + Cn
+                 + 2 * CPn * row_state + CPn + (3 * Cn if rowll else 0))
+    per_tree = (5 * Cn + CPn * row_state + D * per_level + 4 * Cn)
+    ops = B * D * CPn * (20 if rowll else 8)
+    return io, 4 * B * per_tree, ops
+
+
+def time_bign(dev, gen, bound, timed):
+    """Times of the large-n kernel at n = 50,000 (gauss: the entry of the
+    ``kernels`` line; bernoulli beside it) and the crossover table against
+    the whole-step kernel."""
+    from pymc_bart_tpu_torch.ops.bign import BIGN_MIN_ROWS, launches_per_step
+
+    entry = {}
+    for name in ("gauss_draw", "bernoulli"):
+        case = bign_case(dev, name)
+        st_k = bign_grown_state(case, gen, dev)
+        st_p = st_k.clone()
+        r_gen = bign_rands(case, gen, False, dev, row_gumbels=False)
+        r_pre = bign_rands(case, gen, False, dev)
+        io, passes, ops = bign_bytes(case, r_gen, st_k, False)
+        b_ms, by = bound(io, ops)
+        t = dict(bound_ms=b_ms, bound_by=by, io_bytes=io, pass_bytes=passes,
+                 pass_bound_ms=passes / HBM_BYTES_PER_S * 1e3,
+                 **timed(lambda: bign_step(case, st_k, r_gen, False, "kernel"),
+                         lambda: bign_step(case, st_p, r_pre, False, "plain")))
+        t["pre_drawn_ms"] = cuda_ms(
+            lambda: bign_step(case, st_k, r_pre, False, "kernel"))[0]
+        t["cuda_kernels_per_step"] = launches_per_step(
+            case["pg"].batch_size(case["cfg"].m, False), case["cfg"].max_depth)
+        # one step as the main path issues it: blocks drawn, step enqueued,
+        # host clock around a synchronisation
+        times = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bign_step(case, st_k, bign_rands(case, gen, False, dev, False),
+                      False, "kernel")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        t["step_ms_with_draw_rands"] = float(np.median(times[2:]))
+        if name == "gauss_draw":
+            entry = dict(t, shapes=dict(LN, lik="gauss", generated=True))
+        else:
+            entry["bernoulli"] = t
+        del st_k, st_p, r_pre
+
+    table = []
+    for n in (1000, 2000, 4000, 16384, 50_000, 200_000):
+        row = dict(n=n)
+        for lik, name in (("gauss", "gauss_draw"), ("bernoulli", "bernoulli")):
+            case = bign_case(dev, name, n=n)
+            st_b = bign_grown_state(case, gen, dev)
+            st_f = st_b.clone()
+            r_gen = bign_rands(case, gen, False, dev, row_gumbels=False)
+            r_pre = bign_rands(case, gen, False, dev)
+            iters = 20 if n <= 16384 else 5
+            row[f"{lik}_bign_ms"] = cuda_ms(
+                lambda: bign_step(case, st_b, r_gen, False, "kernel"),
+                iters=iters)[0]
+            row[f"{lik}_fused_ms"] = cuda_ms(
+                lambda: fused_step(case, st_f, r_pre, False, "kernel"),
+                iters=iters)[0]
+            del st_b, st_f, r_pre
+        table.append(row)
+    torch.cuda.synchronize()
+    from pymc_bart_tpu_torch.ops.draw import check_status
+
+    check_status()
+    # the constant in the code must be what this table supports: the large-n
+    # kernel is the faster one at every measured n from BIGN_MIN_ROWS on
+    for row in table:
+        for lik in ("gauss", "bernoulli"):
+            if (row["n"] >= BIGN_MIN_ROWS
+                    and row[f"{lik}_bign_ms"] > row[f"{lik}_fused_ms"]):
+                raise AssertionError(
+                    f"BIGN_MIN_ROWS={BIGN_MIN_ROWS}, but at n={row['n']} "
+                    f"({lik}) the large-n kernel takes "
+                    f"{row[f'{lik}_bign_ms']} ms and the whole-step kernel "
+                    f"{row[f'{lik}_fused_ms']} ms")
+    return entry, dict(BIGN_MIN_ROWS=BIGN_MIN_ROWS, C=LN["C"], P=LN["P"],
+                       m=LN["M"], rows=table)
 
 
 def phase_profile(dev, steps=20):
     """Device busy share and device time by kernel over ``steps`` draw steps
-    on the fused route (after a warm-up run), for the Friedman model (PGBART
-    + NUTS) and the logistic model (PGBART alone)."""
+    (after a warm-up run), for the Friedman model (PGBART + NUTS) and the
+    logistic model (PGBART alone) at n=1000 on the fused route and at
+    n=50,000 on the large-n route."""
     import pymc_bart_tpu_torch as pmb
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -867,21 +1314,42 @@ def phase_profile(dev, steps=20):
         lo = pmb.BART("lo", Xl, Yl, m=M, max_depth=DEPTH)
         pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Yl)
 
-    def run(model, tune, draws):
+    def run(model, tune, draws, large):
         with pmb.Model():
             model()
-            pmb.sample(tune=tune, draws=draws, chains=C, random_seed=1,
-                       num_particles=P, num_refinements=R,
-                       convergence_checks=False, pgbart_route="fused")
+            if large:    # sample() takes the large-n route by itself
+                pmb.sample(tune=tune, draws=draws, chains=LN["C"],
+                           random_seed=1, num_particles=LN["P"],
+                           num_refinements=0, store_trees=False,
+                           convergence_checks=False)
+            else:
+                pmb.sample(tune=tune, draws=draws, chains=C, random_seed=1,
+                           num_particles=P, num_refinements=R,
+                           convergence_checks=False, pgbart_route="fused")
         torch.cuda.synchronize()
 
+    Xb, Yb, _ = friedman(LN["N"], LN["PCOLS"], seed=5)
+    Xc, Yc = logistic(LN["N"], LN["PCOLS"], seed=7)
+
+    def large_regression():
+        mu = pmb.BART("mu", Xb, Yb, m=LN["M"])
+        sigma = pmb.HalfNormal("sigma", 1.0)
+        pmb.Normal("y", mu, sigma, observed=Yb)
+
+    def large_classifier():
+        lo = pmb.BART("lo", Xc, Yc, m=LN["M"])
+        pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Yc)
+
     for name, model in (("friedman", friedman_model),
-                        ("logistic", logistic_model)):
-        run(model, 5, 5)
+                        ("logistic", logistic_model),
+                        ("large_n_regression", large_regression),
+                        ("large_n_classifier", large_classifier)):
+        large = name.startswith("large")
+        run(model, 5, 5, large)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run(model, 0, steps)
+            run(model, 0, steps, large)
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = []
         for e in prof.key_averages():
@@ -892,7 +1360,8 @@ def phase_profile(dev, steps=20):
                 rows.append((dev_us / 1e3, e.count, e.key))
         rows.sort(reverse=True)
         busy_ms = sum(r[0] for r in rows)
-        emit("profile", model=name, route="fused", steps=steps,
+        emit("profile", model=name, route="bign" if large else "fused",
+             steps=steps,
              wall_ms=wall_ms, device_busy_ms=busy_ms,
              device_idle_share=1.0 - busy_ms / wall_ms,
              device_events=sum(r[1] for r in rows),
@@ -907,6 +1376,9 @@ def main(argv=None):
                     help="print registers and shared memory of each kernel")
     ap.add_argument("--tune", type=int, default=150)
     ap.add_argument("--draws", type=int, default=150)
+    ap.add_argument("--large-tune", type=int, default=100,
+                    help="tuning steps of the n=50,000 models")
+    ap.add_argument("--large-draws", type=int, default=100)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES) - set(EXTRA_PHASES)
@@ -946,7 +1418,8 @@ def main(argv=None):
     if "step" in phases:
         phase_step(dev)
     if "sample" in phases:
-        launches, runs = phase_sample(dev, args.tune, args.draws)
+        launches, runs = phase_sample(dev, args.tune, args.draws,
+                                      args.large_tune, args.large_draws)
     if "timing" in phases:
         times = phase_timing(dev, calls, cfg, smi, runs)
     if "profile" in phases:
@@ -954,7 +1427,8 @@ def main(argv=None):
 
     if set(ALL_PHASES) <= set(phases):
         kernels = []
-        for name in ROUND_KERNELS + ("pgbart_step_fused",):
+        for name in ROUND_KERNELS + ("pgbart_step_fused",
+                                     "pgbart_step_bign"):
             t = times[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],

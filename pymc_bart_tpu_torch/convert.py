@@ -94,7 +94,8 @@ def rands_from_numpy(per_chain: Sequence[Sequence[np.ndarray]],
     ``draw_pallas._rands_reference``:
     ``(ug (B,P,Gtot), uv, rg (B,D,P,n), eps (B,P,2Gtot,k), sb uint32 (B,P,Gtot),
     ures (B,D), usel (B,), epsr (B,R,k,S), uacc (B,R))`` -> ``StepRands``
-    (tree axis first, chain axis second, ``eps`` K-major)."""
+    (tree axis first, chain axis second, ``eps`` K-major).  ``rg`` may be
+    ``None`` (the large-n route then generates the row Gumbels itself)."""
     device = torch.device(device)
 
     def stack(i, axis, bits=False, perm=None):
@@ -106,8 +107,9 @@ def rands_from_numpy(per_chain: Sequence[Sequence[np.ndarray]],
         return torch.from_numpy(
             np.ascontiguousarray(np.stack(arrs, axis=axis))).to(device)
 
+    no_rg = any(chain[2] is None for chain in per_chain)
     return StepRands(
-        ug=stack(0, 1), uv=stack(1, 1), rg=stack(2, 2),
+        ug=stack(0, 1), uv=stack(1, 1), rg=None if no_rg else stack(2, 2),
         eps=stack(3, 1, perm=(0, 1, 3, 2)), sb=stack(4, 1, bits=True),
         ures=stack(5, 2), usel=stack(6, 1), epsr=stack(7, 1),
         uacc=stack(8, 1))

@@ -20,7 +20,10 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNEL_SOURCES = ("grow", "smc", "select", "draw")
+KERNEL_SOURCES = ("grow", "smc", "select", "draw", "bign")
+# bign.cu rounds its float32 arithmetic where its plain PyTorch version does
+# (one rounding per operation), so it is compiled without fused multiply-add
+EXTRA_FLAGS = {"bign": ("-fmad=false",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -46,7 +49,8 @@ def _target(name: str) -> Path:
 def _command(name: str, out: Path, verbose: bool):
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR),
-           "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+           *EXTRA_FLAGS.get(name, ()), "-o", str(out),
+           str(CSRC_DIR / f"{name}.cu")]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     return cmd

@@ -8,8 +8,9 @@ per-chain model expressions are batched with ``torch.func.vmap``.
 
 Ported: the fused likelihood patterns ``y ~ Normal(BART, sigma)`` (code
 ``gauss``) and ``y ~ Bernoulli(sigmoid(BART))`` (code ``bernoulli``) with
-constant response and one output, on the whole-step route of
-``pgbart.pgbart_step`` where its gate admits the configuration and on the
+constant response and one output, on the large-n route of
+``pgbart.pgbart_step`` from ``ops.bign.BIGN_MIN_ROWS`` rows on, on the
+whole-step route where its gate admits the configuration and on the
 per-round route otherwise (``sample(pgbart_route=...)`` forces one); chunked
 tune/draw loops, adaptation harmonisation, timings, stored posterior forests
 and convergence checks.  Arguments and models that wait for later work raise
@@ -35,7 +36,7 @@ from ..models.distributions import BernoulliDist, NormalDist
 from ..models.expr import Expr, Op, evaluate
 from ..models.inference_data import DataArray, Dataset, InferenceData
 from ..models.model import BARTRV, Deterministic, Model
-from ..ops.draw import check_status, fused_draw_unsupported_reason
+from ..ops.draw import check_status
 from ..utils.posterior import PosteriorForests
 from . import hmc, nuts, pgbart
 
@@ -423,9 +424,12 @@ def sample(
     ``draw_chunk_sizes`` and ``draw_seconds_total`` (host clock after a
     device synchronisation).  ``harmonize_adaptation`` averages the adapted
     ``leaf_sd`` / ``alpha_vec`` across chains at the tune/draw boundary.
-    ``pgbart_route``: ``None`` lets every PGBART step take the whole-step
-    function where its gate admits the configuration (a warning says why a
-    forest does not); ``"fused"`` / ``"rounds"`` force one route.
+    ``pgbart_route``: ``None`` lets every PGBART step take the large-n route
+    from ``ops.bign.BIGN_MIN_ROWS`` rows on and the whole-step function below
+    that, where their gates admit the configuration (a warning says why a
+    forest takes the per-round route); ``"bign"`` / ``"fused"`` / ``"rounds"``
+    force one route.  On a CUDA device the large-n route generates its row
+    Gumbels inside the kernel and the step draws no block that grows with n.
 
     Not ported yet (``NotImplementedError``): ``mesh``, ``checkpoint_dir``,
     ``resume``, ``profile_dir``, ``debug_nans``, ``posterior_dtype``,
@@ -507,26 +511,13 @@ def sample(
             rules=torch.as_tensor(rules_np, dtype=torch.int32, device=device),
             rules_np=rules_np, cfg=cfg, pg=pg_cfgs[brv.name],
             split_prior=brv.split_prior,
-            all_cont=bool((rules_np == 0).all()), fused=fused))
+            all_cont=bool((rules_np == 0).all()),
+            x_nan=bool(np.isnan(X_np).any()), fused=fused))
     n_bart = len(bart_static)
     p_max = max((bs["X"].shape[1] for bs in bart_static), default=1)
-    if pgbart_route not in (None, "fused", "rounds"):
-        raise ValueError("pgbart_route must be None, 'fused' or 'rounds', "
-                         f"got {pgbart_route!r}")
-    if pgbart_route is None:
-        # say WHY a forest leaves the whole-step route instead of silently
-        # running the slower per-round one
-        for bs in bart_static:
-            kind = bs["fused"]["kind"]
-            probe = (None if kind == "bernoulli"
-                     else torch.ones((C, bs["X"].shape[0], 1), device=device))
-            reason = fused_draw_unsupported_reason(
-                bs["cfg"], bs["pg"], bs["X"], probe, lik=kind, chains=C)
-            if reason is not None:
-                warnings.warn(
-                    f"BART variable {bs['name']!r} falls back to the "
-                    "per-round sampler route (slower than the whole-step "
-                    f"kernel): {reason}", stacklevel=2)
+    if pgbart_route not in (None,) + pgbart.ROUTES:
+        raise ValueError(f"pgbart_route must be None or one of "
+                         f"{pgbart.ROUTES}, got {pgbart_route!r}")
 
     # -- init ----------------------------------------------------------------
     theta0 = torch.as_tensor(compiled.initial_theta(), device=device)
@@ -559,6 +550,33 @@ def sample(
     sigma_fns = [make_sigma(bs["fused"]["sigma_expr"])
                  if bs["fused"]["kind"] == "gauss" else None
                  for bs in bart_static]
+
+    # The route of every forest is a STATIC fact of the model and the card:
+    # resolve it once, say why a forest takes the per-round route instead of
+    # running it silently, and draw each step's random blocks for that route.
+    for i, bs in enumerate(bart_static):
+        kind = bs["fused"]["kind"]
+        n_i = bs["X"].shape[0]
+        probe = (None if kind == "bernoulli"
+                 else torch.ones((C, n_i, 1), device=device))
+        # a 0-d sigma (one value per chain) means every row of a chain
+        # shares one precision: the large-n route's Gaussian regime applies
+        bs["w_scalar"] = (kind == "gauss" and sigma_fns[i](
+            h.theta, *(st.sum_trees for st in bart_states)).dim() == 1)
+        bs["route"], why = pgbart.resolve_route(
+            pgbart_route, bs["cfg"], bs["pg"], bs["X"], probe, kind, chains=C,
+            w_scalar=bs["w_scalar"], all_cont=bs["all_cont"],
+            x_nan=bs["x_nan"])
+        # the large-n kernel generates its row Gumbels; its plain version
+        # (CPU) needs the block
+        bs["row_gumbels"] = not (bs["route"] == "bign"
+                                 and device.type == "cuda")
+        if pgbart_route is None and bs["route"] == "rounds":
+            warnings.warn(
+                f"BART variable {bs['name']!r} takes the per-round sampler "
+                "route (slower than the whole-step kernels): "
+                f"whole-step route: {why['fused']}; large-n route: "
+                f"{why['bign']}", stacklevel=2)
 
     def _logp(theta, *bart):
         return compiled.logdensity(theta, dict(zip(names, bart)))
@@ -593,11 +611,13 @@ def sample(
                 gen, B=pg.batch_size(cfg.m, tuning), C=C,
                 P=pg.num_particles, D=cfg.max_depth, n=n_i, k=k_i,
                 S=cfg.n_nodes, num_refinements=pg.num_refinements,
-                device=device)
+                device=device, row_gumbels=bs["row_gumbels"])
             bart_states[i], vi = pgbart.pgbart_step(
                 bart_states[i], rands, bs["X"], bs["Yt"], bs["rules"], cfg,
                 pg, tuning, lik_row, lik=lik,
-                lik_const=bs["fused"].get("const", 0.0), route=pgbart_route)
+                lik_const=bs["fused"].get("const", 0.0), route=bs["route"],
+                w_scalar=bs["w_scalar"], all_cont=bs["all_cont"],
+                x_nan=bs["x_nan"])
             vis.append(vi)
 
         if compiled.theta_size > 0:

@@ -3,8 +3,12 @@
 Counterpart of ``pymc_bart_tpu/sampler/pgbart.py`` for the closed-form
 likelihood codes (gauss, bernoulli, het_abs, het_exp, cat_logit), constant
 response and one output.  ``pgbart_step`` is the counterpart of
-``_pgbart_step_dispatch``; it has two routes:
+``_pgbart_step_dispatch``; it has three routes:
 
+* ``"bign"``: the whole step in the large-n formulation (``ops/bign.py``:
+  rows spread over the card, node-space sufficient statistics for the
+  Gaussian code, row Gumbels generated inside the kernel), taken from
+  ``ops.bign.BIGN_MIN_ROWS`` rows on where its gate admits the configuration;
 * ``"fused"``: the whole step in one launch (``ops/draw.py``), taken
   wherever its gate admits the configuration;
 * ``"rounds"``: per tree ``D`` growth rounds (``ops/grow.py``), ``D-1`` SMC
@@ -13,7 +17,7 @@ response and one output.  ``pgbart_step`` is the counterpart of
   commit and, while tuning, the split-prior and Welford ``leaf_sd``
   adaptation (``step_rounds``).  With ``impl="plain"`` this route is the
   plain version of the fused one.  Its selection kernel is Gaussian, so on a
-  CUDA device the other codes run on the fused route only.
+  CUDA device the other codes run on the other two routes only.
 
 Chains are a leading tensor axis ``C`` where the JAX package uses ``vmap``.
 The step TAKES its random numbers (``StepRands``) as an argument, in the
@@ -21,9 +25,9 @@ layout of ``pymc_bart_tpu/ops/draw_pallas.py::_rands_reference`` with the
 tree axis first and the chain axis second; ``draw_rands`` makes one step's
 blocks from a ``torch.Generator``.  Tests feed the JAX package's own blocks.
 
-Not ported yet: the sufficient-statistics and generic ``loglik_fn`` paths,
-multi-output and linear/mix responses in the step, rejuvenation and row
-sharding.
+Not ported yet: the generic ``loglik_fn`` path and the XLA-only
+sufficient-statistics mode, multi-output and linear/mix responses in the
+step, rejuvenation and row sharding.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Optional
 import torch
 
 from ..config import BartConfig, PgbartConfig
+from ..ops import bign as _bign
 from ..ops import draw as _draw
 from ..ops.grow import grow_round
 from ..ops.predict import tree_predict
@@ -68,20 +73,23 @@ class PgbartState:
 class StepRands:
     """Random blocks of one step: ``B`` trees, ``C`` chains.
 
-    ``rg`` holds Gumbel draws; ``epsr`` is UNSCALED standard normal (the
-    step multiplies by ``0.3 * leaf_sd``); ``sb`` is the ``int32`` bit
-    pattern of the JAX ``uint32`` salts.
+    ``rg`` holds Gumbel draws, or is ``None`` when the ``"bign"`` route is to
+    generate them inside its kernel from ``seed``; ``epsr`` is UNSCALED
+    standard normal (the step multiplies by ``0.3 * leaf_sd``); ``sb`` is the
+    ``int32`` bit pattern of the JAX ``uint32`` salts.
     """
 
     ug: torch.Tensor    # float32[B, C, P, Gtot] grow uniforms
     uv: torch.Tensor    # float32[B, C, P, Gtot] split-variable uniforms
-    rg: torch.Tensor    # float32[B, D, C, P, n] row Gumbels
+    rg: Optional[torch.Tensor]  # float32[B, D, C, P, n] row Gumbels
     eps: torch.Tensor   # float32[B, C, P, k, 2*Gtot] child leaf normals
     sb: torch.Tensor    # int32[B, C, P, Gtot] subset-rule salts
     ures: torch.Tensor  # float32[B, D, C] resampling uniforms
     usel: torch.Tensor  # float32[B, C] selection uniforms
     epsr: torch.Tensor  # float32[B, C, R, k, S] refinement normals
     uacc: torch.Tensor  # float32[B, C, R] refinement accept uniforms
+    # int32[2]: the 64-bit seed of the in-kernel row Gumbels, on the device
+    seed: Optional[torch.Tensor] = None
 
 
 def init_state(X, Y_target, cfg: BartConfig, split_prior=None, *,
@@ -131,8 +139,12 @@ def init_state(X, Y_target, cfg: BartConfig, split_prior=None, *,
 
 def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
                n: int, k: int, S: int, num_refinements: int,
-               device) -> StepRands:
-    """One step's random blocks from ``gen`` (which lives on ``device``)."""
+               device, row_gumbels: bool = True) -> StepRands:
+    """One step's random blocks from ``gen`` (which lives on ``device``).
+
+    ``row_gumbels=False`` leaves out the (B, D, C, P, n) Gumbel block, the
+    only one that grows with ``n``, and draws a 64-bit ``seed`` instead, from
+    which the ``"bign"`` route generates the same block inside its kernel."""
     Gtot = 2**D - 1
     R = max(num_refinements, 1)
     f32 = torch.float32
@@ -144,9 +156,14 @@ def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
         return torch.randn(shape, generator=gen, device=device, dtype=f32)
 
     # Gumbel = -log(-log(u)) with u clamped away from 0 and 1
-    tiny = torch.finfo(f32).tiny
-    u = unif(B, D, C, P, n).clamp_(tiny, 1.0 - 2.0**-24)
-    rg = u.log_().neg_().log_().neg_()
+    rg = seed = None
+    if row_gumbels:
+        tiny = torch.finfo(f32).tiny
+        u = unif(B, D, C, P, n).clamp_(tiny, 1.0 - 2.0**-24)
+        rg = u.log_().neg_().log_().neg_()
+    else:
+        seed = torch.randint(-2**31, 2**31, (2,), generator=gen, device=device,
+                             dtype=torch.int64).to(torch.int32)
     bits = torch.randint(0, 2**32, (B, C, P, Gtot), generator=gen,
                          device=device, dtype=torch.int64)
     sb = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
@@ -158,7 +175,7 @@ def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
     return StepRands(ug=unif(B, C, P, Gtot), uv=unif(B, C, P, Gtot), rg=rg,
                      eps=norm(B, C, P, k, 2 * Gtot), sb=sb,
                      ures=unif(B, D, C), usel=unif(B, C), epsr=epsr,
-                     uacc=uacc)
+                     uacc=uacc, seed=seed)
 
 
 def alpha_cdf_of(alpha_vec: torch.Tensor) -> torch.Tensor:
@@ -318,19 +335,59 @@ def split_var_counts(forest: Forest, p: int) -> torch.Tensor:
     return (sv[:, :, None] == ar).to(torch.float32).sum(dim=1)
 
 
+ROUTES = ("bign", "fused", "rounds")
+
+
+def resolve_route(route: Optional[str], cfg: BartConfig, pg: PgbartConfig, X,
+                  gauss_w, lik: str, *, chains: int, w_scalar: bool,
+                  all_cont: bool, x_nan: bool):
+    """``(route taken, {route: why not})`` for one PGBART step.
+
+    ``route=None``: ``"bign"`` when its gate admits the configuration and
+    ``X`` has at least ``ops.bign.BIGN_MIN_ROWS`` rows, else ``"fused"`` where
+    its gate admits it, else ``"rounds"``.  A named route is taken or raises
+    with its gate's reason."""
+    if route not in (None,) + ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    why = {}
+    if route in (None, "bign"):
+        why["bign"] = _bign.bign_unsupported_reason(
+            cfg, pg, X, lik, w_scalar, all_cont, x_nan, chains=chains)
+        if route is None and why["bign"] is None \
+                and X.shape[0] < _bign.BIGN_MIN_ROWS:
+            why["bign"] = (f"n={X.shape[0]} is below BIGN_MIN_ROWS="
+                           f"{_bign.BIGN_MIN_ROWS}")
+        if why["bign"] is None:
+            return "bign", why
+        if route == "bign":
+            raise ValueError(f"route='bign': {why['bign']}")
+    if route in (None, "fused"):
+        why["fused"] = _draw.fused_draw_unsupported_reason(
+            cfg, pg, X, gauss_w, lik, chains=chains)
+        if why["fused"] is None:
+            return "fused", why
+        if route == "fused":
+            raise ValueError(f"route='fused': {why['fused']}")
+    return "rounds", why
+
+
 def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
                 cfg: BartConfig, pg: PgbartConfig, tuning: bool, gauss_w,
                 impl: Optional[str] = None, *, lik: str = "gauss",
-                lik_const: float = 0.0, route: Optional[str] = None):
+                lik_const: float = 0.0, route: Optional[str] = None,
+                w_scalar: bool = False, all_cont: Optional[bool] = None,
+                x_nan: Optional[bool] = None):
     """One PGBART MCMC step for all chains: update a rotating batch of trees.
 
     ``X`` (n, p) and ``Y_target`` (n, k) are shared by the chains;
     ``gauss_w`` (C, n, k) is the row data of the likelihood code ``lik``
     (the per-observation Gaussian precision for ``"gauss"``; ``None`` for
-    ``"bernoulli"``; see ``ops/draw.py``).  ``route=None`` takes the whole-step
-    function (``"fused"``) where its gate admits the configuration, else the
-    per-round route (``"rounds"``); naming one forces it.  ``impl`` forces the
-    kernels or the plain versions on either route.
+    ``"bernoulli"``; see ``ops/draw.py``).  ``route``: see ``resolve_route``;
+    ``"bign"`` needs the caller's structural promises: ``w_scalar`` (every
+    row of a chain shares one Gaussian precision, i.e. sigma is a scalar
+    random variable), ``all_cont`` (every split rule continuous; read from
+    ``rules`` when None) and ``x_nan`` (X holds a NaN; read from ``X`` when
+    None).  ``impl`` forces the kernels or the plain versions on any route.
     The state's tensors are UPDATED IN PLACE (forest, tree_pred and the
     Welford buffers are large and the step is the hot loop); clone the state
     first to keep the old one.  Returns ``(state, variable_inclusion (C, p))``.
@@ -345,17 +402,37 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
             "one output only")
     if pg.ancestor_sampling:
         raise NotImplementedError("ancestor_sampling is not ported yet")
-    if route not in (None, "fused", "rounds"):
-        raise ValueError(f"route must be 'fused' or 'rounds', got {route!r}")
-    if route != "rounds":
-        reason = _draw.fused_draw_unsupported_reason(
-            cfg, pg, X, gauss_w, lik, chains=state.sum_trees.shape[0])
-        if reason is None:
-            return _draw.pgbart_step_fused(
-                state, rands, X, Y_target, rules, cfg, pg, gauss_w, tuning,
-                lik=lik, lik_const=lik_const, impl=impl)
-        if route == "fused":
-            raise ValueError(f"route='fused': {reason}")
+    C = state.sum_trees.shape[0]
+    bign_possible = route == "bign" or (
+        route is None and X.shape[0] >= _bign.BIGN_MIN_ROWS)
+    if bign_possible:       # the two reads synchronise: only where needed
+        if all_cont is None:
+            all_cont = bool((rules == 0).all())
+        if x_nan is None:
+            x_nan = bool(torch.isnan(X).any())
+    taken, _why = resolve_route(
+        route, cfg, pg, X, gauss_w, lik, chains=C, w_scalar=w_scalar,
+        all_cont=bool(all_cont) if bign_possible else False,
+        x_nan=bool(x_nan) if bign_possible else True)
+    if taken == "bign":
+        # gauss: one precision per chain; the other codes: their row data
+        w_chain = llw = None
+        if lik == "gauss":
+            w_chain = gauss_w[:, 0, 0].contiguous()
+        elif gauss_w is not None:
+            llw = gauss_w.reshape(C, X.shape[0])
+        return _bign.pgbart_step_bign(
+            state, rands, X, Y_target, cfg, pg, w_chain, tuning, lik=lik,
+            lik_const=lik_const, llw=llw, impl=impl)
+    if rands.rg is None:
+        raise ValueError(
+            f"the {taken!r} route needs the pre-drawn row Gumbels rands.rg; "
+            "only the 'bign' route generates them (draw_rands("
+            "row_gumbels=True))")
+    if taken == "fused":
+        return _draw.pgbart_step_fused(
+            state, rands, X, Y_target, rules, cfg, pg, gauss_w, tuning,
+            lik=lik, lik_const=lik_const, impl=impl)
     return step_rounds(state, rands, X, Y_target, rules, cfg, pg, tuning,
                        gauss_w, impl=impl, lik=lik, lik_const=lik_const)
 

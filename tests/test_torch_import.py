@@ -16,7 +16,7 @@ MODULES = [
     "pymc_bart_tpu_torch.ops.predict", "pymc_bart_tpu_torch.ops.resample",
     "pymc_bart_tpu_torch.ops.grow", "pymc_bart_tpu_torch.ops.smc",
     "pymc_bart_tpu_torch.ops.select", "pymc_bart_tpu_torch.ops.draw",
-    "pymc_bart_tpu_torch.ops._build",
+    "pymc_bart_tpu_torch.ops.bign", "pymc_bart_tpu_torch.ops._build",
     "pymc_bart_tpu_torch.sampler.pgbart", "pymc_bart_tpu_torch.sampler.hmc",
     "pymc_bart_tpu_torch.sampler.nuts", "pymc_bart_tpu_torch.sampler.compound",
     "pymc_bart_tpu_torch.models.expr",
@@ -47,6 +47,16 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     """)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
+
+
+def test_module_list_covers_every_port_module():
+    """A module added to the port must be added to ``MODULES`` (packages'
+    ``__init__`` files are imported with their modules)."""
+    found = {".".join(path.relative_to(ROOT).with_suffix("").parts)
+             for path in (ROOT / "pymc_bart_tpu_torch").rglob("*.py")
+             if path.name != "__init__.py"}
+    assert found <= set(MODULES), sorted(found - set(MODULES))
+    assert "pymc_bart_tpu_torch.ops.bign" in found
 
 
 def test_sources_import_only_torch_and_numpy():

@@ -141,7 +141,10 @@ def test_draw_rands_shapes_and_determinism():
     b = tpgbart.draw_rands(torch.Generator().manual_seed(5), **kw)
     assert a.rg.shape == (3, 3, 2, 4, 10) and a.eps.shape == (3, 2, 4, 1, 14)
     assert a.sb.dtype == torch.int32 and a.epsr.shape == (3, 2, 5, 1, 15)
+    assert a.seed is None and b.seed is None    # drawn only without the block
     for f in dataclasses.fields(a):
+        if f.name == "seed":
+            continue
         x, y = getattr(a, f.name), getattr(b, f.name)
         assert torch.equal(x, y), f.name
         assert torch.isfinite(x.to(torch.float32)).all(), f.name
