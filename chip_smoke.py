@@ -19,8 +19,14 @@ line:
    ``pgbart_step_fused`` runs two consecutive steps from a grown state
    against its plain version, same random blocks: at the main shapes (m=50)
    for gauss with tuning on and off, bernoulli, het_abs, het_exp and
-   cat_logit, at p=1000 (n=200) and on a small mixed case (NaNs, one-hot and
-   subset columns).  Integer outputs must be equal; floats within rtol 1e-4
+   cat_logit, at p=1000 (n=200), on a small mixed case (NaNs, one-hot and
+   subset columns), with a hundredth of the precision (the ESS gate falls
+   both ways), with 19 particles (an idle slot in the cluster) and at
+   n=16,384 (the form that keeps the per-particle state in global memory;
+   the phase prints the form of every case and fails if a case runs in
+   another than it names).  Then its generated-Gumbel mode in both forms:
+   equal to the plain version on the written-out block, and the same bits
+   from two runs.  Integer outputs must be equal; floats within rtol 1e-4
    / atol 1e-5 (split values rtol 1e-5 / atol 1e-6; sums of trees rtol 1e-4
    / atol 1e-4): the sums are taken in another order.  The large-n kernel
    ``pgbart_step_bign`` likewise, two steps against its plain version on
@@ -57,20 +63,24 @@ line:
    Kernel launch counts are set to 0 just before each run and read just
    after: a fused run launches the whole-step kernel once a step and none
    of the others, a per-round run the three round kernels, a large-n run
-   the large-n kernel once a step and none of the others.
+   the large-n kernel once a step and none of the others.  No run may draw
+   the (B, D, C, P, n) row-Gumbel block: every route works from a seed.
 6. ``timing``  CUDA-event times of each kernel and its plain version at the
    main-path shapes: ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
    (the host's cost of a call included); the time of one whole step on both
    routes; the least time the card could take (bytes over 3.35 TB/s,
-   operations over 67 TFLOP/s fp32).  For the large-n kernel also the
-   traffic of its row passes, and the crossover table: device time of one
-   step on the large-n and on the whole-step kernel at n = 1000 ... 200,000
-   (C=4, P=10, m=20), from which ``ops.bign.BIGN_MIN_ROWS`` is set.
+   operations over 67 TFLOP/s fp32).  The whole-step kernel is timed as the
+   main path runs it (generated Gumbels) with the pre-drawn mode and its
+   bound beside.  For the large-n kernel also the traffic of its row passes,
+   and the crossover table: device time of one step on the large-n and on
+   the whole-step kernel at n = 1000 ... 200,000 (C=4, P=10, m=20), from
+   which ``ops.bign.BIGN_MIN_ROWS`` is set, and the same at P=20, m=50.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over a short
 ``sample()`` run on the fused route and on the large-n route: device busy
-share and the device time by kernel name.
+share and the device time by kernel name.  ``--phases ...,clocks`` builds
+the whole-step kernel with phase clocks and prints where a step's cycles go.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -88,7 +98,7 @@ import numpy as np
 import torch
 
 ALL_PHASES = ("device", "build", "kernels", "step", "sample", "timing")
-EXTRA_PHASES = ("profile",)    # only when asked for with --phases
+EXTRA_PHASES = ("profile", "clocks")    # only when asked for with --phases
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 C, P, N, PCOLS, M, DEPTH, R = 4, 20, 1000, 10, 50, 6, 5
@@ -358,14 +368,23 @@ def compare_state(tag, got, want):
 
 
 FUSED_CASES = ("gauss_tune", "gauss_draw", "bernoulli", "het_abs", "het_exp",
-               "cat_logit", "gauss_p1000", "gauss_mixed")
+               "cat_logit", "gauss_p1000", "gauss_mixed", "gauss_flat",
+               "gauss_p19", "gauss_global")
+# the form each case must run in (ops.draw.launch_plan): per-particle state in
+# shared memory, or in global memory where a chain's rows do not fit
+FUSED_FORMS = {"gauss_global": "global"}
 
 
 def fused_case(dev, name, seed=0):
     """Inputs of one whole-step case: ``dict(cfg, pg, X, Y, rules, row, lik,
     lik_const, chains, tunings)`` with every tensor on the card.  ``row`` is
     the (C, n, 1) row data of the code, or None; ``tunings`` the tuning flag
-    of the two compared steps."""
+    of the two compared steps.  Beside the eight cases of the likelihood codes
+    and widths: ``gauss_flat`` (a hundredth of the precision: the weights stay
+    close, so the ESS gate falls both ways and the winner is not always the
+    heaviest particle), ``gauss_p19`` (19 particles: one slot of the cluster
+    stays idle) and ``gauss_global`` (n=16,384 rows: the form that keeps the
+    per-particle state in global memory)."""
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
 
     rng = np.random.default_rng(100 + seed)
@@ -394,8 +413,17 @@ def fused_case(dev, name, seed=0):
             X[rng.random(size=X.shape) < 0.1] = np.nan
             rules = np.array([0, 1, 2, 2], np.int32)
             chain_shift = chain_shift[:chains]
-        row = np.broadcast_to(1.0 + 0.2 * chain_shift,
-                              (chains, X.shape[0], 1))
+        elif name == "gauss_p19":
+            pg = PgbartConfig(num_particles=19, num_refinements=R)
+        elif name == "gauss_global":
+            chains = 2
+            cfg = BartConfig(m=LN["M"], max_depth=DEPTH)
+            pg = PgbartConfig(num_particles=LN["P"], num_refinements=R)
+            X, Y, _ = friedman(16384, PCOLS, seed=5)
+            chain_shift = chain_shift[:chains]
+        row = np.broadcast_to(
+            (0.01 if name == "gauss_flat" else 1.0) * (1.0 + 0.2 * chain_shift),
+            (chains, X.shape[0], 1))
     elif name == "bernoulli":
         X, Y = logistic(N, PCOLS)
         row = None
@@ -438,29 +466,51 @@ def fused_step(case, state, rands, tuning, impl=None):
         lik_const=case["lik_const"], impl=impl)
 
 
-def fused_rands(case, gen, tuning, dev):
+def fused_rands(case, gen, tuning, dev, row_gumbels=True):
     from pymc_bart_tpu_torch.sampler import pgbart
 
     cfg, pg = case["cfg"], case["pg"]
     return pgbart.draw_rands(
         gen, B=pg.batch_size(cfg.m, tuning), C=case["chains"],
         P=pg.num_particles, D=cfg.max_depth, n=case["X"].shape[0], k=1,
-        S=cfg.n_nodes, num_refinements=pg.num_refinements, device=dev)
+        S=cfg.n_nodes, num_refinements=pg.num_refinements, device=dev,
+        row_gumbels=row_gumbels)
+
+
+def fused_plan(case):
+    """The launch plan of the whole-step kernel for a case's shapes."""
+    from pymc_bart_tpu_torch.ops.draw import launch_plan
+
+    cfg, pg = case["cfg"], case["pg"]
+    n, p = case["X"].shape
+    return launch_plan(case["chains"], pg.num_particles, cfg.max_depth,
+                       cfg.n_nodes, n, p, max(pg.num_refinements, 1))
+
+
+def with_block(case, rands, tuning):
+    """``rands`` with the row Gumbels its seed generates written out."""
+    import dataclasses
+
+    from pymc_bart_tpu_torch.ops.bign import gumbel_block
+
+    cfg, pg = case["cfg"], case["pg"]
+    return dataclasses.replace(rands, rg=gumbel_block(
+        rands.seed, B=pg.batch_size(cfg.m, tuning), C=case["chains"],
+        P=pg.num_particles, D=cfg.max_depth, n=case["X"].shape[0]))
 
 
 def grown_state(case, gen, dev, steps=11):
     """A state in which every tree has been updated at least once and the
-    ``leaf_sd`` adaptation has begun: ``steps`` tuning steps of the kernel."""
-    from pymc_bart_tpu_torch.ops.draw import check_status
+    ``leaf_sd`` adaptation has begun: ``steps`` tuning steps of the kernel on
+    generated Gumbels."""
     from pymc_bart_tpu_torch.sampler import pgbart
 
     state = pgbart.init_state(case["X"], case["Y"], case["cfg"],
                               chains=case["chains"], device=dev)
     for _ in range(steps):
-        state, _ = fused_step(case, state, fused_rands(case, gen, True, dev),
-                              True)
+        state, _ = fused_step(case, state,
+                              fused_rands(case, gen, True, dev, False), True)
     torch.cuda.synchronize()
-    check_status()
     if not bool(torch.isfinite(state.sum_trees).all()):
         raise AssertionError("warm-up steps left a non-finite sum of trees")
     return state
@@ -468,10 +518,16 @@ def grown_state(case, gen, dev, steps=11):
 
 def compare_fused(dev, name, seed=17):
     """Two consecutive steps of the whole-step kernel against its plain
-    version from one grown state; returns (max abs err, split nodes)."""
-    from pymc_bart_tpu_torch.ops.draw import check_status
-
+    version from one grown state, on pre-drawn Gumbels; returns (max abs err,
+    split nodes, launch plan)."""
     case = fused_case(dev, name)
+    plan = fused_plan(case)
+    if plan.form != FUSED_FORMS.get(name, "shared"):
+        raise AssertionError(f"{name}: the kernel would run in the "
+                             f"{plan.form!r} form ({plan})")
+    if name == "gauss_p19" and not (plan.cluster * plan.per_block
+                                    > case["pg"].num_particles):
+        raise AssertionError(f"{name}: no idle particle slot in {plan}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     s_kernel = grown_state(case, gen, dev)
     s_plain = s_kernel.clone()
@@ -480,7 +536,6 @@ def compare_fused(dev, name, seed=17):
         rands = fused_rands(case, gen, tuning, dev)
         s_kernel, vi_k = fused_step(case, s_kernel, rands, tuning, "kernel")
         torch.cuda.synchronize()
-        check_status()
         s_plain, vi_p = fused_step(case, s_plain, rands, tuning, "plain")
         torch.cuda.synchronize()
         tag = f"pgbart_step_fused {name} step {i}"
@@ -492,7 +547,48 @@ def compare_fused(dev, name, seed=17):
         raise AssertionError(f"{name}: the forest has no split at all")
     if name == "gauss_mixed" and not bool((sv >= 1).any()):
         raise AssertionError("mixed case: no categorical column was split on")
-    return worst, splits
+    return worst, splits, plan
+
+
+def state_fields(state):
+    for name in STATE_TOL:
+        holder = state if hasattr(state, name) else state.forest
+        yield name, getattr(holder, name)
+
+
+def check_generated_fused(dev, seed=31):
+    """The generated-Gumbel mode of the whole-step kernel, in both forms: the
+    kernel run from a seed equals the plain version on the block
+    ``ops.bign.gumbel_block`` writes out for that seed, and two runs from one
+    seed are identical bit for bit."""
+    out = {}
+    for name in ("gauss_tune", "bernoulli", "gauss_global"):
+        case = fused_case(dev, name)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        first = grown_state(case, gen, dev)
+        tuning = case["tunings"][0]
+        rands = fused_rands(case, gen, tuning, dev, row_gumbels=False)
+        s_gen, vi_gen = fused_step(case, first.clone(), rands, tuning, "kernel")
+        s_again, vi_again = fused_step(case, first.clone(), rands, tuning,
+                                       "kernel")
+        s_plain, vi_plain = fused_step(case, first.clone(),
+                                       with_block(case, rands, tuning), tuning,
+                                       "plain")
+        torch.cuda.synchronize()
+        check_close(f"generated {name} vi", vi_gen, vi_plain, 0.0, 0.0)
+        err = compare_state(f"pgbart_step_fused generated {name}", s_gen,
+                            s_plain)
+        if not torch.equal(vi_gen, vi_again):
+            raise AssertionError(f"generated mode, {name}: two runs from one "
+                                 "seed differ")
+        for (field, ta), (_, tb) in zip(state_fields(s_gen),
+                                        state_fields(s_again)):
+            if not torch.equal(ta, tb):
+                raise AssertionError(f"generated mode, {name}: {field} differs "
+                                     "between two runs from one seed")
+        out[name] = dict(max_abs_err_vs_plain_on_block=err,
+                         identical_reruns=True, form=fused_plan(case).form)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -649,10 +745,7 @@ def check_generated(dev, seed=29):
     err = compare_state("pgbart_step_bign generated", s_gen, s_plain)
     if not torch.equal(vi_gen, vi_again):
         raise AssertionError("generated mode: two runs from one seed differ")
-    for name in STATE_TOL:
-        holder = ((s_gen, s_again) if hasattr(s_gen, name)
-                  else (s_gen.forest, s_again.forest))
-        ta, tb = (getattr(h, name) for h in holder)
+    for (name, ta), (_, tb) in zip(state_fields(s_gen), state_fields(s_again)):
         if not torch.equal(ta, tb):
             raise AssertionError(f"generated mode: {name} differs between two "
                                  "runs from one seed")
@@ -735,9 +828,16 @@ def phase_kernels(dev, calls, cfg):
             check_close(f"select_refine {name}", g, w, *tol))
     fused = {}
     for name in FUSED_CASES:
-        err, splits = compare_fused(dev, name)
-        fused[name] = dict(max_abs_err=err, split_nodes=splits)
-    errs["pgbart_step_fused"] = max(v["max_abs_err"] for v in fused.values())
+        err, splits, plan = compare_fused(dev, name)
+        fused[name] = dict(max_abs_err=err, split_nodes=splits, form=plan.form,
+                           cluster=plan.cluster, particles_per_block=plan.per_block,
+                           warps_per_particle=plan.warps,
+                           x_staged=plan.x_staged, smem_bytes=plan.smem)
+    fused_generated = check_generated_fused(dev)
+    errs["pgbart_step_fused"] = max(
+        [v["max_abs_err"] for v in fused.values()]
+        + [v["max_abs_err_vs_plain_on_block"]
+           for v in fused_generated.values()])
     large = {}
     for name in BIGN_CASES:
         err, splits = compare_bign(dev, name)
@@ -748,7 +848,9 @@ def phase_kernels(dev, calls, cfg):
         + [generated["max_abs_err_vs_plain_on_block"]])
     emit("kernels", max_abs_err=errs, grow_mixed_max_abs_err=mixed_err,
          grown_nodes=grown, smc_calls_that_resampled=resampled,
-         pgbart_step_fused_cases=fused, pgbart_step_bign_cases=large,
+         pgbart_step_fused_cases=fused,
+         pgbart_step_fused_generated=fused_generated,
+         pgbart_step_bign_cases=large,
          pgbart_step_bign_generated=generated,
          large_n_shapes=dict(LN, S=2 ** (LN["DEPTH"] + 1) - 1),
          tolerance={"integers": "equal", "split_val": "rtol 1e-5 atol 1e-6",
@@ -762,7 +864,6 @@ def phase_kernels(dev, calls, cfg):
 
 def phase_step(dev):
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
-    from pymc_bart_tpu_torch.ops.draw import check_status
     from pymc_bart_tpu_torch.sampler import pgbart
 
     cfg = BartConfig(m=M, max_depth=DEPTH)
@@ -787,7 +888,6 @@ def phase_step(dev):
             states[k], vis[k] = pgbart.pgbart_step(
                 states[k], rands, X, Y, rules, cfg, pg, tuning, gauss_w, **kw)
         torch.cuda.synchronize()
-        check_status()
         for k in worst:
             check_close(f"step {k} vi", vis[k], vis["plain"], 0.0, 0.0)
             worst[k] = max(worst[k], compare_state(f"step {k}", states[k],
@@ -824,7 +924,6 @@ def phase_step(dev):
             raise AssertionError(f"step at n=50,000: route {k} and the "
                                  "whole-step kernel's launch count disagree")
     torch.cuda.synchronize()
-    check_status()
     check_close("large-n step vi", outs["bign"][1], outs["plain"][1], 0.0, 0.0)
     large_err = compare_state("large-n step", outs["bign"][0],
                               outs["plain"][0])
@@ -864,22 +963,42 @@ def sample_run(model, route, tune, draws, shape=None):
                 "select_refine": select_refine,
                 "pgbart_step_fused": pgbart_step_fused,
                 "pgbart_step_bign": pgbart_step_bign}
+    from pymc_bart_tpu_torch.sampler import pgbart
+
     timings = {}
+    blocks_drawn = []          # row_gumbels of every draw_rands call
+    real_draw = pgbart.draw_rands
+
+    def spy(*a, **kw):
+        blocks_drawn.append(bool(kw.get("row_gumbels", True)))
+        return real_draw(*a, **kw)
+
     with pmb.Model():
         rv = model(pmb)
         for w in wrappers.values():
             w.launches = 0
-        t0 = time.perf_counter()
-        idata = pmb.sample(tune=tune, draws=draws, chains=sh["C"],
-                           random_seed=0, num_particles=sh["P"],
-                           num_refinements=sh["refinements"],
-                           store_trees=sh["store_trees"],
-                           chunk_size=max(1, draws // 2), timings=timings,
-                           convergence_checks=False,
-                           pgbart_route=None if route == "bign" else route)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        pgbart.draw_rands = spy
+        try:
+            t0 = time.perf_counter()
+            idata = pmb.sample(tune=tune, draws=draws, chains=sh["C"],
+                               random_seed=0, num_particles=sh["P"],
+                               num_refinements=sh["refinements"],
+                               store_trees=sh["store_trees"],
+                               chunk_size=max(1, draws // 2), timings=timings,
+                               convergence_checks=False,
+                               pgbart_route=None if route == "bign" else route)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            pgbart.draw_rands = real_draw
         launches = {k: int(w.launches) for k, w in wrappers.items()}
+    # on the card sample() draws no (B, D, C, P, n) block on any route: the
+    # whole-step kernels generate their row Gumbels from a seed, the
+    # per-round route has the same generator write them out
+    if len(blocks_drawn) != tune + draws or any(blocks_drawn):
+        raise AssertionError(
+            f"{route} route: {len(blocks_drawn)} draw_rands calls, "
+            f"{sum(blocks_drawn)} of them with the row-Gumbel block")
     steps = tune + draws
     B = max(1, int(sh["M"] * 0.1))
     want = dict.fromkeys(wrappers, 0)
@@ -922,7 +1041,7 @@ def sample_run(model, route, tune, draws, shape=None):
                chain_draws_per_s=sh["C"] * draws
                / timings["draw_seconds_total"],
                vi_top5=np.argsort(vi.sum(axis=(0, 1))[0])[::-1][:5].tolist(),
-               launches=launches)
+               launches=launches, gumbel_blocks_drawn=sum(blocks_drawn))
     return idata, post, out
 
 
@@ -1095,39 +1214,55 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
                 lambda: select_refine(*a, impl="plain", **kw)))
 
     # the whole-step kernel at the main shapes, from a grown state; every
-    # launch advances the state in place, as on the main path
+    # launch advances the state in place, as on the main path.  The main path
+    # gives it a seed and no Gumbel block, so `ms` is the generated mode's
+    # and `bound_ms` counts no block; the pre-drawn mode stands beside both.
     case = fused_case(dev, "gauss_draw")
     gen = torch.Generator(device=dev).manual_seed(5)
     st_k = grown_state(case, gen, dev)
     st_p = st_k.clone()
-    rands = fused_rands(case, gen, False, dev)
+    r_gen = fused_rands(case, gen, False, dev, row_gumbels=False)
+    r_pre = with_block(case, r_gen, False)
     B = case["pg"].batch_size(M, False)
     S = cfg.n_nodes
     # every random block read once; per updated tree the forest rows and
     # tree_pred row read and written; sum_trees read and written; X, y, the
     # row data, alpha_vec and leaf_sd read; the forest's split variables read
     # for the histogram; the histogram written
-    bts = (nbytes(*(getattr(rands, f) for f in
-                    ("ug", "uv", "rg", "eps", "sb", "ures", "usel", "epsr",
-                     "uacc")))
-           + 4 * C * B * (2 * 6 * S + 2 * N) + 4 * 2 * C * N
+    small = nbytes(*(getattr(r_gen, f) for f in
+                     ("ug", "uv", "eps", "sb", "ures", "usel", "epsr", "uacc",
+                      "seed")))
+    bts = (small + 4 * C * B * (2 * 6 * S + 2 * N) + 4 * 2 * C * N
            + nbytes(case["X"], case["Y"], case["row"], st_k.alpha_vec,
                     st_k.leaf_sd) + 4 * C * M * S + 4 * C * PCOLS)
     # per row, particle and level as the growth round; per row and sweep the
     # refinement's gather, difference, square, weight, add
     ops = B * DEPTH * C * P * N * 7 + B * C * (R + 2) * N * 5
     b_ms, by = bound(bts, ops)
+    b_pre, by_pre = bound(bts + nbytes(r_pre.rg), ops)
+    plan = fused_plan(case)
     out["pgbart_step_fused"] = dict(
-        bound_ms=b_ms, bound_by=by, bytes=bts,
-        **timed(lambda: fused_step(case, st_k, rands, False, "kernel"),
-                lambda: fused_step(case, st_p, rands, False, "plain")))
+        bound_ms=b_ms, bound_by=by, bytes=bts, generated=True,
+        pre_drawn=dict(
+            bound_ms=b_pre, bound_by=by_pre, bytes=bts + nbytes(r_pre.rg),
+            ms=cuda_ms(lambda: fused_step(case, st_k, r_pre, False,
+                                          "kernel"))[0]),
+        plan=dict(form=plan.form, cluster=plan.cluster,
+                  particles_per_block=plan.per_block,
+                  warps_per_particle=plan.warps, x_staged=plan.x_staged,
+                  smem_bytes=plan.smem),
+        **timed(lambda: fused_step(case, st_k, r_gen, False, "kernel"),
+                lambda: fused_step(case, st_p, r_pre, False, "plain")))
 
-    # the same kernel on the logistic data and at the p=1000 width
+    # the same kernel on the logistic data, at the p=1000 width, with 19
+    # particles and in the global form
     for key, name in (("bernoulli_ms", "bernoulli"),
-                      ("p1000_n200_ms", "gauss_p1000")):
+                      ("p1000_n200_ms", "gauss_p1000"),
+                      ("p19_ms", "gauss_p19"),
+                      ("global_form_n16384_c2_p10_ms", "gauss_global")):
         other = fused_case(dev, name)
         st_o = grown_state(other, gen, dev)
-        rands_o = fused_rands(other, gen, False, dev)
+        rands_o = fused_rands(other, gen, False, dev, row_gumbels=False)
         out["pgbart_step_fused"][key] = cuda_ms(
             lambda: fused_step(other, st_o, rands_o, False, "kernel"))[0]
 
@@ -1141,35 +1276,40 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
     rules = torch.zeros(PCOLS, dtype=torch.int32, device=dev)
     gauss_w = torch.ones((C, N, 1), device=dev)
     state = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
-    step_ms, rands_ms = {}, []
+    step_ms, rands_ms = {}, {}
     for name, kw, reps in (("fused", dict(route="fused"), 12),
                            ("rounds", dict(route="rounds"), 12),
                            ("plain", dict(impl="plain"), 4)):
-        times = []
+        times, draws = [], []
         for i in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            # as sample() draws them: a seed for the whole-step kernel, the
+            # (B, D, C, P, n) Gumbel block for the per-round route
             rands = pgbart.draw_rands(gen, B=5, C=C, P=P, D=DEPTH, n=N, k=1,
                                       S=cfg.n_nodes, num_refinements=R,
-                                      device=dev)
+                                      device=dev, row_gumbels=name != "fused")
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             state, _ = pgbart.pgbart_step(state, rands, X, Y, rules, cfg, pg,
                                           False, gauss_w, **kw)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            rands_ms.append((t1 - t0) * 1e3)
+            draws.append((t1 - t0) * 1e3)
         step_ms[name] = float(np.median(times[2:]))
+        rands_ms[name] = float(np.median(draws[2:]))
     rates = {k: v["chain_draws_per_s"] for k, v in (runs or {}).items()}
     emit("timing", card=smi, kernels=out, chain_draws_per_s=rates,
          step_ms_fused_route=step_ms["fused"],
          step_ms_kernel_route=step_ms["rounds"],
          step_ms_plain_route=step_ms["plain"],
-         draw_rands_ms=float(np.median(rands_ms[2:])),
+         draw_rands_ms=rands_ms["fused"],
+         draw_rands_with_block_ms=rands_ms["rounds"],
          large_n_crossover=crossover,
          launches_per_step={"pgbart_step_fused": 1, "grow_round": 5 * DEPTH,
                             "smc_resample": 5 * (DEPTH - 1),
                             "select_refine": 5, "pgbart_step_bign": 1})
+    check_crossover(crossover)
     return out
 
 
@@ -1256,41 +1396,60 @@ def time_bign(dev, gen, bound, timed):
             entry["bernoulli"] = t
         del st_k, st_p, r_pre
 
+    def cross(name, n, lik, row):
+        """Device ms of one draw step on both kernels, generated Gumbels."""
+        case = bign_case(dev, name, n=n)
+        st_b = bign_grown_state(case, gen, dev)
+        st_f = st_b.clone()
+        r_gen = bign_rands(case, gen, False, dev, row_gumbels=False)
+        iters = 20 if n <= 16384 else 5
+        row[f"{lik}_bign_ms"] = cuda_ms(
+            lambda: bign_step(case, st_b, r_gen, False, "kernel"),
+            iters=iters)[0]
+        row[f"{lik}_fused_ms"] = cuda_ms(
+            lambda: fused_step(case, st_f, r_gen, False, "kernel"),
+            iters=iters)[0]
+        row[f"{lik}_fused_form"] = fused_plan(case).form
+
     table = []
-    for n in (1000, 2000, 4000, 16384, 50_000, 200_000):
+    for n in (1000, 2000, 4000, 8192, 16384, 32768, 50_000, 200_000):
         row = dict(n=n)
         for lik, name in (("gauss", "gauss_draw"), ("bernoulli", "bernoulli")):
-            case = bign_case(dev, name, n=n)
-            st_b = bign_grown_state(case, gen, dev)
-            st_f = st_b.clone()
-            r_gen = bign_rands(case, gen, False, dev, row_gumbels=False)
-            r_pre = bign_rands(case, gen, False, dev)
-            iters = 20 if n <= 16384 else 5
-            row[f"{lik}_bign_ms"] = cuda_ms(
-                lambda: bign_step(case, st_b, r_gen, False, "kernel"),
-                iters=iters)[0]
-            row[f"{lik}_fused_ms"] = cuda_ms(
-                lambda: fused_step(case, st_f, r_pre, False, "kernel"),
-                iters=iters)[0]
-            del st_b, st_f, r_pre
+            cross(name, n, lik, row)
         table.append(row)
+    # the same at the n=1000 models' shapes (P=20, m=50: B=5 trees a step,
+    # 5 refinements), reported beside the table that sets the constant
+    wide = []
+    for n in (1000, 4000, 16384, 50_000):
+        row = dict(n=n)
+        cross("gauss_n1000", n, "gauss", row)
+        wide.append(row)
     torch.cuda.synchronize()
-    from pymc_bart_tpu_torch.ops.draw import check_status
-
-    check_status()
-    # the constant in the code must be what this table supports: the large-n
-    # kernel is the faster one at every measured n from BIGN_MIN_ROWS on
-    for row in table:
-        for lik in ("gauss", "bernoulli"):
-            if (row["n"] >= BIGN_MIN_ROWS
-                    and row[f"{lik}_bign_ms"] > row[f"{lik}_fused_ms"]):
-                raise AssertionError(
-                    f"BIGN_MIN_ROWS={BIGN_MIN_ROWS}, but at n={row['n']} "
-                    f"({lik}) the large-n kernel takes "
-                    f"{row[f'{lik}_bign_ms']} ms and the whole-step kernel "
-                    f"{row[f'{lik}_fused_ms']} ms")
     return entry, dict(BIGN_MIN_ROWS=BIGN_MIN_ROWS, C=LN["C"], P=LN["P"],
-                       m=LN["M"], rows=table)
+                       m=LN["M"], rows=table,
+                       rows_at_p20_m50=dict(C=LN["C"], P=P, m=M, rows=wide))
+
+
+def check_crossover(crossover):
+    """The constant in the code must be what the crossover table supports:
+    the large-n kernel is the faster one in both regimes at every measured n
+    from ``BIGN_MIN_ROWS`` on, and not yet at the measured n just below."""
+    threshold = crossover["BIGN_MIN_ROWS"]
+
+    def large_n_wins(row):
+        return all(row[f"{lik}_bign_ms"] <= row[f"{lik}_fused_ms"]
+                   for lik in ("gauss", "bernoulli"))
+
+    for row in crossover["rows"]:
+        if row["n"] >= threshold and not large_n_wins(row):
+            raise AssertionError(
+                f"BIGN_MIN_ROWS={threshold}, but at n={row['n']} the "
+                f"whole-step kernel is the faster one: {row}")
+    below = [row for row in crossover["rows"] if row["n"] < threshold]
+    if below and large_n_wins(below[-1]):
+        raise AssertionError(
+            f"BIGN_MIN_ROWS={threshold}, but the large-n kernel already wins "
+            f"both regimes at n={below[-1]['n']}: {below[-1]}")
 
 
 def phase_profile(dev, steps=20):
@@ -1369,6 +1528,42 @@ def phase_profile(dev, steps=20):
                   for r in rows[:12]])
 
 
+def phase_clocks(dev, steps=20):
+    """Where a step of the whole-step kernel spends its cycles: the kernel
+    built with phase clocks (``-DDRAW_PHASE_CLOCKS``), gauss and bernoulli at
+    the main shapes, generated Gumbels; cycles per step of thread 0 of one
+    block (the middle one) of chain 0's cluster."""
+    from pymc_bart_tpu_torch.ops import draw
+
+    draw.BUILD_DEFINES = ("DRAW_PHASE_CLOCKS",)
+    try:
+        for name in ("gauss_draw", "bernoulli"):
+            case = fused_case(dev, name)
+            gen = torch.Generator(device=dev).manual_seed(5)
+            state = grown_state(case, gen, dev)
+            rands = fused_rands(case, gen, False, dev, row_gumbels=False)
+            plan = fused_plan(case)
+            for _ in range(3):
+                fused_step(case, state, rands, False, "kernel")
+            torch.cuda.synchronize()
+            draw.phase_clocks(reset_for_rank=plan.cluster // 2)
+            for _ in range(steps):
+                fused_step(case, state, rands, False, "kernel")
+            torch.cuda.synchronize()
+            cycles = {k: v / steps for k, v in draw.phase_clocks().items()}
+            probes = ("16 cluster barriers", "16 block barriers")
+            total = sum(v for k, v in cycles.items() if k not in probes)
+            emit("clocks", case=name, steps=steps, rank=plan.cluster // 2,
+                 cluster=plan.cluster, cycles_per_step=cycles,
+                 cycles_per_step_total=total,
+                 share={k: v / total for k, v in cycles.items()
+                        if k not in probes},
+                 stamped_ms=cuda_ms(lambda: fused_step(case, state, rands,
+                                                       False, "kernel"))[0])
+    finally:
+        draw.BUILD_DEFINES = ()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -1424,6 +1619,8 @@ def main(argv=None):
         times = phase_timing(dev, calls, cfg, smi, runs)
     if "profile" in phases:
         phase_profile(dev)
+    if "clocks" in phases:
+        phase_clocks(dev)
 
     if set(ALL_PHASES) <= set(phases):
         kernels = []

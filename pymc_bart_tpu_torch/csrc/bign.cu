@@ -15,15 +15,19 @@
 //
 // Bound: bytes.  Per tree and level the three row passes read and write li
 // (and the prediction row), read X at one column per row, the residual and,
-// in pass 1, the row Gumbels.  The node-space phases between them move a few
-// kilobytes and are latency.
+// in pass 1, the row Gumbels.  Below some ten thousand rows a pass is shorter
+// than the gap between two kernels, and the step costs its LAUNCHES; the
+// node-space phases between the passes move a few kilobytes and are latency.
 //
-// Design.  Where draw.cu gives one block to a (chain, particle) and walks all
-// n rows with it, this file spreads ROWS over the grid: every row pass is a
-// grid over (row tile, chain*particle), and the serial node-space bookkeeping
-// between two passes is a small kernel with one block per chain.  One
-// launcher call enqueues the whole step on the caller's stream (per tree: 3
-// set-up launches, 6 per level, 2 to select and commit; one more per step);
+// Design.  Where draw.cu gives a cluster to a chain and keeps a particle's
+// rows on one SM, this file spreads ROWS over the grid: every row pass is a
+// grid over (row tile, chain*particle).  The serial node-space bookkeeping
+// between two passes is NOT a kernel of its own: every block of a pass writes
+// its partial sums, fences, and draws a ticket; the block that draws the last
+// ticket (of a particle, or of a chain) adds the tiles IN TILE ORDER and does
+// the node-space work in its tail, so the next pass finds it done.  One
+// launcher call enqueues the whole step on the caller's stream (per tree: 2
+// set-up launches, 3 per level, 2 to select and commit; one more per step);
 // nothing returns to the host between them.  Per level d:
 //   pass 1  k_argmax  a particle copies its ANCESTOR's li (and prediction)
 //                     row from one buffer into its own row of the other (the
@@ -31,14 +35,19 @@
 //                     and then diverge) and finds, per growing node, the row
 //                     with the largest Gumbel, ties to the lowest row, by a
 //                     64-bit atomicMax on an order-preserving key;
-//   node a            split value = X[winner row, split variable];
-//   pass 2  k_stats   left-child (count, sum r, sum r^2) per (particle, node);
-//   node b            empty-child revert, child leaves and statistics;
+//   pass 2  k_stats   prologue (every block, for its particle): split value
+//                     = X[winner row, split variable]; rows: left-child
+//                     (count, sum r, sum r^2) per (particle, node); tail (the
+//                     particle's last block): empty-child revert, child
+//                     leaves and statistics;
 //   pass 3  k_route   rows move to the committed children only (no tentative
 //                     routing, so nothing is healed later); row regime: the
-//                     prediction row and the row log-likelihood;
-//   node c            log-likelihood, ESS gate, systematic ancestors, node
-//                     state gathered at the ancestors, next level prepared.
+//                     prediction row and the row log-likelihood; tail (the
+//                     chain's last block): log-likelihood, ESS gate and
+//                     systematic ancestors on one warp (bart::smc_warp, the
+//                     function draw.cu uses), node state gathered at the
+//                     ancestors, next level prepared.
+// The residual pass k_resid ends likewise with the tree's node-space set-up.
 //
 // Order of float sums.  Every sum that reaches a discrete decision (ESS gate,
 // ancestors, winner, Metropolis accept, empty-child test) is accumulated in
@@ -46,19 +55,22 @@
 // order, tiles in tile order) and rounded to float32 once; counts are
 // integers.  Element-wise float32 arithmetic is compiled without fused
 // multiply-add (-fmad=false) so that it rounds where the plain PyTorch
-// version rounds.  No float atomics anywhere.
+// version rounds.  No float atomics anywhere; the only atomics are the
+// arg-max keys and the tickets.
 //
 // Row Gumbels are either read from a pre-drawn block (B, D, C, P, n) or
-// generated: Philox-4x32-10 keyed by a 64-bit seed (two words on the card),
-// counter (row, stream of (tree, level, chain, particle)), so a row's value
-// does not depend on the grid.  pgbart_bign_gumbel_block writes the block the
-// generator would produce.
+// generated (common.cuh): Philox-4x32-10 keyed by a 64-bit seed (two words on
+// the card), counter (row, stream of (tree, level, chain, particle)), so a
+// row's value does not depend on the grid.  pgbart_bign_gumbel_block writes
+// the block the generator would produce.
 #include "common.cuh"
 
 namespace {
 
+using bart::gen_gumbel;
 using bart::kThreads;
 using bart::pack_key;
+using bart::warp_sum_d;
 
 constexpr int kMaxDepth = 8;               // per-block node accumulators
 constexpr int kMaxG = 1 << (kMaxDepth - 1);
@@ -94,7 +106,9 @@ struct BignArgs {
   double* part_sd;
   // per chain / per particle scalars
   float* cdf; float* root; float* ll; float* ll_prev; float* log_w;
-  float* cdfp; float* w_lf; int* take; int* widx; int* vi_cnt;
+  float* cdfp; float* prob; float* w_lf; int* take; int* widx; int* vi_cnt;
+  // tickets of the passes' last blocks: C (residual), C*P (pass 2), C (pass 3)
+  int* tickets;
   // output
   float* vi;
   int C, P, S, n, p, m, B, D, R, lik, tuning, tile, ntiles;
@@ -107,11 +121,6 @@ struct BignArgs {
 // ---------------------------------------------------------------------------
 
 // Block-wide float64 sum in a fixed order; every thread gets the total.
-__device__ __forceinline__ double warp_sum_d(double v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ double block_sum_d(double v, double* scratch) {
   v = warp_sum_d(v);
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
@@ -144,33 +153,34 @@ __device__ __forceinline__ float row_ll(int lik, float c0, float y, float F,
   return (y > 0.f ? 1.f : 0.f) * F - lse;
 }
 
-// Philox-4x32-10, first output word.
-__device__ __forceinline__ unsigned int philox(unsigned int c0, unsigned int c1,
-                                               unsigned int k0, unsigned int k1) {
-  unsigned int c2 = 0u, c3 = 0u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const unsigned int hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const unsigned int hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0; c1 = lo1; c2 = hi0 ^ c3 ^ k1; c3 = lo0;
-    k0 += 0x9E3779B9u; k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
-// Gumbel of (row, stream): u = (bits >> 9 + 0.5) 2^-23, exact in float32 and
-// inside [2^-24, 1 - 2^-24].  (With 24 bits the top value plus one half rounds
-// to 2^24, u becomes 1 and the Gumbel +inf once in 2^24 draws.)
-__device__ __forceinline__ float gen_gumbel(unsigned int k0, unsigned int k1,
-                                            int row, unsigned int stream) {
-  const unsigned int bits = philox((unsigned int)row, stream, k0, k1);
-  const float u = ((float)(bits >> 9) + 0.5f) * 1.1920928955078125e-07f;
-  return -logf(-logf(u));
-}
-
 __device__ __forceinline__ unsigned int gumbel_stream(const BignArgs& a, int b,
                                                       int d, int q) {
-  return (unsigned int)((b * a.D + d) * a.C * a.P + q);
+  return bart::gumbel_stream(b, d, a.D, a.C * a.P, q);
+}
+
+// Every kernel of the step is launched with programmatic stream
+// serialization: it may be scheduled while its predecessor still runs, waits
+// here until that one has completed and its writes are visible, and lets its
+// own successor be scheduled at once.
+__device__ __forceinline__ void after_predecessor() {
+  cudaGridDependencySynchronize();
+  cudaTriggerProgrammaticLaunchCompletion();
+}
+
+// One block of a pass has written its partial sums; `count` blocks share the
+// ticket.  True in exactly one of them, the last to arrive, which then sees
+// every block's partials (and leaves the ticket at zero for the next pass).
+__device__ __forceinline__ bool last_block(int* ticket, int count) {
+  __shared__ int s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(ticket, 1) == count - 1;
+    if (s_last) *ticket = 0;
+  }
+  __syncthreads();
+  if (s_last) __threadfence();
+  return s_last != 0;
 }
 
 struct NodeBuf {
@@ -241,7 +251,11 @@ __device__ void update_leaf_sd(const BignArgs& a, int c) {
 // per tree: residual, root statistics, particle state
 // ---------------------------------------------------------------------------
 
+__device__ void node_init(const BignArgs& a, int b, int c);
+
+// residual pass; its last block of a chain sets up the tree's node space
 __global__ void __launch_bounds__(kThreads) k_resid(const BignArgs a, int b) {
+  after_predecessor();
   __shared__ double s_red[kWarps];
   const int c = blockIdx.y, n = a.n;
   const int jt = (a.batch_offset[c] + b) % a.m;
@@ -262,10 +276,13 @@ __global__ void __launch_bounds__(kThreads) k_resid(const BignArgs a, int b) {
     a.part_root[((size_t)blockIdx.x * a.C + c) * 2] = sr;
     a.part_root[((size_t)blockIdx.x * a.C + c) * 2 + 1] = sq;
   }
+  if (last_block(a.tickets + c, a.ntiles)) node_init(a, b, c);
 }
 
-__global__ void __launch_bounds__(kThreads) k_node_init(const BignArgs a, int b) {
-  const int c = blockIdx.x, P = a.P, S = a.S, p = a.p;
+// the tree's node space of chain c: leaf_sd of the last tree, root statistics,
+// split-weight CDF, particle state, level 0 (one block)
+__device__ void node_init(const BignArgs& a, int b, int c) {
+  const int P = a.P, S = a.S, p = a.p;
   if (b > 0) update_leaf_sd(a, c);
   if (threadIdx.x == 0) {
     double sr = 0.0, sq = 0.0;
@@ -321,6 +338,7 @@ __global__ void __launch_bounds__(kThreads) k_node_init(const BignArgs a, int b)
 
 // li = 0; row regime: the prediction row and the root's row log-likelihood
 __global__ void __launch_bounds__(kThreads) k_rows_init(const BignArgs a) {
+  after_predecessor();
   __shared__ double s_red[kWarps];
   const int q = blockIdx.y, c = q / a.P, n = a.n;
   int* li = a.li + (size_t)q * n;
@@ -351,6 +369,7 @@ __global__ void __launch_bounds__(kThreads) k_rows_init(const BignArgs a) {
 // pass 1: ancestor gather of the row state, Gumbel arg-max per growing node
 __global__ void __launch_bounds__(kThreads) k_argmax(const BignArgs a, int b,
                                                      int d, int lbuf) {
+  after_predecessor();
   __shared__ unsigned long long s_best[kMaxG];
   __shared__ int s_grow[kMaxG];
   const int q = blockIdx.y, P = a.P, c = q / P, pi = q % P, n = a.n;
@@ -391,28 +410,14 @@ __global__ void __launch_bounds__(kThreads) k_argmax(const BignArgs a, int b,
     if (s_best[g]) atomicMax(&a.lv_best[(size_t)q * Gm + g], s_best[g]);
 }
 
-// node a: the split value of every active (particle, node)
-__global__ void __launch_bounds__(kThreads) k_node_a(const BignArgs a, int d,
-                                                     int nbuf) {
-  const int c = blockIdx.x, P = a.P, G = 1 << d, Gm = 1 << (a.D - 1);
-  const int lo = G - 1;
-  for (int it = threadIdx.x; it < P * G; it += blockDim.x) {
-    const int pi = it / G, g = it % G, q = c * P + pi;
-    const size_t o = (size_t)q * Gm + g;
-    const unsigned long long key = a.lv_best[o];
-    float raw = 0.f;
-    if (key) {
-      const int r = (int)(0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull));
-      raw = a.X[(size_t)r * a.p + a.lv_var[o]];
-    }
-    a.lv_raw[o] = raw;
-    a.lv_val[o] = pi == 0 ? node_buf(a, nbuf, q).sl[lo + g] : raw;
-  }
-}
+__device__ void node_b(const BignArgs& a, int b, int d, int nbuf, int q);
 
-// pass 2: left-child (count, sum r, sum r^2) of every active (particle, node)
-__global__ void __launch_bounds__(kThreads) k_stats(const BignArgs a, int d,
-                                                    int lbuf) {
+// pass 2: the split value of every active node of the particle (prologue),
+// left-child (count, sum r, sum r^2) of every active (particle, node), and in
+// the particle's last block the node-space commit of the level
+__global__ void __launch_bounds__(kThreads) k_stats(const BignArgs a, int b,
+                                                    int d, int lbuf, int nbuf) {
+  after_predecessor();
   __shared__ double s_sr[kWarps][kMaxG];
   __shared__ double s_sq[kWarps][kMaxG];
   __shared__ int s_cn[kWarps][kMaxG];
@@ -425,8 +430,21 @@ __global__ void __launch_bounds__(kThreads) k_stats(const BignArgs a, int d,
   for (int g = threadIdx.x; g < G; g += kThreads) {
     const size_t o = (size_t)q * Gm + g;
     const int act = a.lv_flags[o] & kActive;
-    s_var[g] = act ? a.lv_var[o] : -1;
-    s_val[g] = a.lv_val[o];
+    const int var = a.lv_var[o];
+    // the split value: X at the arg-max row; the frozen particle replays its own
+    const unsigned long long key = a.lv_best[o];
+    float raw = 0.f;
+    if (key) {
+      const int r = (int)(0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull));
+      raw = a.X[(size_t)r * p + var];
+    }
+    const float val = q % P == 0 ? node_buf(a, nbuf, q).sl[lo + g] : raw;
+    if (blockIdx.x == 0) {  // kept for the tail and for pass 3
+      a.lv_raw[o] = raw;
+      a.lv_val[o] = val;
+    }
+    s_var[g] = act ? var : -1;
+    s_val[g] = val;
     any |= act;
   }
   for (int g = lane; g < G; g += 32) {
@@ -477,16 +495,16 @@ __global__ void __launch_bounds__(kThreads) k_stats(const BignArgs a, int d,
     a.part_stat[(po + g) * 2 + 1] = sq;
     a.part_cnt[po + g] = cn;
   }
+  if (last_block(a.tickets + a.C + q, a.ntiles)) node_b(a, b, d, nbuf, q);
 }
 
-// node b: empty-child revert, split commit, child leaves and statistics
-__global__ void __launch_bounds__(kThreads) k_node_b(const BignArgs a, int b,
-                                                     int d, int nbuf) {
-  const int c = blockIdx.x, P = a.P, G = 1 << d, Gm = 1 << (a.D - 1);
+// node b of particle q: empty-child revert, split commit, child leaves and
+// statistics, the tiles added in tile order (one block)
+__device__ void node_b(const BignArgs& a, int b, int d, int nbuf, int q) {
+  const int P = a.P, c = q / P, pi = q % P, G = 1 << d, Gm = 1 << (a.D - 1);
   const int lo = G - 1, hi = 2 * G - 1, Gtot = (1 << a.D) - 1;
   const float lsd = a.leaf_sd[c], mf = (float)a.m;
-  for (int it = threadIdx.x; it < P * G; it += blockDim.x) {
-    const int pi = it / G, g = it % G, q = c * P + pi;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
     const size_t o = (size_t)q * Gm + g;
     int flags = a.lv_flags[o];
     if (!(flags & kActive)) continue;
@@ -525,10 +543,13 @@ __global__ void __launch_bounds__(kThreads) k_node_b(const BignArgs a, int b,
   }
 }
 
+__device__ void node_c(const BignArgs& a, int b, int c, int d, int nbuf);
+
 // pass 3: rows move to the committed children; row regime: prediction row
-// and row log-likelihood
-__global__ void __launch_bounds__(kThreads) k_route(const BignArgs a, int d,
-                                                    int lbuf, int nbuf) {
+// and row log-likelihood; in the chain's last block the SMC step of the level
+__global__ void __launch_bounds__(kThreads) k_route(const BignArgs a, int b,
+                                                    int d, int lbuf, int nbuf) {
+  after_predecessor();
   __shared__ double s_red[kWarps];
   __shared__ int s_var[kMaxG];
   __shared__ float s_val[kMaxG];
@@ -548,7 +569,6 @@ __global__ void __launch_bounds__(kThreads) k_route(const BignArgs a, int d,
     any |= fin;
   }
   any = __syncthreads_or(any);
-  if (!any && !rowll) return;
   const size_t ro = ((size_t)lbuf * a.C * P + q) * n;
   int* li = a.li + ro;
   float* pred = a.pred + ro;
@@ -556,7 +576,7 @@ __global__ void __launch_bounds__(kThreads) k_route(const BignArgs a, int d,
   const float* llw = a.llw ? a.llw + (size_t)c * n : nullptr;
   const int r0 = blockIdx.x * a.tile, r1 = min(n, r0 + a.tile);
   double acc = 0.0;
-  for (int i = r0 + threadIdx.x; i < r1; i += kThreads) {
+  for (int i = r0 + threadIdx.x; (any || rowll) && i < r1; i += kThreads) {
     const int l = li[i];
     const int g = l - lo;
     float v = rowll ? pred[i] : 0.f;
@@ -573,17 +593,19 @@ __global__ void __launch_bounds__(kThreads) k_route(const BignArgs a, int d,
       acc += (double)row_ll(a.lik, a.lik_const, a.y[i], noi[i] + v,
                             llw ? llw[i] : 0.f);
   }
-  if (!rowll) return;
-  acc = block_sum_d(acc, s_red);
-  if (threadIdx.x == 0)
-    a.part_ll[((size_t)a.ntiles + blockIdx.x) * a.C * P + q] = acc;
+  if (rowll) {
+    acc = block_sum_d(acc, s_red);
+    if (threadIdx.x == 0)
+      a.part_ll[((size_t)a.ntiles + blockIdx.x) * a.C * P + q] = acc;
+  }
+  if (last_block(a.tickets + a.C + a.C * P + c, a.ntiles * P))
+    node_c(a, b, c, d, nbuf);
 }
 
-// node c: log-likelihood, weights, ESS gate, ancestors, node-state gather,
-// next level
-__global__ void __launch_bounds__(kThreads) k_node_c(const BignArgs a, int b,
-                                                     int d, int nbuf) {
-  const int c = blockIdx.x, P = a.P, S = a.S, D = a.D;
+// node c of chain c: log-likelihood (tiles in tile order), weights, ESS gate,
+// ancestors, node-state gather, next level (one block)
+__device__ void node_c(const BignArgs& a, int b, int c, int d, int nbuf) {
+  const int P = a.P, S = a.S, D = a.D;
   const size_t CP = (size_t)a.C * P;
   if (a.lik == kGauss) {
     const float w = a.w_chain[c];
@@ -607,43 +629,10 @@ __global__ void __launch_bounds__(kThreads) k_node_c(const BignArgs a, int b,
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float* lw = a.log_w + c * P;
-    float* llp = a.ll_prev + c * P;
-    const float* ll = a.ll + c * P;
-    float* cdf = a.cdfp + c * P;
-    int* take = a.take + c * P;
-    for (int i = 0; i < P; ++i) { lw[i] = lw[i] + ll[i] - llp[i]; take[i] = i; }
-    if (d < D - 1) {
-      float mx = -INFINITY;
-      for (int i = 1; i < P; ++i) mx = fmaxf(mx, lw[i]);
-      float tot = 0.f;
-      for (int i = 1; i < P; ++i) { const float e = expf(lw[i] - mx); cdf[i] = e; tot += e; }
-      float sumsq = 0.f, run = 0.f;
-      cdf[0] = 0.f;
-      for (int i = 1; i < P; ++i) {
-        const float pr = cdf[i] / tot;
-        sumsq += pr * pr;
-        run += pr;
-        cdf[i] = run;
-      }
-      const float last = cdf[P - 1];
-      for (int i = 0; i < P; ++i) cdf[i] = cdf[i] / last;
-      const float log_mean = mx + logf(tot / (float)(P - 1));
-      const float ess = 1.f / fmaxf(sumsq, 1e-38f);
-      if (ess < 0.5f * (float)(P - 1)) {
-        const float uu = a.ures[((size_t)b * D + d) * a.C + c];
-        for (int i = 1; i < P; ++i) {
-          const float pos = (uu + (float)(i - 1)) / (float)(P - 1);
-          int cnt = 0;  // searchsorted 'left' into the non-frozen CDF
-          for (int j = 1; j < P; ++j) cnt += (cdf[j] < pos) ? 1 : 0;
-          take[i] = min(max(cnt + 1, 1), P - 1);
-          lw[i] = log_mean;
-        }
-      }
-      for (int i = 0; i < P; ++i) llp[i] = ll[take[i]];
-    }
-  }
+  if (threadIdx.x < 32)
+    bart::smc_warp(a.log_w + c * P, a.ll_prev + c * P, a.ll + c * P,
+                   a.cdfp + c * P, a.prob + c * P, a.take + c * P, P,
+                   a.ures[((size_t)b * D + d) * a.C + c], d < D - 1);
   if (d == D - 1) return;
   __syncthreads();
   // every particle continues from its ancestor's node state
@@ -665,6 +654,7 @@ __global__ void __launch_bounds__(kThreads) k_node_c(const BignArgs a, int b,
 
 __global__ void __launch_bounds__(kThreads) k_select(const BignArgs a, int b,
                                                      int nbuf) {
+  after_predecessor();
   __shared__ double s_red[kWarps];
   __shared__ float s_lfw[kMaxS];
   __shared__ float s_lfp[kMaxS];
@@ -757,6 +747,7 @@ __global__ void __launch_bounds__(kThreads) k_select(const BignArgs a, int b,
 // the Welford accumulators while tuning
 __global__ void __launch_bounds__(kThreads) k_final(const BignArgs a, int b,
                                                     int lbuf) {
+  after_predecessor();
   __shared__ double s_red[kWarps];
   __shared__ float s_lfw[kMaxS];
   const int c = blockIdx.y, P = a.P, n = a.n, S = a.S;
@@ -796,6 +787,7 @@ __global__ void __launch_bounds__(kThreads) k_final(const BignArgs a, int b,
 
 // after the last tree: leaf_sd, the batch pointer, the split-variable histogram
 __global__ void __launch_bounds__(kThreads) k_finish(const BignArgs a) {
+  after_predecessor();
   const int c = blockIdx.x, p = a.p, T = blockDim.x, t = threadIdx.x;
   update_leaf_sd(a, c);
   for (int j = t; j < p; j += T) a.vi_cnt[(size_t)c * p + j] = 0;
@@ -823,7 +815,8 @@ __global__ void __launch_bounds__(kThreads) k_gumbel_block(const BignArgs a,
 bool valid(const BignArgs& a) {
   return a.D >= 1 && a.D <= kMaxDepth && a.P >= 2 && a.C >= 1 && a.n >= 1
       && a.S == (1 << (a.D + 1)) - 1 && a.tile >= 1
-      && a.ntiles == (a.n + a.tile - 1) / a.tile && (a.rg || a.seed);
+      && a.ntiles == (a.n + a.tile - 1) / a.tile && (a.rg || a.seed)
+      && a.tickets != nullptr;
 }
 
 }  // namespace
@@ -835,11 +828,38 @@ bool valid(const BignArgs& a) {
     if (e_ != cudaSuccess) return (int)e_;                 \
   } while (0)
 
+namespace {
+
+// one kernel of the step, allowed to be scheduled before its predecessor ends
+template <class... Params, class... Args>
+cudaError_t launch_step(void (*kernel)(Params...), dim3 grid, cudaStream_t st,
+                        bool overlap, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = overlap ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, Params(args)...);
+}
+
+}  // namespace
+
+#define BIGN_STEP(kernel, grid, overlap, ...)                                  \
+  do {                                                                         \
+    const cudaError_t e_ = launch_step(kernel, grid, st, overlap, __VA_ARGS__); \
+    if (e_ != cudaSuccess) return (int)e_;                                     \
+  } while (0)
+
 extern "C" int pgbart_bign_args_size() { return (int)sizeof(BignArgs); }
 extern "C" int pgbart_bign_max_depth() { return kMaxDepth; }
 
-// Enqueues one whole step on `stream`: B * (5 + 6 D) + 1 kernels (mirrored by
-// ops/bign.py::launches_per_step); returns 0 or a CUDA error code.
+// Enqueues one whole step on `stream`: B * (4 + 3 D) + 1 kernels (mirrored by
+// ops/bign.py::launches_per_step) after one memset of the tickets; returns 0
+// or a CUDA error code.
 // `args` points to a BignArgs (an untyped pointer: the struct is local to this
 // file, and a function that names it in its signature is not exported).
 extern "C" int pgbart_bign_launch(const void* args, void* stream_) {
@@ -847,25 +867,26 @@ extern "C" int pgbart_bign_launch(const void* args, void* stream_) {
   if (!valid(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream_;
   const dim3 rows_c(a.ntiles, a.C), rows_q(a.ntiles, a.C * a.P);
+  const cudaError_t e0 = cudaMemsetAsync(
+      a.tickets, 0, sizeof(int) * (size_t)(2 * a.C + a.C * a.P), st);
+  if (e0 != cudaSuccess) return (int)e0;
+  const dim3 chains(a.C);
   for (int b = 0; b < a.B; ++b) {
     int lbuf = 0, nbuf = 0;
-    BIGN_LAUNCH(k_resid<<<rows_c, kThreads, 0, st>>>(a, b));
-    BIGN_LAUNCH(k_node_init<<<a.C, kThreads, 0, st>>>(a, b));
-    BIGN_LAUNCH(k_rows_init<<<rows_q, kThreads, 0, st>>>(a));
+    // (the step's first kernel follows a memset, not a kernel)
+    BIGN_STEP(k_resid, rows_c, b > 0, a, b);
+    BIGN_STEP(k_rows_init, rows_q, true, a);
     for (int d = 0; d < a.D; ++d) {
-      BIGN_LAUNCH(k_argmax<<<rows_q, kThreads, 0, st>>>(a, b, d, lbuf));
+      BIGN_STEP(k_argmax, rows_q, true, a, b, d, lbuf);
       lbuf ^= 1;
-      BIGN_LAUNCH(k_node_a<<<a.C, kThreads, 0, st>>>(a, d, nbuf));
-      BIGN_LAUNCH(k_stats<<<rows_q, kThreads, 0, st>>>(a, d, lbuf));
-      BIGN_LAUNCH(k_node_b<<<a.C, kThreads, 0, st>>>(a, b, d, nbuf));
-      BIGN_LAUNCH(k_route<<<rows_q, kThreads, 0, st>>>(a, d, lbuf, nbuf));
-      BIGN_LAUNCH(k_node_c<<<a.C, kThreads, 0, st>>>(a, b, d, nbuf));
+      BIGN_STEP(k_stats, rows_q, true, a, b, d, lbuf, nbuf);
+      BIGN_STEP(k_route, rows_q, true, a, b, d, lbuf, nbuf);
       if (d < a.D - 1) nbuf ^= 1;
     }
-    BIGN_LAUNCH(k_select<<<a.C, kThreads, 0, st>>>(a, b, nbuf));
-    BIGN_LAUNCH(k_final<<<rows_c, kThreads, 0, st>>>(a, b, lbuf));
+    BIGN_STEP(k_select, chains, true, a, b, nbuf);
+    BIGN_STEP(k_final, rows_c, true, a, b, lbuf);
   }
-  BIGN_LAUNCH(k_finish<<<a.C, kThreads, 0, st>>>(a));
+  BIGN_STEP(k_finish, chains, true, a);
   return 0;
 }
 

@@ -55,4 +55,220 @@ __device__ __forceinline__ bool go_left(float x, float v, int salt, int rule) {
   return (eq || (h & 1u)) && !xnan;
 }
 
+// ---------------------------------------------------------------------------
+// float64 sums in a fixed order
+// ---------------------------------------------------------------------------
+
+// Sum over the lanes of a warp by a shuffle tree; every lane gets the total.
+__device__ __forceinline__ double warp_sum_d(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// row Gumbels generated in the kernel
+// ---------------------------------------------------------------------------
+
+// Philox-4x32-10, first output word.
+__device__ __forceinline__ unsigned int philox(unsigned int c0, unsigned int c1,
+                                               unsigned int k0, unsigned int k1) {
+  unsigned int c2 = 0u, c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned int hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const unsigned int hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0; c1 = lo1; c2 = hi0 ^ c3 ^ k1; c3 = lo0;
+    k0 += 0x9E3779B9u; k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+// Gumbel of (row, stream): u = (bits >> 9 + 0.5) 2^-23, exact in float32 and
+// inside [2^-24, 1 - 2^-24].  (With 24 bits the top value plus one half rounds
+// to 2^24, u becomes 1 and the Gumbel +inf once in 2^24 draws.)
+__device__ __forceinline__ float gen_gumbel(unsigned int k0, unsigned int k1,
+                                            int row, unsigned int stream) {
+  const unsigned int bits = philox((unsigned int)row, stream, k0, k1);
+  const float u = ((float)(bits >> 9) + 0.5f) * 1.1920928955078125e-07f;
+  return -logf(-logf(u));
+}
+
+// Stream of the row Gumbels of tree b, level d, particle q = c * P + pi; the
+// counter of one draw is (row, stream), so a value depends on neither the
+// grid nor the kernel that asks for it.
+__device__ __forceinline__ unsigned int gumbel_stream(int b, int d, int D,
+                                                      int CP, int q) {
+  return (unsigned int)((b * D + d) * CP + q);
+}
+
+// ---------------------------------------------------------------------------
+// SMC bookkeeping of one chain between two growth rounds, on ONE warp
+// ---------------------------------------------------------------------------
+
+// Sum over the lanes of a warp by a shuffle tree; every lane gets the total.
+__device__ __forceinline__ float warp_sum_f(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max_f(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Inclusive prefix sum over the lanes (lane i gets v_0 + ... + v_i), by the
+// shuffle ladder: the same order of additions in every call.
+__device__ __forceinline__ float warp_scan_f(float v) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// log_w += ll - ll_prev; then, when `gate` (every level but the last): the
+// softmax over the non-frozen particles 1..P-1, the ESS < (P-1)/2 gate, the
+// systematic ancestors with the +1 frozen offset, the reset to the log-mean
+// weight and ll gathered at the ancestors.  lw, llp, take are updated in
+// place; cdf and prob are scratch; all arrays hold P entries that the warp
+// can read and write (shared or global memory).  Called by all 32 lanes.
+// Up to 32 particles sit one to a lane: the sums are shuffle trees, the CDF a
+// shuffle ladder, the search a broadcast of each CDF entry.  More particles
+// go through memory, the three running sums taken by every lane in index
+// order.  Either way the order of additions is fixed, so every warp that
+// computes a chain's step from the same inputs gets the same bits.  Products
+// are rounded before they are added (no fused multiply-add), as the plain
+// PyTorch version rounds them.
+__device__ __forceinline__ void smc_warp(float* __restrict__ lw,
+                                         float* __restrict__ llp,
+                                         const float* __restrict__ ll,
+                                         float* __restrict__ cdf,
+                                         float* __restrict__ prob,
+                                         int* __restrict__ take, int P,
+                                         float uu, bool gate) {
+  const unsigned int full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  if (P <= 32) {
+    const bool in = lane < P, free = lane >= 1 && in;
+    const float ll_i = in ? ll[lane] : 0.f;
+    float lw_i = in ? lw[lane] + ll_i - llp[lane] : 0.f;
+    int tk = lane;
+    if (gate) {
+      const float mx = warp_max_f(free ? lw_i : -INFINITY);
+      const float e = free ? expf(lw_i - mx) : 0.f;
+      const float tot = warp_sum_f(e);
+      const float pr = e / tot;
+      const float sumsq = warp_sum_f(__fmul_rn(pr, pr));
+      const float run = warp_scan_f(pr);
+      const float c_i = run / __shfl_sync(full, run, P - 1);
+      const float log_mean = mx + logf(tot / (float)(P - 1));
+      const float ess = 1.f / fmaxf(sumsq, 1e-38f);
+      if (ess < 0.5f * (float)(P - 1)) {  // the same in every lane
+        const float pos = (uu + (float)(lane - 1)) / (float)(P - 1);
+        int cnt = 0;  // searchsorted 'left' into the non-frozen CDF
+#pragma unroll
+        for (int j = 1; j < 32; ++j) {
+          const float c_j = __shfl_sync(full, c_i, j);
+          cnt += (j < P && c_j < pos) ? 1 : 0;
+        }
+        if (free) {
+          tk = min(max(cnt + 1, 1), P - 1);
+          lw_i = log_mean;
+        }
+      }
+    }
+    const float llp_i = __shfl_sync(full, ll_i, tk);
+    if (in) {
+      lw[lane] = lw_i;
+      take[lane] = tk;
+      if (gate) llp[lane] = llp_i;
+    }
+    __syncwarp();
+    return;
+  }
+  for (int i = lane; i < P; i += 32) {
+    lw[i] = lw[i] + ll[i] - llp[i];
+    take[i] = i;
+  }
+  __syncwarp();
+  if (!gate) return;
+  float mx = -INFINITY;
+  for (int i = 1 + lane; i < P; i += 32) mx = fmaxf(mx, lw[i]);
+  mx = warp_max_f(mx);
+  for (int i = 1 + lane; i < P; i += 32) prob[i] = expf(lw[i] - mx);
+  __syncwarp();
+  float tot = 0.f;
+#pragma unroll 4
+  for (int i = 1; i < P; ++i) tot += prob[i];
+  __syncwarp();
+  for (int i = 1 + lane; i < P; i += 32) prob[i] = prob[i] / tot;
+  __syncwarp();
+  float sumsq = 0.f, run = 0.f;
+#pragma unroll 4
+  for (int i = 1; i < P; ++i) {
+    const float pr = prob[i];
+    sumsq = __fadd_rn(sumsq, __fmul_rn(pr, pr));
+    run += pr;
+    if (lane == 0) cdf[i] = run;
+  }
+  const float last = run;
+  __syncwarp();
+  for (int i = lane; i < P; i += 32) cdf[i] = (i == 0 ? 0.f : cdf[i]) / last;
+  __syncwarp();
+  const float log_mean = mx + logf(tot / (float)(P - 1));
+  const float ess = 1.f / fmaxf(sumsq, 1e-38f);
+  if (ess < 0.5f * (float)(P - 1)) {
+    for (int i = 1 + lane; i < P; i += 32) {
+      const float pos = (uu + (float)(i - 1)) / (float)(P - 1);
+      int cnt = 0;  // searchsorted 'left' into the non-frozen CDF
+#pragma unroll 4
+      for (int j = 1; j < P; ++j) cnt += (cdf[j] < pos) ? 1 : 0;
+      take[i] = min(max(cnt + 1, 1), P - 1);
+      lw[i] = log_mean;
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < P; i += 32) llp[i] = ll[take[i]];
+  __syncwarp();
+}
+
+// Winner of a chain by inverse CDF over exp(log_w - max): the number of
+// prefix sums below u times the total, clamped to a particle.  One warp,
+// every lane returns it; prob is scratch of P entries.
+__device__ __forceinline__ int winner_warp(const float* __restrict__ lw,
+                                           float* __restrict__ prob, int P,
+                                           float u) {
+  const unsigned int full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  int cnt = 0;
+  if (P <= 32) {
+    const bool in = lane < P;
+    const float mx = warp_max_f(in ? lw[lane] : -INFINITY);
+    const float e = in ? expf(lw[lane] - mx) : 0.f;
+    const float uu = u * warp_sum_f(e);
+    const float run = warp_scan_f(e);  // by all lanes, before the test
+    cnt = __popc(__ballot_sync(full, in && run < uu));
+  } else {
+    float mx = -INFINITY;
+    for (int i = lane; i < P; i += 32) mx = fmaxf(mx, lw[i]);
+    mx = warp_max_f(mx);
+    for (int i = lane; i < P; i += 32) prob[i] = expf(lw[i] - mx);
+    __syncwarp();
+    float tot = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < P; ++i) tot += prob[i];
+    const float uu = u * tot;
+    float run = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < P; ++i) {
+      run += prob[i];
+      cnt += (run < uu) ? 1 : 0;
+    }
+    __syncwarp();
+  }
+  return min(max(cnt, 0), P - 1);
+}
+
 }  // namespace bart

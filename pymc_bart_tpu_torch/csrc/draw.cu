@@ -8,54 +8,94 @@
 // and sum_trees, adapts the split prior and the Welford leaf_sd while tuning,
 // and ends with the variable-inclusion histogram.  The SMC weights follow a
 // likelihood code: gauss, bernoulli, het_abs, het_exp, cat_logit.  The
-// sampler state is updated IN PLACE; the random numbers are arguments.
+// sampler state is updated IN PLACE; the random numbers are arguments, except
+// the row Gumbels, which are generated here when no block is given (the TPU
+// kernel's rng_mode="kernel").
 //
-// Bound: bytes.  The row-Gumbel block (B*D*C*P*n floats) is read once and
-// dominates; the forest, tree_pred and the other blocks follow.  At the main
-// shapes the kernel is far from that bound: it is a chain of short phases
-// separated by barriers, so latency sets its time.
+// Bound: bytes by the count (the small random blocks, the forest rows and
+// tree_pred rows of the B updated trees, X, y: about 1 MB at the main shapes
+// once the Gumbels are generated), but the step is a chain of about 70 short
+// dependent phases per tree, so LATENCY sets its time: how long a phase
+// takes to fetch its operands, and how long the particles of a chain take to
+// meet.  The design keeps both on the SM.
 //
-// Design.  One block per (chain, particle), launched cooperatively so that
-// every block is resident (the launcher refuses a grid that is not).  The
-// tree loop and the depth loop run inside the kernel.  The particles of one
-// chain meet at a per-chain barrier (an arrival counter in global memory;
-// chains never wait for each other):
-//   * once per tree after the leader block (particle 0, the frozen particle)
-//     has prepared the tree: sum_noi, the residual, the root mean and the
-//     split-weight CDF;
-//   * once per level after every particle has written its state and its
-//     log-likelihood.
-// Per-particle state (node arrays, leaf_idx, pred) lives in global scratch in
-// TWO buffers: at level d a particle reads its ancestor `take[q]` from one
-// buffer and writes itself to the other, so no particle overwrites state
-// another one still has to read; the barrier separates "everyone has
-// written" from "anyone reads an ancestor".  After the barrier every block
-// of the chain computes the same SMC bookkeeping (weights, ESS, ancestors)
-// redundantly from the same P log-likelihoods: the same code on the same
-// inputs, so all blocks hold the same `take`.  After the last level the
-// leader block selects the winner, refines, commits and adapts while the
-// others wait at the next tree's barrier.
+// Design.
+//   * One thread-block CLUSTER per chain (cudaLaunchKernelEx with a cluster
+//     dimension): chains never wait for each other, and the blocks of a
+//     cluster are co-scheduled by the hardware, so nothing has to be resident
+//     beyond it.  The chain's P particles are spread over the cluster's CS
+//     blocks, PB to a block (idle slots where P does not divide), each
+//     particle worked by a team of WP warps.  The particles meet once per
+//     level and a few times per tree at the hardware cluster barrier; the P
+//     log-likelihoods and all partial sums are exchanged by stores into the
+//     other blocks' shared memory (distributed shared memory).
+//   * Per-particle state lives in shared memory (form "shared"): the five
+//     node arrays and the row -> node array li (16 bits a row) in TWO
+//     buffers.  At level d a particle copies its ancestor take[q] from one
+//     buffer (another block's, through distributed shared memory, or its own)
+//     into its slot of the other and then works there, so no particle
+//     overwrites state another one still has to read; the cluster barrier
+//     separates "everyone has written" from "anyone copies an ancestor".
+//     The prediction row is not stored: pred[i] == leaf[li[i]] at all times.
+//     y, the row data, the residual base of the tree, the tree's random
+//     blocks, the split-weight CDF and, where it fits, X are staged in every
+//     block, so that no phase of a level waits for device memory.  Where a
+//     chain's rows do not fit (large n) the same kernel keeps the node arrays
+//     and li in global memory (form "global"); ops/draw.py chooses the form
+//     from the shapes alone.
+//   * A row pass costs what the data needs: rows are touched only in nodes
+//     that grow (the Gumbel arg-max, generated Gumbels included), only in
+//     active nodes (child counts and residual sums) or final ones (routing),
+//     and a particle none of whose nodes changed at a level inherits its
+//     ancestor's log-likelihood instead of summing it again.
+//   * Sums keyed by node (child residual sums, the winner's leaf sums): no
+//     serial scan.  A residual becomes a fixed-point integer; the lanes of a
+//     warp that hold one node are found by a match, their values added by
+//     32-bit warp reductions, and one lane adds the group's sum to the
+//     block's accumulator with an integer atomic.  The Gumbel arg-max
+//     likewise: one warp maximum and one 64-bit atomicMax per warp and node.
+//   * The SMC bookkeeping (bart::smc_warp) runs on one warp in every block of
+//     the chain on the same P log-likelihoods: the same code on the same
+//     inputs, so all blocks hold the same ancestors without another barrier.
+//   * The whole cluster works on the tree's preparation and commit (rows
+//     split over the blocks) and on its tail: in the global form the leaf
+//     sums and the R + 1 refinement row passes are split by rows, partial
+//     sums meeting in every block and added in block order; in the shared
+//     form a pass over the rows costs less than a cluster barrier, so every
+//     block makes it whole and all hold the same sums without meeting.
 //
 // Order of float sums (discrete decisions must not flip from run to run):
-// row sums are fixed-order block sums (common.cuh) or chunk scans added in
-// chunk order; the softmax, the resampling CDF and the winner CDF are
-// sequential in index order on one thread; only integer counts use atomics.
-// The split-weight CDF over the p columns is accumulated in float64 in index
-// order and rounded to float32 once per entry, which the plain version
-// reproduces with a float64 cumsum.
+// the log-likelihood, prior and Welford sums are accumulated in float64 in a
+// FIXED order (lanes by a shuffle tree, warps in warp order, blocks in rank
+// order) and rounded to float32 once; the sums keyed by node (child residual
+// sums, the winner's leaf sums) are taken in fixed point, where addition has
+// no order; the sums of the resampling step and the winner's CDF are shuffle
+// trees and ladders of a fixed shape (bart::smc_warp); the split-weight CDF
+// over the p columns is a float64 running sum rounded once per entry (the
+// plain version reproduces it with a float64 cumsum); counts are popcounts.
 // NaN-able values (split values) are selected, never blended.
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+using bart::gen_gumbel;
 using bart::go_left;
-using bart::kThreads;
 using bart::pack_key;
+using bart::warp_sum_d;
 
 constexpr int kMaxDepth = 16;
-constexpr long long kSpinLimit = 4000000000LL;  // cycles, about two seconds
+constexpr int kMaxThreads = 512;
+constexpr int kMaxCluster = 16;
+constexpr unsigned int kFull = 0xffffffffu;
 
 enum Lik { kGauss = 0, kBernoulli = 1, kHetAbs = 2, kHetExp = 3, kCatLogit = 4 };
+enum Flag { kWant = 1, kFinal = 2 };  // a node wants to grow; its rows move
 
 // Mirrored field by field by ops/draw.py::_DrawArgs (ctypes).
 struct DrawArgs {
@@ -66,34 +106,137 @@ struct DrawArgs {
   int* batch_offset; int* iteration;
   // data
   const float* X; const float* y; const int* rules; const float* lik_row;
-  // random blocks of the step
+  // random blocks of the step (rg may be null: generated from the seed)
   const float* ug; const float* uv; const float* rg; const float* eps;
   const int* sb; const float* ures; const float* usel; const float* epsr;
   const float* uacc;
-  // scratch
+  const unsigned int* seed;  // two words, read when rg is null
+  // scratch; the per-particle arrays only in the global form
   int* ps_sv; float* ps_sl; int* ps_st; float* ps_lf; float* ps_ct;
-  int* ps_li; float* ps_pred;
-  float* ll_buf; float* cdf; float* resid; float* noi; float* root_mu;
-  int* vi_cnt; unsigned int* bar; int* status;
+  int* ps_li; float* noi;
+  float* cdf; int* vi_cnt;
   // output
   float* vi;
   int C, P, S, n, p, m, B, D, R, lik, tuning;
+  // the launch plan of ops/draw.py: cluster size, particle slots of a block,
+  // warps of a particle's team, the form, whether X and the CDF are staged
+  int CS, PB, WP, shared_form, x_staged, cdf_staged;
   float lik_const, decay;
   float p_grow[kMaxDepth];
 };
 
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+struct Plan { int D, P, S, n, p, R, CS, PB, WP, shared_form, x_staged, cdf_staged; };
 
-// Dynamic shared memory of one block, in bytes (mirrored by ops/draw.py).
-inline size_t smem_bytes(int D, int P, int S) {
-  const int Gm = 1 << (D - 1);
-  const size_t words = 5 * (size_t)Gm + 2 * Gm   // varx vars setx flags (+pad), cnt
-      + 2 * (size_t)Gm + 2 * (size_t)(2 * Gm)    // valx valraw, clf stat
-      + imax(kThreads, 2 * Gm) + 32              // chunk partials, reduction
-      + 5 * (size_t)P + 4                        // chain vectors, scalars
-      + 4 * (size_t)S + imax(kThreads, S);       // leader: leaves and partials
-  return 8 * (size_t)Gm + 4 * words;
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+__host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
+
+// ---------------------------------------------------------------------------
+// dynamic shared memory of one block (mirrored by ops/draw.py::smem_bytes)
+// ---------------------------------------------------------------------------
+
+struct Smem {
+  // per particle slot, per node of the level (PB x Gm)
+  unsigned long long* best;
+  int *varx, *vars, *setx, *flags;
+  float *valx;
+  // per particle slot: the tree's random blocks (Gtot each, eps 2 Gtot)
+  float *r_ug, *r_uv, *r_eps; int* r_sb;
+  // fixed-point residual sums and counts per particle slot and child
+  // (PB x 2Gm), fixed-point residual sums per leaf of the winner (S)
+  long long* acc_ch; int* cnt_ch; long long* acc_lf;
+  double* wpart;            // 4 W: two buffers of two warp partials
+  int* any;                 // PB team flags: 1 a node wants to grow, 2 a node is final
+  // the chain's particles (P each; ll holds two levels)
+  float *lw, *llp, *ll, *ll0, *cdfp, *prob; int* take; int* widx;
+  // partial sums of the cluster's blocks, written by their owners
+  double *x_prep, *x_ll; long long* x_leaf;
+  // the winner (S each), the tree's refinement noise (R x S), its uniforms
+  float *lfw, *lfp, *mask, *ctr, *wct; int* wsv;
+  float *r_epsr, *r_misc;
+  float* cdf;               // p, when staged
+  float* X; int* rules;     // n x p and p, when staged
+  // shared form: staged rows and sum_trees (n each); per buffer and slot one record of the
+  // five node arrays (S4 words each) and li (n8 x 16 bits); the winner's li
+  float *y, *noi, *w, *st;
+  unsigned int* rec;
+  unsigned short* wli;
+};
+
+template <class T>
+__host__ __device__ inline T* carve(unsigned char* base, size_t& off, size_t count) {
+  off = (off + 15) & ~(size_t)15;
+  T* r = reinterpret_cast<T*>(base + off);
+  off += count * sizeof(T);
+  return r;
 }
+
+// 32-bit words of one particle's record in the shared form
+__host__ __device__ inline int record_words(int S, int n) {
+  return 5 * round4(S) + round8(n) / 2;
+}
+
+__host__ __device__ inline size_t layout(Smem& s, unsigned char* base, const Plan& q) {
+  const size_t Gm = (size_t)1 << (q.D - 1), Gtot = ((size_t)1 << q.D) - 1;
+  const size_t PB = q.PB, W = PB * q.WP, S = q.S, P = q.P, CS = q.CS;
+  size_t off = 0;
+  s.best = carve<unsigned long long>(base, off, PB * Gm);
+  s.varx = carve<int>(base, off, PB * Gm);
+  s.vars = carve<int>(base, off, PB * Gm);
+  s.setx = carve<int>(base, off, PB * Gm);
+  s.flags = carve<int>(base, off, PB * Gm);
+  s.valx = carve<float>(base, off, PB * Gm);
+  s.r_ug = carve<float>(base, off, PB * Gtot);
+  s.r_uv = carve<float>(base, off, PB * Gtot);
+  s.r_eps = carve<float>(base, off, PB * 2 * Gtot);
+  s.r_sb = carve<int>(base, off, PB * Gtot);
+  s.acc_ch = carve<long long>(base, off, PB * 2 * Gm);
+  s.cnt_ch = carve<int>(base, off, PB * 2 * Gm);
+  s.acc_lf = carve<long long>(base, off, S);
+  s.wpart = carve<double>(base, off, 4 * W);
+  s.any = carve<int>(base, off, PB);
+  s.lw = carve<float>(base, off, P);
+  s.llp = carve<float>(base, off, P);
+  s.ll = carve<float>(base, off, 2 * P);
+  s.ll0 = carve<float>(base, off, P);
+  s.cdfp = carve<float>(base, off, P);
+  s.prob = carve<float>(base, off, P);
+  s.take = carve<int>(base, off, P);
+  s.widx = carve<int>(base, off, 4);
+  s.x_prep = carve<double>(base, off, 3 * CS);
+  s.x_ll = carve<double>(base, off, 2 * CS);
+  s.x_leaf = carve<long long>(base, off, (q.shared_form ? 1 : CS) * S);
+  s.lfw = carve<float>(base, off, S);
+  s.lfp = carve<float>(base, off, S);
+  s.mask = carve<float>(base, off, S);
+  s.ctr = carve<float>(base, off, S);
+  s.wct = carve<float>(base, off, S);
+  s.wsv = carve<int>(base, off, S);
+  s.r_epsr = carve<float>(base, off, (size_t)q.R * S);
+  s.r_misc = carve<float>(base, off, (size_t)q.D + 1 + q.R);
+  if (q.cdf_staged) s.cdf = carve<float>(base, off, q.p);
+  if (q.x_staged) {
+    s.X = carve<float>(base, off, (size_t)q.n * q.p);
+    s.rules = carve<int>(base, off, q.p);
+  }
+  if (q.shared_form) {
+    s.y = carve<float>(base, off, q.n);
+    s.noi = carve<float>(base, off, q.n);
+    s.w = carve<float>(base, off, q.n);
+    s.st = carve<float>(base, off, q.n);
+    s.rec = carve<unsigned int>(base, off, 2 * PB * (size_t)record_words(q.S, q.n));
+    s.wli = carve<unsigned short>(base, off, round8(q.n));
+  }
+  return (off + 15) & ~(size_t)15;
+}
+
+inline Plan plan_of(const DrawArgs& a) {
+  return Plan{a.D, a.P, a.S, a.n, a.p, a.R, a.CS, a.PB, a.WP, a.shared_form,
+              a.x_staged, a.cdf_staged};
+}
+
+// ---------------------------------------------------------------------------
+// helpers
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float softplusf(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
@@ -102,9 +245,9 @@ __device__ __forceinline__ float softplusf(float x) {
 // One row's term of the log-likelihood sum.  For gauss the caller multiplies
 // the sum by -1/2; for the other codes the sum is the log-likelihood.
 __device__ __forceinline__ float row_ll(int lik, float c0, float y, float noi,
-                                        float resid, float w, float pred) {
+                                        float w, float pred) {
   if (lik == kGauss) {
-    const float df = resid - pred;
+    const float df = (y - noi) - pred;
     return w * df * df;
   }
   const float F = noi + pred;
@@ -118,461 +261,644 @@ __device__ __forceinline__ float row_ll(int lik, float c0, float y, float noi,
   return (y > 0.f ? 1.f : 0.f) * F - lse;
 }
 
-// Barrier of the P blocks of chain c.  `epoch` counts the arrivals expected
-// so far.  A wait that outlasts kSpinLimit sets `status` and gives up, and so
-// does every later wait: a fault ends as an error, not as a hung card.
-__device__ __forceinline__ void chain_barrier(const DrawArgs& a, int c,
-                                              unsigned int& epoch) {
-  epoch += (unsigned int)a.P;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(a.bar + c, 1u);
-    volatile unsigned int* vb = a.bar + c;
-    volatile int* vs = a.status;
-    const long long t0 = clock64();
-    while (*vb < epoch) {
-      if (*vs != 0) break;
-      if (clock64() - t0 > kSpinLimit) { atomicExch(a.status, 1); break; }
-    }
-    __threadfence();
-  }
-  __syncthreads();
+// Sums keyed by node are taken in FIXED POINT: a residual r becomes the
+// integer round(r * 2^k), with k chosen per tree so that the largest |r| of
+// the chain has 38 bits (row counts below 2^20 then fit 63 bits with room).
+// Integer addition has no order, so the sums are the same bits from run to
+// run whatever the order of the atomics, and their error (2^-39 of the
+// largest residual per row) is far below a float32 sum's in any order.
+__device__ __forceinline__ long long to_fixed(float r, double scale) {
+  return __double2ll_rn((double)r * scale);
 }
 
-extern __shared__ unsigned long long smem_u64[];
+// Adds q to acc[key] (and 1 to cnt[key]) for every lane with key >= 0: the
+// lanes with one key are found by a match, their values added by two 32-bit
+// warp reductions (high and low 20 bits), and the lowest lane of the group
+// makes one atomic add.  All 32 lanes call.
+__device__ __forceinline__ void keyed_add(int key, long long q, long long* acc,
+                                          int* cnt, int lane) {
+  const unsigned int peers = __match_any_sync(kFull, key);
+  const int hi = __reduce_add_sync(peers, (int)(q >> 20));
+  const unsigned int lo = __reduce_add_sync(peers, (unsigned int)(q & 0xFFFFF));
+  if (key >= 0 && lane == __ffs(peers) - 1) {
+    atomicAdd((unsigned long long*)&acc[key],
+              (unsigned long long)((long long)hi * (1LL << 20) + (long long)lo));
+    if (cnt) atomicAdd(&cnt[key], __popc(peers));
+  }
+}
 
-__global__ void __launch_bounds__(kThreads, 2) pgbart_step_kernel(const DrawArgs a) {
+// Raises best[node] to the largest key among the lanes with that node
+// (node < 0: no key): a match, one 32-bit warp maximum of the value word, and
+// one atomic by the lowest lane that holds it (the lowest row of the warp).
+__device__ __forceinline__ void keyed_max(int node, unsigned long long key,
+                                          unsigned long long* best, int lane) {
+  const unsigned int peers = __match_any_sync(kFull, node);
+  const unsigned int hi = (unsigned int)(key >> 32);
+  const unsigned int top = __reduce_max_sync(peers, hi);
+  const unsigned int win = __ballot_sync(kFull, node >= 0 && hi == top) & peers;
+  if (node >= 0 && lane == __ffs(win) - 1) atomicMax(&best[node], key);
+}
+
+// the row of the largest Gumbel from its packed key (row 0 for no key)
+__device__ __forceinline__ int key_row(unsigned long long key) {
+  return key ? (int)(0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull)) : 0;
+}
+
+// pointers to one particle's state in one buffer
+template <class LiT>
+struct Part {
+  int* sv; float* sl; int* st; float* lf; float* ct; LiT* li;
+};
+
+// Phase clocks (compiled in with -DDRAW_PHASE_CLOCKS): cycles that thread 0 of
+// one block of chain 0's cluster spends up to each stamp, summed over the
+// launches since the last reset.
+#ifdef DRAW_PHASE_CLOCKS
+__device__ long long g_clock[16];
+__device__ int g_clock_rank;
+#define STAMP(k)                                                 \
+  do {                                                           \
+    if (clock_on) {                                              \
+      const long long now_ = clock64();                          \
+      atomicAdd((unsigned long long*)&g_clock[k],                \
+                (unsigned long long)(now_ - clock_prev));        \
+      clock_prev = now_;                                         \
+    }                                                            \
+  } while (0)
+#else
+#define STAMP(k) do { } while (0)
+#endif
+
+extern __shared__ __align__(16) unsigned char smem_raw[];
+
+// kSh: per-particle state in shared memory (li in 16 bits), else in global
+template <bool kSh>
+__global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawArgs a) {
+  using LiT = typename std::conditional<kSh, unsigned short, int>::type;
+  using PartT = Part<LiT>;
+  cg::cluster_group cluster = cg::this_cluster();
   const int C = a.C, P = a.P, S = a.S, n = a.n, p = a.p, m = a.m, D = a.D;
-  const int R = a.R, lik = a.lik;
-  const int c = blockIdx.x / P, pi = blockIdx.x % P;
-  const int T = blockDim.x, t = threadIdx.x;
-  const bool leader = pi == 0;  // the frozen particle; also the chain's serial work
+  const int R = a.R, lik = a.lik, CS = a.CS, PB = a.PB, WP = a.WP;
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / CS;
+  const int T = blockDim.x, t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int W = T >> 5;
+  const int slot = warp / WP, tw = warp % WP, tt = tw * 32 + lane, TT = WP * 32;
+  const int pi = rank * PB + slot;
+  const bool valid = pi < P;
+  const bool frozen = pi == 0;  // the frozen particle replays the current tree
+  const int q = c * P + pi;
   const int Gm = 1 << (D - 1), Gtot = (1 << D) - 1;
+  const int S4 = round4(S), RW = record_words(S, n);
   const float c0 = a.lik_const;
-
-  unsigned long long* s_best = smem_u64;            // Gm
-  int* s_varx = (int*)(s_best + Gm);                // Gm clipped effective var
-  int* s_vars = s_varx + Gm;                        // Gm sampled var
-  int* s_setx = s_vars + Gm;                        // Gm effective salt
-  int* s_flags = s_setx + Gm;                       // Gm 1 want 2 active 4 grow_ok 8 final
-  int* s_widx = s_flags + Gm;                       // Gm (slot 0: winner index)
-  int* s_cnt = s_widx + Gm;                         // 2Gm child counts
-  float* s_valx = (float*)(s_cnt + 2 * Gm);         // Gm effective split value
-  float* s_valraw = s_valx + Gm;                    // Gm sampled split value
-  float* s_clf = s_valraw + Gm;                     // 2Gm child leaf values
-  float* s_stat = s_clf + 2 * Gm;                   // 2Gm child residual sums
-  float* s_part = s_stat + 2 * Gm;                  // max(T, 2Gm) chunk partials
-  float* s_red = s_part + imax(kThreads, 2 * Gm);   // 32
-  float* c_lw = s_red + 32;                         // P log-weights of the chain
-  float* c_llp = c_lw + P;                          // P ll at the last weight update
-  float* c_ll = c_llp + P;                          // P ll after this level
-  float* c_cdf = c_ll + P;                          // P resampling CDF
-  int* c_take = (int*)(c_cdf + P);                  // P ancestors
-  float* c_sc = (float*)(c_take + P);               // 4 scalars
-  float* s_lfw = c_sc + 4;                          // S winner's leaf values
-  float* s_lfp = s_lfw + S;                         // S proposed leaf values
-  float* s_mask = s_lfp + S;                        // S 1 on occupied leaves
-  float* s_ctr = s_mask + S;                        // S prior centres
-  float* s_part2 = s_ctr + S;                       // max(T, S)
-
   const size_t CP = (size_t)C * P;
-  const size_t q = (size_t)c * P + pi;
-  float* resid = a.resid + (size_t)c * n;
-  float* noi = a.noi + (size_t)c * n;
-  const float* y = a.y;
-  const float* wrow = a.lik_row ? a.lik_row + (size_t)c * n : nullptr;
-  const float* X = a.X;
-  const float* cdf = a.cdf + (size_t)c * p;
+  // the tail's sums: the global form splits the rows over the cluster and
+  // adds the blocks' partials; the shared form sums all rows in every block
+  constexpr bool kSplit = !kSh;
+  const int TR = kSplit ? CS : 1, my = kSplit ? rank : 0;
+#ifdef DRAW_PHASE_CLOCKS
+  const bool clock_on = t == 0 && c == 0 && rank == min(g_clock_rank, CS - 1);
+  long long clock_prev = clock64();
+#endif
+
+  Smem s = {};
+  layout(s, smem_raw, Plan{D, P, S, n, p, R, CS, PB, WP, kSh ? 1 : 0, a.x_staged,
+                           a.cdf_staged});
+
+  // this team's level arrays, random blocks and this warp's accumulators
+  unsigned long long* t_best = s.best + (size_t)slot * Gm;
+  int* t_varx = s.varx + (size_t)slot * Gm;
+  int* t_vars = s.vars + (size_t)slot * Gm;
+  int* t_setx = s.setx + (size_t)slot * Gm;
+  int* t_flags = s.flags + (size_t)slot * Gm;
+  float* t_valx = s.valx + (size_t)slot * Gm;
+  float* t_ug = s.r_ug + (size_t)slot * Gtot;
+  float* t_uv = s.r_uv + (size_t)slot * Gtot;
+  int* t_sb = s.r_sb + (size_t)slot * Gtot;
+  float* t_eps = s.r_eps + (size_t)slot * 2 * Gtot;
+  long long* t_acc = s.acc_ch + (size_t)slot * 2 * Gm;
+  int* t_cnt = s.cnt_ch + (size_t)slot * 2 * Gm;
+
+  // rows of the chain: y, the row data, the residual base of the tree
+  const float* yv = kSh ? s.y : a.y;
+  const float* wv = kSh ? s.w : (a.lik_row ? a.lik_row + (size_t)c * n : nullptr);
+  float* noiv = kSh ? s.noi : a.noi + (size_t)c * n;
+  const float* Xv = a.x_staged ? s.X : a.X;
+  const int* rules = a.x_staged ? s.rules : a.rules;
+  const float* cdf = a.cdf_staged ? s.cdf : a.cdf + (size_t)c * p;
+  if (kSh) {
+    const float* wrow = a.lik_row ? a.lik_row + (size_t)c * n : nullptr;
+    for (int i = t; i < n; i += T) {
+      s.y[i] = a.y[i];
+      s.w[i] = wrow ? wrow[i] : 0.f;
+    }
+  }
+  if (a.x_staged) {
+    for (int i = t; i < n * p; i += T) s.X[i] = a.X[i];
+    for (int j = t; j < p; j += T) s.rules[j] = a.rules[j];
+  }
+
+  // particle pp of this chain in buffer buf (shared form: its owner's memory)
+  auto part = [&](int buf, int pp) -> PartT {
+    if (kSh) {
+      unsigned int* rec = s.rec + ((size_t)buf * PB + pp % PB) * RW;
+      const int r = pp / PB;
+      if (r != rank) rec = cluster.map_shared_rank(rec, r);
+      return PartT{(int*)rec, (float*)(rec + S4), (int*)(rec + 2 * S4),
+                   (float*)(rec + 3 * S4), (float*)(rec + 4 * S4),
+                   (LiT*)(rec + 5 * S4)};
+    }
+    const size_t o = ((size_t)buf * CP + (size_t)c * P + pp) * S;
+    return PartT{a.ps_sv + o, a.ps_sl + o, a.ps_st + o, a.ps_lf + o, a.ps_ct + o,
+                 (LiT*)(a.ps_li + ((size_t)buf * CP + (size_t)c * P + pp) * n)};
+  };
+
+  // this team's sum of the row log-likelihood terms at pred[i] = lf[li[i]];
+  // `route` first moves the rows of final nodes to their children.  The warp
+  // partials go to wpart, the team's thread 0 adds them in warp order.
+  auto team_ll = [&](LiT* li, const float* lf, bool route, int lo, int G) {
+    double acc = 0.0;
+    for (int i = tt; i < n; i += TT) {
+      int l = (int)li[i];
+      const int g = l - lo;
+      if (route && g >= 0 && g < G && (t_flags[g] & kFinal)) {
+        const int col = t_varx[g];
+        const bool left = go_left(Xv[(size_t)i * p + col], t_valx[g], t_setx[g],
+                                  rules[col]);
+        l = 2 * l + 1 + (left ? 0 : 1);
+        li[i] = (LiT)l;
+      }
+      acc += (double)row_ll(lik, c0, yv[i], noiv[i], wv ? wv[i] : 0.f, lf[l]);
+    }
+    acc = warp_sum_d(acc);
+    if (lane == 0) s.wpart[warp] = acc;
+  };
+  auto team_total = [&]() {  // after a __syncthreads
+    double tot = 0.0;
+    for (int k = 0; k < WP; ++k) tot += s.wpart[slot * WP + k];
+    return lik == kGauss ? -0.5f * (float)tot : (float)tot;
+  };
+  // one value into slot `idx` of array `arr` of every block of the cluster
+  auto push = [&](auto* arr, int idx, auto v) {
+    for (int r = 0; r < CS; ++r)
+      (r == rank ? arr : cluster.map_shared_rank(arr, r))[idx] = v;
+  };
+  auto ranks_sum = [&](const double* x, int count) {
+    double tot = 0.0;
+    for (int r = 0; r < count; ++r) tot += x[r];
+    return tot;
+  };
+  // Block-wide float64 sums of two values in a fixed order; every thread gets
+  // both totals.  One barrier: calls alternate between two buffers (`flip`).
+  int flip = 0;
+  auto block_sum2 = [&](double& u, double& v) {
+    u = warp_sum_d(u);
+    v = warp_sum_d(v);
+    double* buf = s.wpart + (size_t)flip * 2 * W;
+    flip ^= 1;
+    if (lane == 0) { buf[warp] = u; buf[W + warp] = v; }
+    __syncthreads();
+    u = 0.0; v = 0.0;
+    for (int k = 0; k < W; ++k) { u += buf[k]; v += buf[W + k]; }
+  };
+
   const int off0 = a.batch_offset[c];
-  unsigned int epoch = 0;
+  const int iter0 = a.iteration[c];
+  float lsd = a.leaf_sd[c];
+  float wc = a.wf_count[c];
+  // the rows this block takes of every pass that the whole cluster shares
+  const int chunk = (n + CS - 1) / CS;
+  const int r0 = min(n, rank * chunk), r1 = min(n, r0 + chunk);
+  const int t0r = kSplit ? r0 : 0, t1r = kSplit ? r1 : n;  // rows of the tail's sums
+  const unsigned int k0 = a.rg ? 0u : a.seed[0], k1 = a.rg ? 0u : a.seed[1];
+  // the split-weight CDF: a float64 running sum rounded once per entry
+  auto write_cdf = [&]() {
+    double run = 0.0;
+    for (int j = 0; j < p; ++j) {
+      run += (double)fmaxf(a.alpha_vec[(size_t)c * p + j], 1e-12f);
+      a.cdf[(size_t)c * p + j] = (float)run;
+    }
+    __threadfence();
+  };
+  if (rank == 0 && t == 0) write_cdf();
+  if (kSh) for (int i = t; i < n; i += T) s.st[i] = a.sum_trees[(size_t)c * n + i];
+  cluster.sync();  // every block of the cluster runs before one writes to another
 
   for (int b = 0; b < a.B; ++b) {
     const int jt = (off0 + b) % m;
     const size_t fr = ((size_t)c * m + jt) * S;     // forest row of the tree
     float* tp = a.tree_pred + ((size_t)c * m + jt) * n;
 
-    // ---- the leader prepares the tree ----
-    if (leader) {
-      float acc = 0.f;
-      for (int i = t; i < n; i += T) {
-        const float ni = a.sum_trees[(size_t)c * n + i] - tp[i];
-        const float r = y[i] - ni;
-        noi[i] = ni;
-        resid[i] = r;
-        acc += r;
-      }
-      const float tot = bart::block_sum(acc, s_red);
-      if (t == 0) {
-        a.root_mu[c] = tot / (float)n / (float)m;
-        double run = 0.0;
-        for (int j = 0; j < p; ++j) {
-          run += (double)fmaxf(a.alpha_vec[(size_t)c * p + j], 1e-12f);
-          a.cdf[(size_t)c * p + j] = (float)run;
-        }
-      }
-    }
-    chain_barrier(a, c, epoch);
-
-    // ---- this block's particle: the current tree (frozen) or a root leaf ----
-    int cur = 0;
-    const float lsd = a.leaf_sd[c];
+    // ---- prepare the tree: residual base, root sum, fixed-point scale ----
+    // The global form splits the rows over the cluster and meets; the shared
+    // form keeps sum_trees in every block and prepares all rows locally, so
+    // its blocks only wait for the last tree's winner to have been read.
+    float rmu;
+    double fx_scale, fx_inv;
     {
-      int* sv_o = a.ps_sv + q * S; float* sl_o = a.ps_sl + q * S;
-      int* st_o = a.ps_st + q * S; float* lf_o = a.ps_lf + q * S;
-      float* ct_o = a.ps_ct + q * S;
-      int* li_o = a.ps_li + q * n; float* pred_o = a.ps_pred + q * n;
-      const float rmu = a.root_mu[c];
-      for (int s = t; s < S; s += T) {
-        if (leader) {
-          sv_o[s] = a.f_sv[fr + s]; sl_o[s] = a.f_sl[fr + s];
-          st_o[s] = a.f_st[fr + s]; lf_o[s] = a.f_lf[fr + s];
-          ct_o[s] = a.f_ct[fr + s];
-        } else {
-          sv_o[s] = -1; sl_o[s] = 0.f; st_o[s] = 0;
-          lf_o[s] = s == 0 ? rmu : 0.f;
-          ct_o[s] = s == 0 ? (float)n : 0.f;
+      const int p0 = kSh ? 0 : r0, p1 = kSh ? n : r1;
+      // the tree's refinement noise and uniforms: their loads start before
+      // the row loop waits for its own
+      const size_t bc = (size_t)b * C + c;
+      auto misc = [&](int k) {
+        return k < D ? a.ures[((size_t)b * D + k) * C + c]
+            : k == D ? a.usel[bc] : a.uacc[bc * R + (k - D - 1)];
+      };
+      const int RS = R * S, NM = D + 1 + R;
+      const float e0 = t < RS ? a.epsr[bc * RS + t] : 0.f;
+      const float e1 = t + T < RS ? a.epsr[bc * RS + t + T] : 0.f;
+      const float m0 = t < NM ? misc(t) : 0.f;
+      double acc = 0.0;
+      float amax = 0.f;
+      for (int i = p0 + t; i < p1; i += T) {
+        const float ni = (kSh ? s.st[i] : a.sum_trees[(size_t)c * n + i]) - tp[i];
+        const float r = (kSh ? s.y[i] : a.y[i]) - ni;
+        acc += (double)r;
+        amax = fmaxf(amax, fabsf(r));
+        noiv[i] = ni;
+      }
+      if (t < RS) s.r_epsr[t] = e0;
+      if (t + T < RS) s.r_epsr[t + T] = e1;
+      for (int k = t + 2 * T; k < RS; k += T) s.r_epsr[k] = a.epsr[bc * RS + k];
+      if (t < NM) s.r_misc[t] = m0;
+      for (int k = t + T; k < NM; k += T) s.r_misc[k] = misc(k);
+      acc = warp_sum_d(acc);
+      amax = bart::warp_max_f(amax);
+      if (lane == 0) { s.wpart[warp] = acc; s.wpart[W + warp] = (double)amax; }
+      __syncthreads();
+      double tot = 0.0, top = 0.0;
+      if (kSh || t == 0) {
+        for (int k = 0; k < W; ++k) {
+          tot += s.wpart[k];
+          top = fmax(top, s.wpart[W + k]);
         }
       }
-      const float pred0 = leader ? a.f_lf[fr] : rmu;
-      float acc = 0.f;
-      for (int i = t; i < n; i += T) {
-        li_o[i] = 0;
-        pred_o[i] = pred0;
-        acc += row_ll(lik, c0, y[i], noi[i], resid[i], wrow ? wrow[i] : 0.f,
-                      pred0);
+      if (kSh) {
+        if (b > 0) cluster.barrier_wait();
+        if (a.tuning && b > 0) cluster.sync();  // Welford sums, the new CDF
+      } else {
+        if (t == 0) {
+          push(s.x_prep, rank, tot);
+          push(s.x_prep, 2 * CS + rank, top);
+        }
+        __threadfence();
+        cluster.sync();
+        tot = ranks_sum(s.x_prep, CS);
+        top = 0.0;
+        for (int r = 0; r < CS; ++r) top = fmax(top, s.x_prep[2 * CS + r]);
       }
-      const float tot = bart::block_sum(acc, s_red);
-      if (t == 0) a.ll_buf[q] = lik == kGauss ? -0.5f * tot : tot;
-      for (int i = t; i < P; i += T) c_take[i] = i;
+      rmu = (float)tot / (float)n / (float)m;
+      // the tree's fixed-point scale: the largest |residual| gets 38 bits
+      int e = 0;
+      if (top > 0.0 && top < 1e300) frexp(top, &e);
+      fx_scale = ldexp(1.0, 38 - e);
+      fx_inv = ldexp(1.0, e - 38);
+    }
+    if (a.tuning && b > 0) {  // leaf_sd from the Welford sums of the last tree
+      const float sd = (float)ranks_sum(s.x_prep + CS, CS) / (float)n;
+      if (iter0 + b > m) lsd = fmaxf(sd, 1e-6f);
+    }
+    if (a.cdf_staged && (b == 0 || a.tuning))
+      for (int j = t; j < p; j += T) s.cdf[j] = a.cdf[(size_t)c * p + j];
+    STAMP(0);
+
+    // ---- this team's particle: the current tree (frozen) or a root leaf ----
+    int cur = 0;
+    if (valid) {
+      const PartT o = part(0, pi);
+      // the tree's random blocks of this particle (first loads started
+      // before the forest row's are waited for)
+      const size_t rq = ((size_t)b * C + c) * P + pi;
+      auto stage_rands = [&](int g, float ug, float uv, int sb, float ea, float eb) {
+        t_ug[g] = ug; t_uv[g] = uv; t_sb[g] = sb;
+        t_eps[2 * g] = ea; t_eps[2 * g + 1] = eb;
+      };
+      const bool hg = tt < Gtot;
+      const size_t g0 = rq * Gtot + (hg ? tt : 0);
+      const float ug0 = a.ug[g0], uv0 = a.uv[g0];
+      const int sb0 = a.sb[g0];
+      const float ea0 = a.eps[2 * g0], eb0 = a.eps[2 * g0 + 1];
+      for (int sn = tt; sn < S; sn += TT) {
+        if (frozen) {
+          o.sv[sn] = a.f_sv[fr + sn]; o.sl[sn] = a.f_sl[fr + sn];
+          o.st[sn] = a.f_st[fr + sn]; o.lf[sn] = a.f_lf[fr + sn];
+          o.ct[sn] = a.f_ct[fr + sn];
+        } else {
+          o.sv[sn] = -1; o.sl[sn] = 0.f; o.st[sn] = 0;
+          o.lf[sn] = sn == 0 ? rmu : 0.f;
+          o.ct[sn] = sn == 0 ? (float)n : 0.f;
+        }
+      }
+      for (int i = tt; i < n; i += TT) o.li[i] = 0;
+      if (hg) stage_rands(tt, ug0, uv0, sb0, ea0, eb0);
+      for (int g = tt + TT; g < Gtot; g += TT) {
+        const size_t gi = rq * Gtot + g;
+        stage_rands(g, a.ug[gi], a.uv[gi], a.sb[gi], a.eps[2 * gi], a.eps[2 * gi + 1]);
+      }
+      if (tt == 0) s.any[slot] = 0;
     }
     __syncthreads();
+    if (valid) {
+      const PartT o = part(0, pi);
+      team_ll(o.li, o.lf, false, 0, 0);
+    }
+    __syncthreads();
+    if (valid && tt == 0) push(s.ll0, pi, team_total());
+    STAMP(1);
 
     for (int d = 0; d < D; ++d) {
       const int lo = (1 << d) - 1, hi = (1 << (d + 1)) - 1;
-      const int G = hi - lo, G2 = 2 * G;
-      const int nchunks = imax(1, T / G2);
-      const int nwork = G2 * nchunks;
-      const int anc = c_take[pi];
-      const bool frozen = leader;  // particle 0 keeps ancestor 0, the others never take it
-      const size_t ip = (size_t)cur * CP + (size_t)c * P + anc;
-      const size_t op = (size_t)(1 - cur) * CP + q;
-      const int* sv = a.ps_sv + ip * S; const float* sl = a.ps_sl + ip * S;
-      const int* st = a.ps_st + ip * S; const float* lf = a.ps_lf + ip * S;
-      const float* ct = a.ps_ct + ip * S;
-      const int* li = a.ps_li + ip * n; const float* pred = a.ps_pred + ip * n;
-      int* sv_o = a.ps_sv + op * S; float* sl_o = a.ps_sl + op * S;
-      int* st_o = a.ps_st + op * S; float* lf_o = a.ps_lf + op * S;
-      float* ct_o = a.ps_ct + op * S;
-      int* li_o = a.ps_li + op * n; float* pred_o = a.ps_pred + op * n;
-      const size_t rq = ((size_t)b * C + c) * P + pi;
-      const float* ug = a.ug + rq * Gtot + lo;
-      const float* uv = a.uv + rq * Gtot + lo;
-      const int* sb = a.sb + rq * Gtot + lo;
-      const float* eps = a.eps + rq * 2 * Gtot + 2 * lo;
-      const float* gum = a.rg + ((((size_t)b * D + d) * C + c) * P + pi) * n;
+      const int G = hi - lo;
       const float p_grow = a.p_grow[d];
+      const PartT o = part(1 - cur, valid ? pi : 0);  // this level's own state
 
-      // phase 0: the ancestor's node arrays become this particle's
-      for (int s = t; s < S; s += T) {
-        sv_o[s] = sv[s]; sl_o[s] = sl[s]; st_o[s] = st[s]; ct_o[s] = ct[s];
-        lf_o[s] = lf[s];
-      }
-
-      // phase a: grow decision and split variable per node
-      for (int g = t; g < G; g += T) {
-        const int node_sv = sv[lo + g];
-        const bool want = (ug[g] < p_grow) && node_sv < 0
-            && ct[lo + g] >= 2.f && !frozen;
-        const float u_v = uv[g] * cdf[p - 1];
-        int l = 0, r = p;  // number of cdf entries < u_v
-        while (l < r) {
-          const int mid = (l + r) >> 1;
-          if (cdf[mid] < u_v) l = mid + 1; else r = mid;
-        }
-        const int var_s = min(max(l, 0), p - 1);
-        const int varx = frozen ? node_sv : var_s;
-        const bool active = frozen ? (node_sv >= 0) : want;
-        s_varx[g] = min(max(varx, 0), p - 1);
-        s_vars[g] = var_s;
-        s_flags[g] = (want ? 1 : 0) | (active ? 2 : 0);
-        s_best[g] = 0ull;
-        s_cnt[2 * g] = 0;
-        s_cnt[2 * g + 1] = 0;
-      }
-      __syncthreads();
-
-      // phase b: uniform member row per node by Gumbel arg-max (ties to the
-      // lowest row)
-      for (int i = t; i < n; i += T) {
-        const int l = li[i];
-        if (l >= lo && l < hi) atomicMax(&s_best[l - lo], pack_key(gum[i], i));
-      }
-      __syncthreads();
-      for (int g = t; g < G; g += T) {
-        const unsigned long long key = s_best[g];
-        const int r = key ? (int)(0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull)) : 0;
-        const int lr = li[r];
-        const int col = (lr >= lo && lr < hi) ? s_varx[lr - lo] : 0;
-        const float val_raw = X[(size_t)r * p + col];
-        s_valraw[g] = val_raw;
-        s_valx[g] = frozen ? sl[lo + g] : val_raw;
-        s_setx[g] = frozen ? st[lo + g] : sb[g];
-      }
-      __syncthreads();
-
-      // phase c: tentative routing and integer child counts
-      for (int i = t; i < n; i += T) {
-        const int l = li[i];
-        int tent = l;
-        if (l >= lo && l < hi) {
-          const int g = l - lo;
-          if (s_flags[g] & 2) {
-            const int col = s_varx[g];
-            const bool left = go_left(X[(size_t)i * p + col], s_valx[g],
-                                      s_setx[g], a.rules[col]);
-            tent = 2 * l + 1 + (left ? 0 : 1);
-            atomicAdd(&s_cnt[tent - hi], 1);
+      // phase 0: the ancestor's state becomes this particle's; phase a: grow
+      // decision and split variable per node
+      if (valid) {
+        const int anc = d == 0 ? pi : s.take[pi];
+        const PartT in = part(cur, anc);
+        if (kSh) {  // one record of 16-byte words
+          const uint4* __restrict__ src = (const uint4*)in.sv;
+          uint4* __restrict__ dst = (uint4*)o.sv;
+          for (int k = tt; k < RW / 4; k += TT) dst[k] = src[k];
+        } else {
+          for (int sn = tt; sn < S; sn += TT) {
+            o.sv[sn] = in.sv[sn]; o.sl[sn] = in.sl[sn]; o.st[sn] = in.st[sn];
+            o.lf[sn] = in.lf[sn]; o.ct[sn] = in.ct[sn];
           }
+          for (int i = tt; i < n; i += TT) o.li[i] = in.li[i];
         }
-        li_o[i] = tent;
       }
       __syncthreads();
-
-      // phase c2: child residual sums, chunk scans added in chunk order
-      if (!frozen) {
-        for (int w = t; w < nwork; w += T) {
-          const int ch = w % G2, qq = w / G2;
-          const int r0 = (int)((long long)n * qq / nchunks);
-          const int r1 = (int)((long long)n * (qq + 1) / nchunks);
-          const int slot = hi + ch;
-          float acc = 0.f;
-          for (int i = r0; i < r1; ++i)
-            if (li_o[i] == slot) acc += resid[i];
-          s_part[w] = acc;
+      STAMP(13);
+      if (valid) {
+        int any = 0;
+        for (int g = tt; g < G; g += TT) {
+          const int node_sv = o.sv[lo + g];
+          const bool want = (t_ug[lo + g] < p_grow) && node_sv < 0
+              && o.ct[lo + g] >= 2.f && !frozen;
+          const float u_v = t_uv[lo + g] * cdf[p - 1];
+          int l = 0, r = p;  // number of cdf entries < u_v
+          while (l < r) {
+            const int mid = (l + r) >> 1;
+            if (cdf[mid] < u_v) l = mid + 1; else r = mid;
+          }
+          const int var_s = min(max(l, 0), p - 1);
+          const bool replay = frozen && node_sv >= 0;
+          t_varx[g] = min(max(frozen ? node_sv : var_s, 0), p - 1);
+          t_vars[g] = var_s;
+          t_flags[g] = (want ? kWant : 0) | (replay ? kFinal : 0);
+          t_best[g] = 0ull;
+          if (frozen) {  // the stored split is replayed
+            t_valx[g] = o.sl[lo + g];
+            t_setx[g] = o.st[lo + g];
+          }
+          any |= (want ? 1 : 0) | (replay ? 2 : 0);
         }
-        __syncthreads();
-        for (int w = t; w < G2; w += T) {
-          float tot = 0.f;
-          for (int qq = 0; qq < nchunks; ++qq) tot += s_part[qq * G2 + w];
-          s_stat[w] = tot;
-        }
-        __syncthreads();
+        any = __reduce_or_sync(kFull, any);
+        if (any && lane == 0) atomicOr(&s.any[slot], any);
+        for (int k = tt; k < 2 * G; k += TT) { t_acc[k] = 0; t_cnt[k] = 0; }
       }
+      __syncthreads();
+      STAMP(2);
+      const bool growing = valid && (s.any[slot] & 1);
+
+      // phase b: uniform member row per growing node by Gumbel arg-max (ties
+      // to the lowest row)
+      if (growing) {
+        const float* gum = a.rg
+            ? a.rg + ((((size_t)b * D + d) * C + c) * P + pi) * n : nullptr;
+        const unsigned int stream = bart::gumbel_stream(b, d, D, C * P, q);
+        for (int base = tw * 32; base < n; base += TT) {
+          const int i = base + lane;
+          int node = -1;
+          unsigned long long key = 0ull;
+          if (i < n) {
+            const int g = (int)o.li[i] - lo;
+            if (g >= 0 && g < G && (t_flags[g] & kWant)) {
+              node = g;
+              key = pack_key(gum ? gum[i] : gen_gumbel(k0, k1, i, stream), i);
+            }
+          }
+          keyed_max(node, key, t_best, lane);
+        }
+      }
+      __syncthreads();
+      STAMP(3);
+
+      // phase c: child counts and residual sums of the growing nodes; the
+      // split value of a node is X at its arg-max row
+      if (growing) {
+        for (int base = tw * 32; base < n; base += TT) {
+          const int i = base + lane;
+          int key = -1;
+          long long r = 0;
+          if (i < n) {
+            const int g = (int)o.li[i] - lo;
+            if (g >= 0 && g < G && (t_flags[g] & kWant)) {
+              const int col = t_varx[g];
+              const float val = Xv[(size_t)key_row(t_best[g]) * p + col];
+              const bool left = go_left(Xv[(size_t)i * p + col], val,
+                                        t_sb[lo + g], rules[col]);
+              key = 2 * g + (left ? 0 : 1);
+              r = to_fixed(yv[i] - noiv[i], fx_scale);
+            }
+          }
+          keyed_add(key, r, t_acc, t_cnt, lane);
+        }
+      }
+      __syncthreads();
+      STAMP(4);
 
       // phase d: validate, commit the level and the children
-      for (int g = t; g < G; g += T) {
-        const bool grow_ok = (s_flags[g] & 1) && s_cnt[2 * g] > 0
-            && s_cnt[2 * g + 1] > 0;
-        const bool fin = frozen ? (sv[lo + g] >= 0) : grow_ok;
-        s_flags[g] |= (grow_ok ? 4 : 0) | (fin ? 8 : 0);
-        if (grow_ok) {
-          sv_o[lo + g] = s_vars[g];
-          sl_o[lo + g] = s_valraw[g];
-          st_o[lo + g] = sb[g];
+      if (growing) {
+        int any = 0;
+        for (int g = tt; g < G; g += TT) {
+          if (!(t_flags[g] & kWant)) continue;
+          const int cn[2] = {t_cnt[2 * g], t_cnt[2 * g + 1]};
+          if (cn[0] > 0 && cn[1] > 0) {
+            const float val_raw = Xv[(size_t)key_row(t_best[g]) * p + t_varx[g]];
+            t_flags[g] |= kFinal;
+            t_valx[g] = val_raw;
+            t_setx[g] = t_sb[lo + g];
+            any = 2;
+            o.sv[lo + g] = t_vars[g];
+            o.sl[lo + g] = val_raw;
+            o.st[lo + g] = t_sb[lo + g];
+            for (int k = 0; k < 2; ++k) {
+              const float cnt = (float)cn[k];
+              const float sum = (float)((double)t_acc[2 * g + k] * fx_inv);
+              const float mu_base = sum / fmaxf(cnt, 1.f) / (float)m;
+              o.lf[hi + 2 * g + k] = mu_base + t_eps[2 * lo + 2 * g + k] * lsd;
+              o.ct[hi + 2 * g + k] = cnt;
+            }
+          }
         }
+        any = __reduce_or_sync(kFull, any);
+        if (any && lane == 0) atomicOr(&s.any[slot], any);
       }
       __syncthreads();
-      for (int ch = t; ch < G2; ch += T) {
-        float new_lf = lf[hi + ch];
-        if (s_flags[ch >> 1] & 4) {
-          const float cnt = (float)s_cnt[ch];
-          const float mu_base = s_stat[ch] / fmaxf(cnt, 1.f) / (float)m;
-          new_lf = mu_base + eps[ch] * lsd;
-          lf_o[hi + ch] = new_lf;
-          ct_o[hi + ch] = cnt;
-        }
-        s_clf[ch] = new_lf;
-      }
-      __syncthreads();
+      STAMP(5);
 
-      // phase e: final routing, incremental prediction, log-likelihood
-      float acc = 0.f;
-      for (int i = t; i < n; i += T) {
-        const int l = li[i];
-        const int tent = li_o[i];
-        const bool moved = (l >= lo && l < hi) && (s_flags[l - lo] & 8);
-        li_o[i] = moved ? tent : l;
-        const float v = moved ? s_clf[tent - hi] : pred[i];
-        pred_o[i] = v;
-        acc += row_ll(lik, c0, y[i], noi[i], resid[i], wrow ? wrow[i] : 0.f, v);
+      // phase e: rows move to the final children; the log-likelihood (a
+      // particle without a final node keeps its ancestor's)
+      const bool moving = valid && (s.any[slot] & 2);
+      if (moving) team_ll(o.li, o.lf, true, lo, G);
+      __syncthreads();
+      if (valid && tt == 0) {
+        const float ll = moving ? team_total()
+            : (d == 0 ? s.ll0[pi] : s.ll[((d - 1) & 1) * P + s.take[pi]]);
+        push(s.ll, (d & 1) * P + pi, ll);
+        s.any[slot] = 0;
       }
-      const float tot = bart::block_sum(acc, s_red);
-      if (t == 0)
-        a.ll_buf[(size_t)(d + 1) * CP + q] = lik == kGauss ? -0.5f * tot : tot;
-      chain_barrier(a, c, epoch);
+      STAMP(6);
+      cluster.sync();
+      STAMP(7);
 
       // ---- SMC bookkeeping, the same in every block of the chain ----
-      for (int i = t; i < P; i += T) {
-        c_ll[i] = a.ll_buf[(size_t)(d + 1) * CP + (size_t)c * P + i];
+      if (warp == 0) {
         if (d == 0) {
-          const float l0 = a.ll_buf[(size_t)c * P + i];
-          c_lw[i] = l0;
-          c_llp[i] = l0;
-        }
-      }
-      __syncthreads();
-      if (t < 32) {
-        const int lane = t;
-        for (int i = lane; i < P; i += 32) c_lw[i] = c_lw[i] + c_ll[i] - c_llp[i];
-        __syncwarp();
-        if (d < D - 1) {
-          if (lane == 0) {
-            float mx = -INFINITY;
-            for (int i = 1; i < P; ++i) mx = fmaxf(mx, c_lw[i]);
-            float tot2 = 0.f;
-            for (int i = 1; i < P; ++i) {
-              const float e = expf(c_lw[i] - mx);
-              c_cdf[i] = e;
-              tot2 += e;
-            }
-            float sumsq = 0.f, run = 0.f;
-            c_cdf[0] = 0.f;
-            for (int i = 1; i < P; ++i) {
-              const float prob = c_cdf[i] / tot2;
-              sumsq += prob * prob;
-              run += prob;
-              c_cdf[i] = run;
-            }
-            const float last = c_cdf[P - 1];
-            for (int i = 0; i < P; ++i) c_cdf[i] = c_cdf[i] / last;
-            c_sc[0] = mx + logf(tot2 / (float)(P - 1));
-            const float ess = 1.f / fmaxf(sumsq, 1e-38f);
-            c_sc[1] = (ess < 0.5f * (float)(P - 1)) ? 1.f : 0.f;
-          }
+          for (int i = lane; i < P; i += 32) { s.lw[i] = s.ll0[i]; s.llp[i] = s.ll0[i]; }
           __syncwarp();
-          const bool resample = c_sc[1] != 0.f;
-          const float log_mean = c_sc[0];
-          const float uu = a.ures[((size_t)b * D + d) * C + c];
-          for (int i = lane; i < P; i += 32) {
-            int tk = i;
-            float w = c_lw[i];
-            if (resample && i >= 1) {
-              const float pos = (uu + (float)i - 1.f) / (float)(P - 1);
-              int cnt = 0;  // searchsorted 'left' into the non-frozen CDF
-              for (int j = 1; j < P; ++j) cnt += (c_cdf[j] < pos) ? 1 : 0;
-              tk = min(max(cnt + 1, 1), P - 1);
-              w = log_mean;
-            }
-            c_take[i] = tk;
-            c_lw[i] = w;
-            c_llp[i] = c_ll[tk];
-          }
-        } else {
-          for (int i = lane; i < P; i += 32) c_take[i] = i;
+        }
+        bart::smc_warp(s.lw, s.llp, s.ll + (d & 1) * P, s.cdfp, s.prob, s.take, P,
+                       s.r_misc[d], d < D - 1);
+        if (d == D - 1) {
+          const int w = bart::winner_warp(s.lw, s.prob, P, s.r_misc[D]);
+          if (lane == 0) s.widx[0] = w;
         }
       }
       __syncthreads();
       cur ^= 1;
+      STAMP(8);
     }
 
-    if (!leader) continue;
-
-    // ---- winner by inverse CDF over exp(log_w - max) ----
-    if (t == 0) {
-      float mx = -INFINITY;
-      for (int i = 0; i < P; ++i) mx = fmaxf(mx, c_lw[i]);
-      float tot = 0.f;
-      for (int i = 0; i < P; ++i) tot += expf(c_lw[i] - mx);
-      const float uu = a.usel[(size_t)b * C + c] * tot;
-      float run = 0.f;
-      int cnt = 0;
-      for (int i = 0; i < P; ++i) {
-        run += expf(c_lw[i] - mx);
-        cnt += (run < uu) ? 1 : 0;
+    // ---- the tail: the winner's leaves ----
+    const int wpi = s.widx[0];
+    const LiT* li_w;
+    {
+      const PartT win = part(cur, wpi);
+      // (all loads from the winner's block start before the first is
+      // waited for)
+      const uint4* __restrict__ src = (const uint4*)win.li;
+      const int nw = kSh ? round8(n) / 8 : 0;
+      uint4 w0 = make_uint4(0u, 0u, 0u, 0u);
+      if (t < nw) w0 = src[t];
+      for (int sn = t; sn < S; sn += T) {
+        const int v = win.sv[sn], stv = win.st[sn];
+        const float cn = win.ct[sn], lfv = win.lf[sn], slv = win.sl[sn];
+        s.wsv[sn] = v; s.wct[sn] = cn; s.lfw[sn] = lfv;
+        s.mask[sn] = (v < 0 && cn > 0.f) ? 1.f : 0.f;
+        if (rank == 0) {  // structure and counts go to the forest now
+          a.f_sv[fr + sn] = v; a.f_sl[fr + sn] = slv; a.f_st[fr + sn] = stv;
+          a.f_ct[fr + sn] = cn; a.f_sp[fr + sn] = 0.f;
+        }
       }
-      s_widx[0] = min(max(cnt, 0), P - 1);
+      if (kSh) {  // the winner's rows, staged as 16-byte words
+        uint4* __restrict__ dst = (uint4*)s.wli;
+        if (t < nw) dst[t] = w0;
+        for (int k = t + T; k < nw; k += T) dst[k] = src[k];
+        li_w = (const LiT*)s.wli;
+      } else {
+        li_w = win.li;
+      }
+      for (int sn = t; sn < S; sn += T) s.acc_lf[sn] = 0;
     }
     __syncthreads();
-    const size_t wp = (size_t)cur * CP + (size_t)c * P + s_widx[0];
-    const int* sv = a.ps_sv + wp * S; const float* sl = a.ps_sl + wp * S;
-    const int* st = a.ps_st + wp * S; const float* lf = a.ps_lf + wp * S;
-    const float* ct = a.ps_ct + wp * S;
-    const int* li = a.ps_li + wp * n; const float* pred = a.ps_pred + wp * n;
-    const int nch2 = imax(1, T / S);
+    if (kSh) cluster.barrier_arrive();  // this block has read the winner
 
-    // structure and counts go to the forest now; the leaves after refinement
-    for (int s = t; s < S; s += T) {
-      const int v = sv[s];
-      const float cn = ct[s];
-      a.f_sv[fr + s] = v; a.f_sl[fr + s] = sl[s]; a.f_st[fr + s] = st[s];
-      a.f_ct[fr + s] = cn; a.f_sp[fr + s] = 0.f;
-      s_lfw[s] = lf[s];
-      s_mask[s] = (v < 0 && cn > 0.f) ? 1.f : 0.f;
+    // per-leaf residual sums -> prior centres; the current log-likelihood
+    {
+      double acc = 0.0;
+      for (int base = t0r + warp * 32; base < t1r; base += T) {
+        const int i = base + lane;
+        int key = -1;
+        long long r = 0;
+        if (i < t1r) {
+          key = (int)li_w[i];
+          const float ni = noiv[i], yy = yv[i];
+          r = to_fixed(yy - ni, fx_scale);
+          acc += (double)row_ll(lik, c0, yy, ni, wv ? wv[i] : 0.f, s.lfw[key]);
+        }
+        keyed_add(key, r, s.acc_lf, nullptr, lane);
+      }
+      acc = warp_sum_d(acc);
+      if (lane == 0) s.wpart[warp] = acc;
+      __syncthreads();
+      for (int sn = t; sn < S; sn += T) {
+        if (kSplit) push(s.x_leaf, my * S + sn, s.acc_lf[sn]);
+        else s.x_leaf[sn] = s.acc_lf[sn];
+      }
+      if (t == 0) {
+        double tot = 0.0;
+        for (int k = 0; k < W; ++k) tot += s.wpart[k];
+        if (kSplit) push(s.x_ll, my, tot); else s.x_ll[0] = tot;
+      }
+      if (kSplit) cluster.sync(); else __syncthreads();
     }
-    __syncthreads();
-
-    // per-leaf residual sums in a fixed order -> prior centres
-    for (int w = t; w < S * nch2; w += T) {
-      const int s = w % S, qq = w / S;
-      const int r0 = (int)((long long)n * qq / nch2);
-      const int r1 = (int)((long long)n * (qq + 1) / nch2);
-      float acc = 0.f;
-      for (int i = r0; i < r1; ++i)
-        if (li[i] == s) acc += resid[i];
-      s_part2[w] = acc;
-    }
-    __syncthreads();
-    for (int s = t; s < S; s += T) {
-      float tot = 0.f;
-      for (int qq = 0; qq < nch2; ++qq) tot += s_part2[qq * S + s];
-      s_ctr[s] = tot / fmaxf(ct[s], 1.f) / (float)m;
-    }
-    __syncthreads();
-
     const float h = 0.5f / (lsd * lsd);
     const float eps_scale = 0.3f * lsd;
-    float acc = 0.f;
-    for (int i = t; i < n; i += T)
-      acc += row_ll(lik, c0, y[i], noi[i], resid[i], wrow ? wrow[i] : 0.f,
-                    pred[i]);
-    float tot = bart::block_sum(acc, s_red);
-    float ll_x = lik == kGauss ? -0.5f * tot : tot;
-    acc = 0.f;
-    for (int s = t; s < S; s += T) {
-      const float dv = s_lfw[s] - s_ctr[s];
-      acc += s_mask[s] * dv * dv;
+    float ll_c;
+    {
+      double pr = 0.0, none = 0.0;
+      for (int sn = t; sn < S; sn += T) {
+        long long tot = 0;
+        for (int r = 0; r < TR; ++r) tot += s.x_leaf[(size_t)r * S + sn];
+        const float ctr = (float)((double)tot * fx_inv) / fmaxf(s.wct[sn], 1.f)
+            / (float)m;
+        s.ctr[sn] = ctr;
+        const float dv = s.lfw[sn] - ctr;
+        pr += (double)(s.mask[sn] * dv * dv);
+      }
+      const float tot = (float)ranks_sum(s.x_ll, TR);
+      block_sum2(pr, none);
+      ll_c = (lik == kGauss ? -0.5f * tot : tot) - h * (float)pr;
     }
-    float ll_c = ll_x - h * bart::block_sum(acc, s_red);
+    STAMP(9);
 
-    // R Metropolis sweeps on the leaf values with pre-drawn noise
-    bool any = false;
-    const float* epsr = a.epsr + ((size_t)b * C + c) * R * S;
-    const float* uacc = a.uacc + ((size_t)b * C + c) * R;
+    // R Metropolis sweeps on the leaf values with pre-drawn noise; a thread
+    // keeps the same leaves in every sweep
     for (int r = 0; r < R; ++r) {
-      for (int s = t; s < S; s += T) {
-        const float e = epsr[(size_t)r * S + s] * eps_scale;
-        s_lfp[s] = s_lfw[s] + e * s_mask[s];
+      double* x = s.x_ll + ((r + 1) & 1) * CS;
+      double pr = 0.0, acc = 0.0;
+      for (int sn = t; sn < S; sn += T) {
+        const float lf = s.lfw[sn] + s.r_epsr[(size_t)r * S + sn] * eps_scale * s.mask[sn];
+        s.lfp[sn] = lf;
+        const float dv = lf - s.ctr[sn];
+        pr += (double)(s.mask[sn] * dv * dv);
       }
       __syncthreads();
-      acc = 0.f;
-      for (int i = t; i < n; i += T)
-        acc += row_ll(lik, c0, y[i], noi[i], resid[i], wrow ? wrow[i] : 0.f,
-                      s_lfp[li[i]]);
-      tot = bart::block_sum(acc, s_red);
-      ll_x = lik == kGauss ? -0.5f * tot : tot;
-      acc = 0.f;
-      for (int s = t; s < S; s += T) {
-        const float dv = s_lfp[s] - s_ctr[s];
-        acc += s_mask[s] * dv * dv;
+      for (int i = t0r + t; i < t1r; i += T)
+        acc += (double)row_ll(lik, c0, yv[i], noiv[i], wv ? wv[i] : 0.f,
+                              s.lfp[li_w[i]]);
+      block_sum2(acc, pr);
+      if (kSplit) {
+        if (t == 0) push(x, rank, acc);
+        cluster.sync();
+        acc = ranks_sum(x, CS);
       }
-      const float ll_p = ll_x - h * bart::block_sum(acc, s_red);
-      if (logf(uacc[r]) < ll_p - ll_c) {  // the same value in every thread
-        for (int s = t; s < S; s += T) s_lfw[s] = s_lfp[s];
+      const float tot = (float)acc;
+      const float ll_p = (lik == kGauss ? -0.5f * tot : tot) - h * (float)pr;
+      if (logf(s.r_misc[D + 1 + r]) < ll_p - ll_c) {  // the same in every thread
+        for (int sn = t; sn < S; sn += T) s.lfw[sn] = s.lfp[sn];
         ll_c = ll_p;
-        any = true;
       }
-      __syncthreads();
     }
+    __syncthreads();
+    STAMP(10);
 
     // ---- commit: leaves, tree_pred, sum_trees; adaptation while tuning ----
-    for (int s = t; s < S; s += T) a.f_lf[fr + s] = s_lfw[s];
-    const float wc = a.wf_count[c] + 1.f;
-    float sd_acc = 0.f;
-    for (int i = t; i < n; i += T) {
-      const float pv = any ? s_lfw[li[i]] : pred[i];
+    if (rank == 0)
+      for (int sn = t; sn < S; sn += T) a.f_lf[fr + sn] = s.lfw[sn];
+    if (a.tuning) wc = wc + 1.f;
+    double sd_acc = 0.0, none = 0.0;
+    for (int i = (kSh ? 0 : r0) + t; i < (kSh ? n : r1); i += T) {
+      const float pv = s.lfw[li_w[i]];
+      const float st = noiv[i] + pv;
+      if (kSh) s.st[i] = st;  // every block keeps all of sum_trees
+      if (i < r0 || i >= r1) continue;
       tp[i] = pv;
-      a.sum_trees[(size_t)c * n + i] = noi[i] + pv;
+      a.sum_trees[(size_t)c * n + i] = st;
       if (a.tuning) {
         const size_t wi = (size_t)c * n + i;
         const float delta = pv - a.wf_mean[wi];
@@ -580,90 +906,160 @@ __global__ void __launch_bounds__(kThreads, 2) pgbart_step_kernel(const DrawArgs
         const float m2 = a.wf_m2[wi] + delta * (pv - mean);
         a.wf_mean[wi] = mean;
         a.wf_m2[wi] = m2;
-        sd_acc += sqrtf(fmaxf(m2 / fmaxf(wc, 1.f), 1e-12f));
+        sd_acc += (double)sqrtf(fmaxf(m2 / fmaxf(wc, 1.f), 1e-12f));
       }
     }
-    const int iter = a.iteration[c] + 1;
     if (a.tuning) {
-      // split prior: the old weights times the decay, plus one per SPLIT NODE
-      for (int j = t; j < p; j += T) a.vi_cnt[(size_t)c * p + j] = 0;
-      __syncthreads();
-      for (int s = t; s < S; s += T) {
-        const int v = sv[s];
-        if (v >= 0) atomicAdd(&a.vi_cnt[(size_t)c * p + v], 1);
-      }
-      __syncthreads();
-      for (int j = t; j < p; j += T)
-        a.alpha_vec[(size_t)c * p + j] = a.alpha_vec[(size_t)c * p + j] * a.decay
-            + (float)a.vi_cnt[(size_t)c * p + j];
-      const float sd = bart::block_sum(sd_acc, s_red) / (float)n;
-      if (t == 0) {
-        a.wf_count[c] = wc;
-        if (iter > m) a.leaf_sd[c] = fmaxf(sd, 1e-6f);
+      block_sum2(sd_acc, none);
+      if (t == 0) push(s.x_prep, CS + rank, sd_acc);
+      if (rank == 0) {
+        // split prior: the old weights times the decay, plus one per SPLIT NODE
+        for (int j = t; j < p; j += T) a.vi_cnt[(size_t)c * p + j] = 0;
+        __syncthreads();
+        for (int sn = t; sn < S; sn += T) {
+          const int v = s.wsv[sn];
+          if (v >= 0) atomicAdd(&a.vi_cnt[(size_t)c * p + v], 1);
+        }
+        __syncthreads();
+        for (int j = t; j < p; j += T)
+          a.alpha_vec[(size_t)c * p + j] = a.alpha_vec[(size_t)c * p + j] * a.decay
+              + (float)a.vi_cnt[(size_t)c * p + j];
+        __syncthreads();
+        if (t == 0) write_cdf();
       }
     }
     __syncthreads();
-    if (t == 0) a.iteration[c] = iter;
-    __syncthreads();
+    STAMP(11);
   }
 
-  // ---- after the last tree: rotate the batch, count the split variables ----
-  if (leader) {
+  // ---- after the last tree: leaf_sd, the counters, the split histogram ----
+  if (kSh) cluster.barrier_wait();
+  cluster.sync();
+  if (a.tuning) {
+    const float sd = (float)ranks_sum(s.x_prep + CS, CS) / (float)n;
+    if (iter0 + a.B > m) lsd = fmaxf(sd, 1e-6f);
+  }
+  if (rank == 0) {
     for (int j = t; j < p; j += T) a.vi_cnt[(size_t)c * p + j] = 0;
     __syncthreads();
     const int* fsv = a.f_sv + (size_t)c * m * S;
-    for (int s = t; s < m * S; s += T) {
-      const int v = fsv[s];
+    for (int sn = t; sn < m * S; sn += T) {
+      const int v = fsv[sn];
       if (v >= 0) atomicAdd(&a.vi_cnt[(size_t)c * p + v], 1);
     }
     __syncthreads();
     for (int j = t; j < p; j += T)
       a.vi[(size_t)c * p + j] = (float)a.vi_cnt[(size_t)c * p + j];
-    if (t == 0) a.batch_offset[c] = (off0 + a.B) % m;
+    if (t == 0) {
+      a.batch_offset[c] = (off0 + a.B) % m;
+      a.iteration[c] = iter0 + a.B;
+      if (a.tuning) {
+        a.wf_count[c] = wc;
+        a.leaf_sd[c] = lsd;
+      }
+    }
   }
+  STAMP(12);
+#ifdef DRAW_PHASE_CLOCKS
+  for (int k = 0; k < 16; ++k) cluster.sync();
+  STAMP(14);
+  for (int k = 0; k < 16; ++k) __syncthreads();
+  STAMP(15);
+#endif
+}
+
+bool valid_args(const DrawArgs& a) {
+  return a.D >= 1 && a.D <= kMaxDepth && a.P >= 2 && a.C >= 1 && a.n >= 1
+      && a.p >= 1 && a.R >= 1 && a.S == (1 << (a.D + 1)) - 1 && a.CS >= 1
+      && a.CS <= kMaxCluster && a.PB >= 1 && a.WP >= 1
+      && a.PB * a.WP * 32 <= kMaxThreads && a.CS * a.PB >= a.P
+      && (a.rg || a.seed) && (a.shared_form ? a.S <= 65535 : a.ps_li != nullptr);
+}
+
+// launch configuration of `a`; `attr` must outlive the use of `cfg`
+cudaError_t configure(const DrawArgs& a, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute& attr, cudaStream_t stream) {
+  Smem s;
+  const size_t bytes = layout(s, nullptr, plan_of(a));
+  const void* fn = a.shared_form ? (const void*)pgbart_step_kernel<true>
+                                 : (const void*)pgbart_step_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  if (a.CS > 8) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(a.C * a.CS);
+  cfg.blockDim = dim3(a.PB * a.WP * 32);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.CS;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" int pgbart_step_args_size() { return (int)sizeof(DrawArgs); }
 
-// Largest number of blocks of this kernel the card keeps resident at once.
-extern "C" int pgbart_step_capacity(int D, int P, int S) {
-  const size_t bytes = smem_bytes(D, P, S);
-  if (bytes > 48 * 1024) {
-    if (cudaFuncSetAttribute(pgbart_step_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes) != cudaSuccess) {
-      cudaGetLastError();
-      return 0;
-    }
-  }
-  int per_sm = 0, dev = 0, sms = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, pgbart_step_kernel, kThreads, bytes) != cudaSuccess
-      || cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-          != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  return per_sm * sms;
-}
-
-// Returns 0, a CUDA error code, or -1 when the C*P blocks cannot all be
-// resident (`capacity` comes from pgbart_step_capacity).
+// Dynamic shared memory of one block of the plan in `args`, in bytes.
 // `args` points to a DrawArgs (an untyped pointer: the struct is local to this
 // file, and a function that names it in its signature is not exported).
-extern "C" int pgbart_step_launch(const void* args, int capacity,
-                                  void* stream) {
-  DrawArgs a = *static_cast<const DrawArgs*>(args);
-  if (a.D < 1 || a.D > kMaxDepth || a.P < 2) return (int)cudaErrorInvalidValue;
-  if (a.C * a.P > capacity) return -1;
-  const size_t bytes = smem_bytes(a.D, a.P, a.S);
-  void* params[] = {(void*)&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (void*)pgbart_step_kernel, dim3(a.C * a.P), dim3(kThreads), params,
-      bytes, (cudaStream_t)stream);
+extern "C" long long pgbart_step_smem_bytes(const void* args) {
+  Smem s;
+  return (long long)layout(s, nullptr, plan_of(*static_cast<const DrawArgs*>(args)));
+}
+
+// Clusters of this configuration the card runs at once (0: it cannot be
+// launched), or minus a CUDA error code.
+extern "C" int pgbart_step_max_clusters(const void* args) {
+  const DrawArgs a = *static_cast<const DrawArgs*>(args);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure(a, cfg, attr, nullptr);
+  if (e != cudaSuccess) { cudaGetLastError(); return -(int)e; }
+  int clusters = 0;
+  e = a.shared_form
+      ? cudaOccupancyMaxActiveClusters(&clusters, pgbart_step_kernel<true>, &cfg)
+      : cudaOccupancyMaxActiveClusters(&clusters, pgbart_step_kernel<false>, &cfg);
+  if (e != cudaSuccess) { cudaGetLastError(); return -(int)e; }
+  return clusters;
+}
+
+// Launches one whole step: C clusters of CS blocks.  Returns 0 or a CUDA
+// error code.
+extern "C" int pgbart_step_launch(const void* args, void* stream) {
+  const DrawArgs a = *static_cast<const DrawArgs*>(args);
+  if (!valid_args(a)) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure(a, cfg, attr, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  e = a.shared_form ? cudaLaunchKernelEx(&cfg, pgbart_step_kernel<true>, a)
+                    : cudaLaunchKernelEx(&cfg, pgbart_step_kernel<false>, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Phase clocks of the launches since the last reset (all zero unless built
+// with -DDRAW_PHASE_CLOCKS): 16 cycle counts into `out`, or reset.
+extern "C" int pgbart_step_clocks(long long* out, int reset) {
+#ifdef DRAW_PHASE_CLOCKS
+  if (reset) {  // reset - 1: the block of chain 0's cluster that stamps
+    const long long zero[16] = {0};
+    const int rank = reset - 1;
+    cudaMemcpyToSymbol(g_clock_rank, &rank, sizeof(rank));
+    return (int)cudaMemcpyToSymbol(g_clock, zero, sizeof(zero));
+  }
+  return (int)cudaMemcpyFromSymbol(out, g_clock, sizeof(long long) * 16);
+#else
+  if (!reset) for (int i = 0; i < 16; ++i) out[i] = 0;
+  return 0;
+#endif
 }

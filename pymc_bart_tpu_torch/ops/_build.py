@@ -16,7 +16,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -25,7 +25,7 @@ KERNEL_SOURCES = ("grow", "smc", "select", "draw", "bign")
 # (one rounding per operation), so it is compiled without fused multiply-add
 EXTRA_FLAGS = {"bign": ("-fmad=false",)}
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -38,36 +38,40 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines: Tuple[str, ...] = ()) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(hdr.read_bytes())
+    h.update(" ".join(defines).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _command(name: str, out: Path, verbose: bool):
+def _command(name: str, out: Path, verbose: bool,
+             defines: Tuple[str, ...] = ()):
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR),
-           *EXTRA_FLAGS.get(name, ()), "-o", str(out),
-           str(CSRC_DIR / f"{name}.cu")]
+           *EXTRA_FLAGS.get(name, ()), *(f"-D{d}" for d in defines),
+           "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     return cmd
 
 
-def build_all(names: Iterable[str] = KERNEL_SOURCES, verbose: bool = False):
+def build_all(names: Iterable[str] = KERNEL_SOURCES, verbose: bool = False,
+              defines: Tuple[str, ...] = ()):
     """Compile every missing kernel library, one ``nvcc`` per source, all
-    started together.  Returns {name: compiler output}."""
+    started together.  Returns {name: compiler output}.  ``defines`` are
+    preprocessor symbols of a variant build (a library of its own)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
         procs[name] = (subprocess.Popen(
-            _command(name, tmp, verbose), stdout=subprocess.PIPE,
+            _command(name, tmp, verbose, defines), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
     logs = {}
     failed = []
@@ -83,16 +87,17 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES, verbose: bool = False):
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use);
+    ``defines`` selects a variant build."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            out = _target(name)
+            out = _target(name, defines)
             if not out.exists():
-                build_all([name])
+                build_all([name], defines=defines)
             lib = ctypes.CDLL(str(out))
-            _libs[name] = lib
+            _libs[(name, defines)] = lib
         return lib
 
 

@@ -58,11 +58,9 @@ from .smc import smc_resample_plain
 # ``pgbart_step(route=None)`` takes this route from this many rows on (where
 # the gate admits the configuration): the smallest n of the crossover table
 # of ``chip_smoke.py`` (phase ``timing``; PERF.md keeps it) at which this
-# route's kernel is the faster one for both regimes.  On an NVIDIA H100 80GB
-# HBM3 at C=4, P=10, m=20 a step takes about 0.46 ms here up to n=4000 (it is
-# 83 short launches), while the whole-step kernel of ``ops/draw.py`` grows
-# with n: 0.27 ms at n=1000, 0.66 ms at n=4000, 10 ms at n=50,000.
-BIGN_MIN_ROWS = 4000
+# route's kernel is the faster one for both regimes (the table's numbers, with
+# their card, are in PERF.md).
+BIGN_MIN_ROWS = 16384
 
 _ROWLL_LIKS = ("bernoulli", "het_abs", "het_exp", "cat_logit")
 _MAX_DEPTH = 8            # node accumulators of a block (mirrors csrc/bign.cu)
@@ -410,8 +408,8 @@ _POINTERS = (
     "lv_var", "lv_flags", "lv_val", "lv_raw", "lv_best",
     "li", "pred", "resid", "noi",
     "part_stat", "part_cnt", "part_ll", "part_root", "part_sd",
-    "cdf", "root", "ll", "ll_prev", "log_w", "cdfp", "w_lf", "take", "widx",
-    "vi_cnt", "vi")
+    "cdf", "root", "ll", "ll_prev", "log_w", "cdfp", "prob", "w_lf", "take",
+    "widx", "vi_cnt", "tickets", "vi")
 _INTS = ("C", "P", "S", "n", "p", "m", "B", "D", "R", "lik", "tuning", "tile",
          "ntiles")
 
@@ -450,8 +448,10 @@ def _lib():
 
 def launches_per_step(B: int, D: int) -> int:
     """CUDA kernels one call of the wrapper enqueues (mirrors csrc/bign.cu):
-    per tree 3 to set up, 6 a level, 2 to select and commit; 1 a step."""
-    return B * (5 + 6 * D) + 1
+    per tree 2 to set up, 3 a level (the node-space work between two row
+    passes runs in the tail of the pass's last block), 2 to select and
+    commit; 1 a step."""
+    return B * (4 + 3 * D) + 1
 
 
 def _check(t, name, dtype, shape, dev):
@@ -467,13 +467,52 @@ def _check_seed(seed, dev):
     return seed.data_ptr()
 
 
+def _mul_hi_lo(const: int, x: torch.Tensor):
+    """High and low 32-bit words of ``const * x`` for 32-bit values held in
+    int64 tensors (the product itself would not fit 63 bits)."""
+    t1, t2 = x * (const & 0xFFFF), x * (const >> 16)
+    hi = (t2 + (t1 >> 16)) >> 16
+    lo = (((t2 & 0xFFFF) << 16) + (t1 & 0xFFFFFFFF)) & 0xFFFFFFFF
+    return hi, lo
+
+
+def gumbel_block_plain(seed: torch.Tensor, *, B: int, C: int, P: int, D: int,
+                       n: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernels' generator (``csrc/common.cuh``):
+    Philox-4x32-10 keyed by ``seed``, counter (row, stream of (tree, level,
+    chain, particle)), the first output word's top 23 bits mapped to
+    ``u = (k + 0.5) 2^-23`` and ``-log(-log(u))``."""
+    dev = seed.device
+    i64 = torch.int64
+    key = seed.to(i64) & 0xFFFFFFFF
+    k0, k1 = key[0], key[1]
+    c0 = torch.arange(n, dtype=i64, device=dev).expand(B * D * C * P, n)
+    c1 = torch.arange(B * D * C * P, dtype=i64, device=dev)[:, None].expand(
+        B * D * C * P, n)
+    c2 = torch.zeros_like(c0)
+    c3 = torch.zeros_like(c0)
+    for _ in range(10):
+        hi0, lo0 = _mul_hi_lo(0xD2511F53, c0)
+        hi1, lo1 = _mul_hi_lo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & 0xFFFFFFFF
+        k1 = (k1 + 0xBB67AE85) & 0xFFFFFFFF
+    u = ((c0 >> 9).to(torch.float32) + 0.5) * 2.0**-23
+    return (-torch.log(-torch.log(u))).reshape(B, D, C, P, n)
+
+
 def gumbel_block(seed: torch.Tensor, *, B: int, C: int, P: int, D: int,
                  n: int) -> torch.Tensor:
-    """The (B, D, C, P, n) row Gumbels the kernel generates from ``seed``
-    (``StepRands.seed``: two int32 words on the card)."""
-    if not (isinstance(seed, torch.Tensor) and seed.is_cuda):
-        raise ValueError("gumbel_block runs the kernel's generator and needs "
-                         "a seed on a CUDA device")
+    """The (B, D, C, P, n) row Gumbels the kernels generate from ``seed``
+    (``StepRands.seed``: two int32 words): written out by the kernels' own
+    generator for a seed on a CUDA device, by its plain version for one on
+    the CPU (the same uniforms; the logarithms are each device's)."""
+    if not (isinstance(seed, torch.Tensor) and seed.dtype == torch.int32
+            and tuple(seed.shape) == (2,)):
+        raise ValueError("gumbel_block: seed must be an int32 tensor of "
+                         "shape (2,)")
+    if not seed.is_cuda:
+        return gumbel_block_plain(seed, B=B, C=C, P=P, D=D, n=n)
     device = seed.device
     out = torch.empty((B, D, C, P, n), dtype=torch.float32, device=device)
     a = _BignArgs()
@@ -551,9 +590,9 @@ def pgbart_step_bign_kernel(state, rands, X, Y_target, cfg: BartConfig,
     # scratch: one workspace per element size, carved by offset; the kernels
     # write every word before they read it
     n_i = 2 * CP * S * 2 + CP * Gm * 2 + 2 * CP * n + ntiles * CP * Gm \
-        + 2 * CP + C + C * p
+        + 3 * CP + 3 * C + C * p
     n_f = (2 * CP * S * 5 + CP * Gm * 2 + (2 * CP * n if rowll else 0)
-           + 2 * C * n + C * p + 3 * C + 4 * CP + C * S)
+           + 2 * C * n + C * p + 3 * C + 5 * CP + C * S)
     n_d = CP * Gm + ntiles * (CP * Gm * 2 + 2 * CP + 3 * C)
     ws_i = torch.empty((n_i,), dtype=i32, device=dev)
     ws_f = torch.empty((n_f,), dtype=f32, device=dev)
@@ -589,7 +628,8 @@ def pgbart_step_bign_kernel(state, rands, X, Y_target, cfg: BartConfig,
     carve(ws_i, 4, (("ns_sv", 2 * CP * S), ("ns_lm", 2 * CP * S),
                     ("lv_var", CP * Gm), ("lv_flags", CP * Gm),
                     ("li", 2 * CP * n), ("part_cnt", ntiles * CP * Gm),
-                    ("take", CP), ("widx", C), ("vi_cnt", C * p)))
+                    ("take", CP), ("widx", C), ("vi_cnt", C * p),
+                    ("tickets", 2 * C + CP)))
     carve(ws_f, 4, (("ns_sl", 2 * CP * S), ("ns_lf", 2 * CP * S),
                     ("ns_ct", 2 * CP * S), ("ns_rs", 2 * CP * S),
                     ("ns_rq", 2 * CP * S), ("lv_val", CP * Gm),
@@ -597,7 +637,8 @@ def pgbart_step_bign_kernel(state, rands, X, Y_target, cfg: BartConfig,
                     ("pred", 2 * CP * n if rowll else 0),
                     ("resid", C * n), ("noi", C * n), ("cdf", C * p),
                     ("root", 3 * C), ("ll", CP), ("ll_prev", CP),
-                    ("log_w", CP), ("cdfp", CP), ("w_lf", C * S)))
+                    ("log_w", CP), ("cdfp", CP), ("prob", CP),
+                    ("w_lf", C * S)))
     carve(ws_d, 8, (("lv_best", CP * Gm), ("part_stat", ntiles * CP * Gm * 2),
                     ("part_ll", 2 * ntiles * CP), ("part_root", ntiles * C * 2),
                     ("part_sd", ntiles * C)))

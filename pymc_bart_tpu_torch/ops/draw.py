@@ -24,20 +24,30 @@ Dispatch: the kernel runs when the state lies on a CUDA device, the plain
 version when it lies on the CPU; ``impl="kernel"|"plain"`` forces one.
 Nothing falls back: a kernel that fails to build or launch raises.
 
-The kernel's limits (``fused_draw_unsupported_reason``) come from the card:
-one block per (chain, particle) must be resident at once (cooperative
-launch: 2 blocks of 256 threads per SM are guaranteed by the kernel's
-register bound, 1 if a block needs more than half of an SM's shared memory);
-a block's shared memory (node arrays of the deepest level, the chain's
-weights, the winner's leaves) must fit 227 KB; the step's random blocks and
-the per-particle scratch must fit half of the card's memory.  The covariate
+The row Gumbels are either the pre-drawn block ``rands.rg`` (B, D, C, P, n)
+or, with ``rands.rg is None``, generated inside the kernel from ``rands.seed``
+(the counterpart of the TPU kernel's ``rng_mode="kernel"``; the generator and
+its counter layout are the large-n kernel's, ``csrc/common.cuh``).  The plain
+version then reads the block ``ops.bign.gumbel_block`` writes out for that
+seed.
+
+The kernel's form and limits (``launch_plan``) come from the shapes and the
+card's architecture alone: a thread-block cluster per chain (at most 16
+blocks: above 8 the size is "non-portable", which an H100 offers), the chain's
+particles spread over its blocks, a team of warps per particle (at most 512
+threads a block), and the per-particle state either in shared memory (form
+``"shared"``: node arrays and a 16-bit row -> node array in two buffers, rows
+staged, X too where it is small) or, where that does not fit the 227 KB a
+block can use, in global memory (form ``"global"``).  The step's random
+blocks and scratch must fit half of the card's memory.  A large covariate
 matrix stays in global memory, so neither ``n * p`` nor ``p`` is limited.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 import torch
 
@@ -47,27 +57,112 @@ from . import _build
 LIK_CODES = {"gauss": 0, "bernoulli": 1, "het_abs": 2, "het_exp": 3,
              "cat_logit": 4}
 _MAX_SMEM = 232448        # bytes of shared memory a block can use on Hopper
-_THREADS = 256
+_MAX_WARPS = 16           # warps of a block (mirrors kMaxThreads of draw.cu)
+_MAX_CLUSTER = 16         # blocks of a cluster (above 8: non-portable size)
 _MAX_DEPTH = 16           # length of the kernel's grow-probability table
 
 
-def smem_bytes(D: int, P: int, S: int) -> int:
-    """Dynamic shared memory of one block (mirrors csrc/draw.cu)."""
-    Gm = 2 ** (D - 1)
-    words = (5 * Gm + 2 * Gm + 2 * Gm + 2 * (2 * Gm)
-             + max(_THREADS, 2 * Gm) + 32 + 5 * P + 4
-             + 4 * S + max(_THREADS, S))
-    return 8 * Gm + 4 * words
+_X_STAGE_BYTES = 65536    # X is staged in shared memory up to this size
+_CDF_STAGE_COLS = 4096    # the split-weight CDF is staged up to this many
+
+
+def _round(v: int, k: int) -> int:
+    return -(-v // k) * k
+
+
+@dataclasses.dataclass(frozen=True)
+class DrawPlan:
+    """How ``csrc/draw.cu`` runs one configuration."""
+
+    form: str          # "shared" | "global": where the per-particle state is
+    cluster: int       # blocks of a chain's cluster
+    per_block: int     # particle slots of a block
+    warps: int         # warps of a particle's team
+    x_staged: bool     # X and the split rules copied to shared memory
+    cdf_staged: bool   # the split-weight CDF copied to shared memory
+    smem: int = 0      # dynamic shared memory of a block, bytes
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.per_block * self.warps
+
+
+def smem_bytes(plan: DrawPlan, D: int, P: int, S: int, n: int, p: int,
+               R: int) -> int:
+    """Dynamic shared memory of one block (mirrors ``layout`` of
+    csrc/draw.cu, which the wrapper checks at the first launch of a plan)."""
+    PB, CS = plan.per_block, plan.cluster
+    Gm, Gtot, W = 2 ** (D - 1), 2**D - 1, PB * plan.warps
+    shared = plan.form == "shared"
+    items = [(8, PB * Gm)] + [(4, PB * Gm)] * 5
+    items += [(4, PB * Gtot), (4, PB * Gtot), (4, PB * 2 * Gtot),
+              (4, PB * Gtot)]
+    items += [(8, PB * 2 * Gm), (4, PB * 2 * Gm), (8, S), (8, 4 * W), (4, PB)]
+    items += [(4, P), (4, P), (4, 2 * P), (4, P), (4, P), (4, P), (4, P),
+              (4, 4)]
+    items += [(8, 3 * CS), (8, 2 * CS), (8, (1 if shared else CS) * S)]
+    items += [(4, S)] * 6 + [(4, R * S), (4, D + 1 + R)]
+    if plan.cdf_staged:
+        items += [(4, p)]
+    if plan.x_staged:
+        items += [(4, n * p), (4, p)]
+    if shared:
+        record = 5 * _round(S, 4) + _round(n, 8) // 2
+        items += [(4, n)] * 4 + [(4, 2 * PB * record), (2, _round(n, 8))]
+    off = 0
+    for size, count in items:
+        off = _round(off, 16) + size * count
+    return _round(off, 16)
+
+
+def launch_plan(C: int, P: int, D: int, S: int, n: int, p: int,
+                R: int = 5) -> Union[DrawPlan, str]:
+    """The form and launch geometry of the whole-step kernel for these shapes
+    (a pure function of them; ``R`` refinement sweeps size one staged block),
+    or the reason the kernel cannot take them.
+
+    The cluster is the smallest that holds the chain's particles at
+    ``ceil(P / 16)`` to a block; a particle's team gets as many warps as 512
+    threads a block allow.  The shared form is taken where its state fits a
+    block's shared memory (X is left in global memory and teams shrink before
+    the form gives way), else the global form; a form is never chosen because
+    the other failed to run.  ``C`` does not bound the kernel: chains are
+    independent clusters."""
+    if D < 1 or D > _MAX_DEPTH:
+        return f"max_depth={D} exceeds the kernel's table of {_MAX_DEPTH} levels"
+    if P < 2:
+        return f"{P} particles (the kernel needs the frozen one and another)"
+    per_block = -(-P // _MAX_CLUSTER)
+    if per_block > _MAX_WARPS:
+        return (f"{P} particles need {per_block} to a block of "
+                f"{_MAX_WARPS} warps")
+    cluster = -(-P // per_block)
+    cdf_staged = p <= _CDF_STAGE_COLS
+    smallest = 0
+    for shared in (True, False):
+        if shared and S > 65535:
+            continue
+        for x_staged in ((True, False) if shared
+                         and 4 * n * p <= _X_STAGE_BYTES else (False,)):
+            for warps in range(_MAX_WARPS // per_block, 0, -1):
+                plan = DrawPlan("shared" if shared else "global", cluster,
+                                per_block, warps, x_staged, cdf_staged)
+                smem = smem_bytes(plan, D, P, S, n, p, R)
+                if smem <= _MAX_SMEM:
+                    return dataclasses.replace(plan, smem=smem)
+                smallest = smem
+    return (f"a block needs {smallest} bytes of shared memory (depth {D}, "
+            f"{P} particles); the card offers {_MAX_SMEM}")
 
 
 def step_bytes(C: int, B: int, P: int, D: int, S: int, n: int, p: int,
-               R: int) -> int:
+               R: int, pre_drawn: bool = True, shared: bool = False) -> int:
     """Bytes of one step's random blocks plus the kernel's scratch."""
     Gtot = 2**D - 1
-    rands = 4 * (B * C * P * 5 * Gtot + B * D * C * P * n + B * D * C + B * C
-                 + B * C * R * S + B * C * R)
-    scratch = 4 * (2 * C * P * (5 * S + 2 * n) + (D + 1) * C * P + 2 * C * p
-                   + 2 * C * n + 2 * C + 1)
+    rands = 4 * (B * C * P * 5 * Gtot + B * D * C + B * C + B * C * R * S
+                 + B * C * R + (B * D * C * P * n if pre_drawn else 0))
+    scratch = 4 * (2 * C * p + (0 if shared else
+                                2 * C * P * (5 * S + n) + C * n))
     return rands + scratch
 
 
@@ -79,7 +174,8 @@ def fused_draw_unsupported_reason(cfg: BartConfig, pg: PgbartConfig, X,
 
     The semantic conditions are the reference's (a closed-form code, its row
     data, constant response, one output).  The size limits apply to a CUDA
-    ``X`` only and are derived from that card (module docstring).
+    ``X`` only: the kernel's own (``launch_plan``) and half of that card's
+    memory for the step's random blocks and scratch.
     """
     if lik not in LIK_CODES:
         return (f"likelihood is not fused ({lik!r}); no closed-form per-row "
@@ -97,25 +193,19 @@ def fused_draw_unsupported_reason(cfg: BartConfig, pg: PgbartConfig, X,
         return None
     n, p = X.shape
     D, P, S = cfg.max_depth, pg.num_particles, cfg.n_nodes
-    if D > _MAX_DEPTH:
-        return f"max_depth={D} exceeds the kernel's table of {_MAX_DEPTH} levels"
-    smem = smem_bytes(D, P, S)
-    if smem > _MAX_SMEM:
-        return (f"a block needs {smem} bytes of shared memory (depth {D}, "
-                f"{P} particles); the card offers {_MAX_SMEM}")
-    props = torch.cuda.get_device_properties(X.device)
+    plan = launch_plan(chains or 1, P, D, S, n, p,
+                       max(pg.num_refinements, 1))
+    if isinstance(plan, str):
+        return plan
     if chains is not None:
-        resident = props.multi_processor_count * (2 if 2 * smem <= _MAX_SMEM
-                                                  else 1)
-        if chains * P > resident:
-            return (f"{chains} chains x {P} particles need {chains * P} "
-                    f"resident blocks; this card guarantees {resident}")
         B = max(pg.batch_size(cfg.m, True), pg.batch_size(cfg.m, False))
         need = step_bytes(chains, B, P, D, S, n, p,
-                          max(pg.num_refinements, 1))
-        if need > props.total_memory // 2:
+                          max(pg.num_refinements, 1), pre_drawn=False,
+                          shared=plan.form == "shared")
+        total = torch.cuda.get_device_properties(X.device).total_memory
+        if need > total // 2:
             return (f"one step's random blocks and scratch take {need} bytes, "
-                    f"more than half of the card's {props.total_memory}")
+                    f"more than half of the card's {total}")
     return None
 
 
@@ -133,9 +223,19 @@ def pgbart_step_fused_plain(state, rands, X, Y_target, rules,
                             lik_const: float = 0.0):
     """Plain PyTorch version: the per-round route with every round's plain
     version, plus commit and adaptation (same signature and outputs as the
-    kernel, state updated in place)."""
+    kernel, state updated in place).  Without ``rands.rg`` it reads the block
+    the generator writes out for ``rands.seed``."""
     from ..sampler.pgbart import step_rounds
+    from .bign import gumbel_block
 
+    if rands.rg is None:
+        if rands.seed is None:
+            raise ValueError("pgbart_step_fused: rands holds neither the row "
+                             "Gumbels (rg) nor a seed to generate them from")
+        C, m, _S = state.forest.split_var.shape
+        rands = dataclasses.replace(rands, rg=gumbel_block(
+            rands.seed, B=pg.batch_size(m, tuning), C=C, P=pg.num_particles,
+            D=cfg.max_depth, n=X.shape[0]))
     return step_rounds(state, rands, X, Y_target, rules, cfg, pg, tuning,
                        lik_row, impl="plain", lik=lik, lik_const=lik_const)
 
@@ -152,10 +252,10 @@ _POINTERS = (
     "f_sv", "f_sl", "f_st", "f_lf", "f_ct", "f_sp", "tree_pred", "sum_trees",
     "alpha_vec", "leaf_sd", "wf_count", "wf_mean", "wf_m2", "batch_offset",
     "iteration", "X", "y", "rules", "lik_row", "ug", "uv", "rg", "eps", "sb",
-    "ures", "usel", "epsr", "uacc", "ps_sv", "ps_sl", "ps_st", "ps_lf",
-    "ps_ct", "ps_li", "ps_pred", "ll_buf", "cdf", "resid", "noi", "root_mu",
-    "vi_cnt", "bar", "status", "vi")
-_INTS = ("C", "P", "S", "n", "p", "m", "B", "D", "R", "lik", "tuning")
+    "ures", "usel", "epsr", "uacc", "seed", "ps_sv", "ps_sl", "ps_st",
+    "ps_lf", "ps_ct", "ps_li", "noi", "cdf", "vi_cnt", "vi")
+_INTS = ("C", "P", "S", "n", "p", "m", "B", "D", "R", "lik", "tuning", "CS",
+         "PB", "WP", "shared_form", "x_staged", "cdf_staged")
 
 
 class _DrawArgs(ctypes.Structure):
@@ -167,17 +267,43 @@ class _DrawArgs(ctypes.Structure):
                    ("p_grow", _F * _MAX_DEPTH)])
 
 
-_capacity = {}
+# preprocessor symbols of the library the wrapper loads: ("DRAW_PHASE_CLOCKS",)
+# selects the build with phase clocks (``phase_clocks``), for measurements
+BUILD_DEFINES = ()
+
+CLOCK_PHASES = (
+    "prepare tree", "particle set-up", "ancestor copy + node decisions",
+    "gumbel arg-max + split value", "child sums", "commit level",
+    "routing + log-likelihood", "cluster barrier", "smc bookkeeping",
+    "leaf sums + current ll", "refinement sweeps", "commit tree", "finish",
+    "ancestor copy alone", "16 cluster barriers", "16 block barriers")
+
+
+def phase_clocks(reset_for_rank: Optional[int] = None):
+    """Cycles per phase (``CLOCK_PHASES``) that thread 0 of one block of
+    chain 0's cluster spent, summed over the launches since the last reset;
+    all zero unless ``BUILD_DEFINES`` selects the build with clocks.
+    ``reset_for_rank``: set the counts to 0 and let the block of that rank
+    (clamped to the cluster) stamp from now on."""
+    out = (ctypes.c_longlong * 16)()
+    reset = 0 if reset_for_rank is None else 1 + int(reset_for_rank)
+    _build.check_launch(_lib().pgbart_step_clocks(out, reset),
+                        "pgbart_step_fused (phase clocks)")
+    return dict(zip(CLOCK_PHASES, out))
 
 
 def _lib():
-    lib = _build.load("draw")
+    lib = _build.load("draw", BUILD_DEFINES)
     fn = lib.pgbart_step_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(_DrawArgs), _I, _P]
+        fn.argtypes = [ctypes.POINTER(_DrawArgs), _P]
         fn.restype = _I
-        lib.pgbart_step_capacity.argtypes = [_I, _I, _I]
-        lib.pgbart_step_capacity.restype = _I
+        lib.pgbart_step_max_clusters.argtypes = [ctypes.POINTER(_DrawArgs)]
+        lib.pgbart_step_max_clusters.restype = _I
+        lib.pgbart_step_smem_bytes.argtypes = [ctypes.POINTER(_DrawArgs)]
+        lib.pgbart_step_smem_bytes.restype = ctypes.c_longlong
+        lib.pgbart_step_clocks.argtypes = [_P, _I]
+        lib.pgbart_step_clocks.restype = _I
         lib.pgbart_step_args_size.restype = _I
         if lib.pgbart_step_args_size() != ctypes.sizeof(_DrawArgs):
             raise RuntimeError(
@@ -195,15 +321,30 @@ def _check(t, name, dtype, shape, dev):
                          f"{dtype} tensor of shape {tuple(shape)} on {dev}")
 
 
+# plans whose shared-memory size the library has confirmed, and the scratch
+# of the latest (shapes, device): the kernel writes every word before it
+# reads it, and launches on one stream run in order
+_checked_plans = set()
+_scratch = {}
+
+
+def _scratch_for(dev, n_i: int, n_f: int):
+    key = (dev, n_i, n_f)
+    ws = _scratch.get(key)
+    if ws is None:
+        _scratch.clear()
+        ws = (torch.empty((n_i,), dtype=torch.int32, device=dev),
+              torch.empty((n_f,), dtype=torch.float32, device=dev))
+        _scratch[key] = ws
+    return ws
+
+
 def pgbart_step_fused_kernel(state, rands, X, Y_target, rules,
                              cfg: BartConfig, pg: PgbartConfig, lik_row,
                              tuning: bool, *, lik: str = "gauss",
                              lik_const: float = 0.0):
     """Launch ``csrc/draw.cu`` on the current stream (no synchronisation).
-
-    Raises on what the kernel does not take.  A barrier that times out inside
-    the kernel is reported by ``check_status`` after a synchronisation.
-    """
+    Raises on what the kernel does not take."""
     f = state.forest
     if not f.split_var.is_cuda:
         raise ValueError("pgbart_step_fused kernel needs CUDA tensors")
@@ -220,53 +361,55 @@ def pgbart_step_fused_kernel(state, rands, X, Y_target, rules,
     if m != cfg.m or S != cfg.n_nodes:
         raise ValueError(f"pgbart_step_fused: the forest is ({m}, {S}), the "
                          f"configuration wants ({cfg.m}, {cfg.n_nodes})")
+    if rands.rg is None and rands.seed is None:
+        raise ValueError("pgbart_step_fused: rands holds neither the row "
+                         "Gumbels (rg) nor a seed to generate them from")
+    plan = launch_plan(C, P, D, S, n, p, R)
     f32, i32 = torch.float32, torch.int32
     Y = Y_target.reshape(n) if isinstance(Y_target, torch.Tensor) else Y_target
-    for t, name, dt, shape in (
-            (f.split_var, "forest.split_var", i32, (C, m, S)),
-            (f.split_val, "forest.split_val", f32, (C, m, S)),
-            (f.split_set, "forest.split_set", i32, (C, m, S)),
-            (f.leaf, "forest.leaf", f32, (C, m, S, 1)),
-            (f.count, "forest.count", f32, (C, m, S)),
-            (f.slope, "forest.slope", f32, (C, m, S, 1)),
-            (state.tree_pred, "tree_pred", f32, (C, m, n, 1)),
-            (state.sum_trees, "sum_trees", f32, (C, n, 1)),
-            (state.alpha_vec, "alpha_vec", f32, (C, p)),
-            (state.leaf_sd, "leaf_sd", f32, (C, 1)),
-            (state.wf_count, "wf_count", f32, (C,)),
-            (state.wf_mean, "wf_mean", f32, (C, n, 1)),
-            (state.wf_m2, "wf_m2", f32, (C, n, 1)),
-            (state.batch_offset, "batch_offset", i32, (C,)),
-            (state.iteration, "iteration", i32, (C,)),
-            (X, "X", f32, (n, p)), (Y, "Y_target", f32, (n,)),
-            (rules, "rules", i32, (p,)),
-            (rands.ug, "rands.ug", f32, (B, C, P, Gtot)),
-            (rands.uv, "rands.uv", f32, (B, C, P, Gtot)),
-            (rands.rg, "rands.rg", f32, (B, D, C, P, n)),
-            (rands.eps, "rands.eps", f32, (B, C, P, 1, 2 * Gtot)),
-            (rands.sb, "rands.sb", i32, (B, C, P, Gtot)),
-            (rands.ures, "rands.ures", f32, (B, D, C)),
-            (rands.usel, "rands.usel", f32, (B, C)),
-            (rands.epsr, "rands.epsr", f32, (B, C, R, 1, S)),
-            (rands.uacc, "rands.uacc", f32, (B, C, R))):
-        _check(t, name, dt, shape, dev)
+    checks = [
+        (f.split_var, "forest.split_var", i32, (C, m, S)),
+        (f.split_val, "forest.split_val", f32, (C, m, S)),
+        (f.split_set, "forest.split_set", i32, (C, m, S)),
+        (f.leaf, "forest.leaf", f32, (C, m, S, 1)),
+        (f.count, "forest.count", f32, (C, m, S)),
+        (f.slope, "forest.slope", f32, (C, m, S, 1)),
+        (state.tree_pred, "tree_pred", f32, (C, m, n, 1)),
+        (state.sum_trees, "sum_trees", f32, (C, n, 1)),
+        (state.alpha_vec, "alpha_vec", f32, (C, p)),
+        (state.leaf_sd, "leaf_sd", f32, (C, 1)),
+        (state.wf_count, "wf_count", f32, (C,)),
+        (state.wf_mean, "wf_mean", f32, (C, n, 1)),
+        (state.wf_m2, "wf_m2", f32, (C, n, 1)),
+        (state.batch_offset, "batch_offset", i32, (C,)),
+        (state.iteration, "iteration", i32, (C,)),
+        (X, "X", f32, (n, p)), (Y, "Y_target", f32, (n,)),
+        (rules, "rules", i32, (p,)),
+        (rands.ug, "rands.ug", f32, (B, C, P, Gtot)),
+        (rands.uv, "rands.uv", f32, (B, C, P, Gtot)),
+        (rands.eps, "rands.eps", f32, (B, C, P, 1, 2 * Gtot)),
+        (rands.sb, "rands.sb", i32, (B, C, P, Gtot)),
+        (rands.ures, "rands.ures", f32, (B, D, C)),
+        (rands.usel, "rands.usel", f32, (B, C)),
+        (rands.epsr, "rands.epsr", f32, (B, C, R, 1, S)),
+        (rands.uacc, "rands.uacc", f32, (B, C, R))]
+    if rands.rg is not None:
+        checks.append((rands.rg, "rands.rg", f32, (B, D, C, P, n)))
+    else:
+        checks.append((rands.seed, "rands.seed", i32, (2,)))
     if lik_row is not None:
-        _check(lik_row, "lik_row", f32, (C, n, 1), dev)
+        checks.append((lik_row, "lik_row", f32, (C, n, 1)))
+    for t, name, dt, shape in checks:
+        _check(t, name, dt, shape, dev)
 
     lib = _lib()
-    key = (dev.index, D, P, S)
-    if key not in _capacity:
-        _capacity[key] = int(lib.pgbart_step_capacity(D, P, S))
-    capacity = _capacity[key]
-
-    # scratch: one int32 and one float32 workspace, carved by offset; the
-    # arrival counters and the status word start at zero
+    shared = plan.form == "shared"
+    # scratch: one int32 and one float32 workspace, carved by offset
     CP = C * P
-    n_i = 2 * CP * S * 2 + 2 * CP * n + C * p
-    n_f = 2 * CP * S * 3 + 2 * CP * n + (D + 1) * CP + C * p + 2 * C * n + C
-    ws_i = torch.empty((n_i,), dtype=i32, device=dev)
-    ws_f = torch.empty((n_f,), dtype=f32, device=dev)
-    sync = torch.zeros((C + 1,), dtype=i32, device=dev)
+    per_particle = 0 if shared else 2 * CP * S
+    n_i = 2 * per_particle + (0 if shared else 2 * CP * n) + C * p
+    n_f = 3 * per_particle + (0 if shared else C * n) + C * p
+    ws_i, ws_f = _scratch_for(dev, n_i, n_f)
     vi = torch.empty((C, p), dtype=f32, device=dev)
 
     a = _DrawArgs()
@@ -281,58 +424,51 @@ def pgbart_step_fused_kernel(state, rands, X, Y_target, rules,
             ("batch_offset", state.batch_offset),
             ("iteration", state.iteration), ("X", X), ("y", Y),
             ("rules", rules), ("ug", rands.ug), ("uv", rands.uv),
-            ("rg", rands.rg), ("eps", rands.eps), ("sb", rands.sb),
+            ("eps", rands.eps), ("sb", rands.sb),
             ("ures", rands.ures), ("usel", rands.usel),
             ("epsr", rands.epsr), ("uacc", rands.uacc), ("vi", vi)):
         setattr(a, name, ptr(t))
+    a.rg = ptr(rands.rg) if rands.rg is not None else None
+    a.seed = ptr(rands.seed) if rands.rg is None else None
     a.lik_row = ptr(lik_row) if lik_row is not None else None
     base, off = ptr(ws_i), 0
-    for name, size in (("ps_sv", 2 * CP * S), ("ps_st", 2 * CP * S),
-                       ("ps_li", 2 * CP * n), ("vi_cnt", C * p)):
-        setattr(a, name, base + 4 * off)
+    for name, size in (("ps_sv", per_particle), ("ps_st", per_particle),
+                       ("ps_li", 0 if shared else 2 * CP * n),
+                       ("vi_cnt", C * p)):
+        setattr(a, name, base + 4 * off if size else None)
         off += size
     base, off = ptr(ws_f), 0
-    for name, size in (("ps_sl", 2 * CP * S), ("ps_lf", 2 * CP * S),
-                       ("ps_ct", 2 * CP * S), ("ps_pred", 2 * CP * n),
-                       ("ll_buf", (D + 1) * CP), ("cdf", C * p),
-                       ("resid", C * n), ("noi", C * n), ("root_mu", C)):
-        setattr(a, name, base + 4 * off)
+    for name, size in (("ps_sl", per_particle), ("ps_lf", per_particle),
+                       ("ps_ct", per_particle),
+                       ("noi", 0 if shared else C * n), ("cdf", C * p)):
+        setattr(a, name, base + 4 * off if size else None)
         off += size
-    a.bar = ptr(sync)
-    a.status = ptr(sync) + 4 * C
     a.C, a.P, a.S, a.n, a.p, a.m, a.B, a.D, a.R = C, P, S, n, p, m, B, D, R
     a.lik, a.tuning = LIK_CODES[lik], int(bool(tuning))
+    a.CS, a.PB, a.WP = plan.cluster, plan.per_block, plan.warps
+    a.shared_form = int(shared)
+    a.x_staged, a.cdf_staged = int(plan.x_staged), int(plan.cdf_staged)
     a.lik_const, a.decay = float(lik_const), float(pg.split_prior_decay)
     for d in range(D):
         a.p_grow[d] = float(cfg.alpha * (1.0 + d) ** (-cfg.beta))
 
-    err = lib.pgbart_step_launch(ctypes.byref(a), capacity,
-                                 _build.current_stream())
-    if err == -1:
-        raise RuntimeError(
-            f"pgbart_step_fused: {C} chains x {P} particles need {CP} "
-            f"resident blocks, the card holds {capacity} of this kernel")
+    with torch.cuda.device(dev):
+        if (dev, plan, D, P, S, n, p, R) not in _checked_plans:
+            got = int(lib.pgbart_step_smem_bytes(ctypes.byref(a)))
+            if got != plan.smem:
+                raise RuntimeError(
+                    f"pgbart_step_fused: csrc/draw.cu lays out {got} bytes of "
+                    f"shared memory for {plan}, the wrapper {plan.smem}")
+            clusters = int(lib.pgbart_step_max_clusters(ctypes.byref(a)))
+            if clusters < 1:
+                raise RuntimeError(
+                    f"pgbart_step_fused: the card cannot run a cluster of "
+                    f"{plan} (cudaOccupancyMaxActiveClusters: {clusters})")
+            _checked_plans.add((dev, plan, D, P, S, n, p, R))
+        err = lib.pgbart_step_launch(ctypes.byref(a), _build.current_stream())
     _build.check_launch(err, "pgbart_step_fused")
     pgbart_step_fused.launches += 1
-    _status.append(sync)
-    del _status[:-64]
     return state, vi
-
-
-# status words of the latest launches (the last entry of each tensor)
-_status = []
-
-
-def check_status():
-    """Synchronise and raise if a launch since the last check gave up at a
-    barrier (the kernel bounds every wait instead of hanging the card)."""
-    if not _status:
-        return
-    pending, _status[:] = list(_status), []
-    flags = torch.stack([s[-1] for s in pending])
-    if bool(flags.ne(0).any()):
-        raise RuntimeError("pgbart_step_fused: a chain barrier timed out "
-                           "inside the kernel; the step's state is invalid")
 
 
 def pgbart_step_fused(state, rands, X, Y_target, rules, cfg: BartConfig,
@@ -342,9 +478,10 @@ def pgbart_step_fused(state, rands, X, Y_target, rules, cfg: BartConfig,
     """One whole PGBART step for all chains.
 
     ``state``: ``PgbartState`` with a leading chain axis, updated in place;
-    ``rands``: ``StepRands``; ``X`` (n, p), ``Y_target`` (n, 1) and ``rules``
-    (p,) are shared by the chains; ``lik_row`` is the (C, n, 1) row data of
-    the likelihood code or ``None`` for ``"bernoulli"``.  Returns
+    ``rands``: ``StepRands`` (``rg`` may be None: the row Gumbels are then
+    generated from ``rands.seed``); ``X`` (n, p), ``Y_target`` (n, 1) and
+    ``rules`` (p,) are shared by the chains; ``lik_row`` is the (C, n, 1) row
+    data of the likelihood code or ``None`` for ``"bernoulli"``.  Returns
     ``(state, variable_inclusion (C, p))``.  Runs the CUDA kernel for a state
     on a CUDA device and the plain version for one on the CPU; ``impl``
     forces ``"kernel"`` or ``"plain"``.  ``pgbart_step_fused.launches``

@@ -36,7 +36,6 @@ from ..models.distributions import BernoulliDist, NormalDist
 from ..models.expr import Expr, Op, evaluate
 from ..models.inference_data import DataArray, Dataset, InferenceData
 from ..models.model import BARTRV, Deterministic, Model
-from ..ops.draw import check_status
 from ..utils.posterior import PosteriorForests
 from . import hmc, nuts, pgbart
 
@@ -567,10 +566,10 @@ def sample(
             pgbart_route, bs["cfg"], bs["pg"], bs["X"], probe, kind, chains=C,
             w_scalar=bs["w_scalar"], all_cont=bs["all_cont"],
             x_nan=bs["x_nan"])
-        # the large-n kernel generates its row Gumbels; its plain version
-        # (CPU) needs the block
-        bs["row_gumbels"] = not (bs["route"] == "bign"
-                                 and device.type == "cuda")
+        # on the card the row Gumbels come from a seed on every route (the
+        # whole-step kernels generate them, the per-round route has them
+        # written out by the same generator); on the CPU the block is drawn
+        bs["row_gumbels"] = device.type != "cuda"
         if pgbart_route is None and bs["route"] == "rounds":
             warnings.warn(
                 f"BART variable {bs['name']!r} takes the per-round sampler "
@@ -655,7 +654,6 @@ def sample(
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-            check_status()
 
     if chunk_size is None:
         chunk_size = max(1, min(200, draws))
@@ -769,7 +767,6 @@ def sample(
     if timings is not None:
         sync()
         timings["draw_seconds_total"] = time.perf_counter() - draw_t0
-    check_status()      # a whole-step launch that gave up raises here
 
     def cat(parts):
         return np.concatenate(parts, axis=1)

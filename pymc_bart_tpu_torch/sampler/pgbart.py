@@ -9,7 +9,8 @@ response and one output.  ``pgbart_step`` is the counterpart of
   rows spread over the card, node-space sufficient statistics for the
   Gaussian code, row Gumbels generated inside the kernel), taken from
   ``ops.bign.BIGN_MIN_ROWS`` rows on where its gate admits the configuration;
-* ``"fused"``: the whole step in one launch (``ops/draw.py``), taken
+* ``"fused"``: the whole step in one launch (``ops/draw.py``: a thread-block
+  cluster per chain, row Gumbels generated inside the kernel too), taken
   wherever its gate admits the configuration;
 * ``"rounds"``: per tree ``D`` growth rounds (``ops/grow.py``), ``D-1`` SMC
   resampling steps (``ops/smc.py``) and one winner selection with Metropolis
@@ -73,8 +74,9 @@ class PgbartState:
 class StepRands:
     """Random blocks of one step: ``B`` trees, ``C`` chains.
 
-    ``rg`` holds Gumbel draws, or is ``None`` when the ``"bign"`` route is to
-    generate them inside its kernel from ``seed``; ``epsr`` is UNSCALED
+    ``rg`` holds Gumbel draws, or is ``None`` when they are to be generated
+    from ``seed`` (inside the kernel on the ``"bign"`` and ``"fused"`` routes,
+    written out by the same generator for the ``"rounds"`` route); ``epsr`` is UNSCALED
     standard normal (the step multiplies by ``0.3 * leaf_sd``); ``sb`` is the
     ``int32`` bit pattern of the JAX ``uint32`` salts.
     """
@@ -144,7 +146,9 @@ def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
 
     ``row_gumbels=False`` leaves out the (B, D, C, P, n) Gumbel block, the
     only one that grows with ``n``, and draws a 64-bit ``seed`` instead, from
-    which the ``"bign"`` route generates the same block inside its kernel."""
+    which the ``"bign"`` and ``"fused"`` routes generate the same block inside
+    their kernels (the ``"rounds"`` route and the whole-step function's plain
+    version write it out first)."""
     Gtot = 2**D - 1
     R = max(num_refinements, 1)
     f32 = torch.float32
@@ -424,15 +428,20 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
         return _bign.pgbart_step_bign(
             state, rands, X, Y_target, cfg, pg, w_chain, tuning, lik=lik,
             lik_const=lik_const, llw=llw, impl=impl)
-    if rands.rg is None:
-        raise ValueError(
-            f"the {taken!r} route needs the pre-drawn row Gumbels rands.rg; "
-            "only the 'bign' route generates them (draw_rands("
-            "row_gumbels=True))")
     if taken == "fused":
         return _draw.pgbart_step_fused(
             state, rands, X, Y_target, rules, cfg, pg, gauss_w, tuning,
             lik=lik, lik_const=lik_const, impl=impl)
+    if rands.rg is None:
+        # the per-round functions take the block: written out from the seed
+        # by the generator the whole-step kernels use
+        if rands.seed is None:
+            raise ValueError(
+                "rands holds neither the row Gumbels (rg) nor a seed to "
+                "generate them from")
+        rands = dataclasses.replace(rands, rg=_bign.gumbel_block(
+            rands.seed, B=pg.batch_size(cfg.m, tuning), C=C,
+            P=pg.num_particles, D=cfg.max_depth, n=X.shape[0]))
     return step_rounds(state, rands, X, Y_target, rules, cfg, pg, tuning,
                        gauss_w, impl=impl, lik=lik, lik_const=lik_const)
 

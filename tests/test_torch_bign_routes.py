@@ -159,7 +159,8 @@ def test_gate_memory_on_a_fake_size():
     assert bign.tiling(37) == (1024, 1)
     tile, tiles = bign.tiling(10_000_000)
     assert tiles <= 64 and tile * tiles >= 10_000_000 and tile % 256 == 0
-    assert bign.launches_per_step(2, 6) == 2 * (5 + 36) + 1
+    # per tree 2 set-up kernels, 3 a level, 2 to select and commit
+    assert bign.launches_per_step(2, 6) == 2 * (4 + 18) + 1
 
 
 def _small_step(n=40, lik="gauss"):
@@ -224,15 +225,22 @@ def test_rands_without_the_gumbel_block():
     with pytest.raises(ValueError, match="no generator"):
         pgbart.pgbart_step(state.clone(), r, *args, True, row, route="bign",
                            w_scalar=True)
-    # and the other routes need the block
-    with pytest.raises(ValueError, match="pre-drawn row Gumbels"):
-        pgbart.pgbart_step(state.clone(), r, *args, True, row, route="fused")
+    # the other routes write the block out from the seed
+    # (tests/test_torch_draw_generated.py); without either they refuse
+    import dataclasses
+    with pytest.raises(ValueError, match="neither"):
+        pgbart.pgbart_step(state.clone(), dataclasses.replace(r, seed=None),
+                           *args, True, row, route="rounds")
     with pytest.raises(ValueError, match="CUDA"):
         bign.pgbart_step_bign(state.clone(), full, args[0], args[1], args[3],
                               args[4], row[:, 0, 0].contiguous(), True,
                               impl="kernel")
-    with pytest.raises(ValueError, match="CUDA"):
-        bign.gumbel_block(r.seed, B=3, C=2, P=4, D=3, n=40)
+    # on the CPU the generator's plain version writes the block out
+    block = bign.gumbel_block(r.seed, B=3, C=2, P=4, D=3, n=40)
+    assert tuple(block.shape) == (3, 3, 2, 4, 40)
+    assert bool(torch.isfinite(block).all())
+    with pytest.raises(ValueError, match="int32"):
+        bign.gumbel_block(r.seed.to(torch.int64), B=3, C=2, P=4, D=3, n=40)
     with pytest.raises(ValueError, match="impl"):
         bign.pgbart_step_bign(state.clone(), full, args[0], args[1], args[3],
                               args[4], row[:, 0, 0].contiguous(), True,

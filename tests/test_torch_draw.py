@@ -233,8 +233,10 @@ def test_gate_reasons():
         TBartConfig(m=M, max_depth=DEPTH, n_outputs=2), pg, Xt, row)
     assert not tdraw.fused_draw_supported(cfg, pg, Xt, None)
     # the shared-memory mirror grows with depth, particles and node slots
-    assert tdraw.smem_bytes(6, 20, 127) < tdraw.smem_bytes(8, 20, 511)
-    assert tdraw.smem_bytes(6, 20, 127) < 48 * 1024
+    small = tdraw.launch_plan(4, 20, 6, 127, 1000, 10)
+    deep = tdraw.launch_plan(4, 20, 8, 511, 1000, 10)
+    assert small.smem < deep.smem <= 232448
+    assert small.smem == tdraw.smem_bytes(small, 6, 20, 127, 1000, 10, 5)
 
 
 def test_plain_version_refuses_what_the_gate_refuses():
