@@ -21,14 +21,16 @@ line:
    for gauss with tuning on and off, bernoulli, het_abs, het_exp and
    cat_logit, at p=1000 (n=200), on a small mixed case (NaNs, one-hot and
    subset columns), with a hundredth of the precision (the ESS gate falls
-   both ways), with 19 particles (an idle slot in the cluster) and at
-   n=16,384 (the form that keeps the per-particle state in global memory;
-   the phase prints the form of every case and fails if a case runs in
-   another than it names).  Then its generated-Gumbel mode in both forms:
+   both ways), with 19 particles (an idle slot in the cluster), at p=5000
+   (the split-weight CDF stays in global memory) and at n=16,384 (the form
+   that keeps the per-particle state in global memory; the phase prints the
+   plan of every case and fails if a case runs with another than it names),
+   each from three seeds.  Then its generated-Gumbel mode in both forms:
    equal to the plain version on the written-out block, and the same bits
    from two runs.  Integer outputs must be equal; floats within rtol 1e-4
    / atol 1e-5 (split values rtol 1e-5 / atol 1e-6; sums of trees rtol 1e-4
-   / atol 1e-4): the sums are taken in another order.  The large-n kernel
+   / atol 1e-4): float64 sums are taken in another order and rounded once;
+   the sums keyed by node are fixed point on both sides.  The large-n kernel
    ``pgbart_step_bign`` likewise, two steps against its plain version on
    pre-drawn Gumbels: at C=4, P=10, n=50,000, p=10, m=20 for gauss with
    tuning on and off (5 refinements), bernoulli, het_abs, het_exp and
@@ -74,13 +76,14 @@ line:
    main path runs it (generated Gumbels) with the pre-drawn mode and its
    bound beside.  For the large-n kernel also the traffic of its row passes,
    and the crossover table: device time of one step on the large-n and on
-   the whole-step kernel at n = 1000 ... 200,000 (C=4, P=10, m=20), from
-   which ``ops.bign.BIGN_MIN_ROWS`` is set, and the same at P=20, m=50.
+   the whole-step kernel at n = 1000 ... 200,000 (C=4, P=10, m=20) and the
+   same at P=20, m=50; the phase fails (after printing its line) if
+   ``pgbart_step(route=None)`` takes the slower kernel at a measured shape.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over a short
 ``sample()`` run on the fused route and on the large-n route: device busy
-share and the device time by kernel name.  ``--phases ...,clocks`` builds
-the whole-step kernel with phase clocks and prints where a step's cycles go.
+share and the device time by kernel name.  (Where a step of the whole-step
+kernel spends its cycles: ``scripts/draw_phase_clocks.py``.)
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -98,7 +101,7 @@ import numpy as np
 import torch
 
 ALL_PHASES = ("device", "build", "kernels", "step", "sample", "timing")
-EXTRA_PHASES = ("profile", "clocks")    # only when asked for with --phases
+EXTRA_PHASES = ("profile",)    # only when asked for with --phases
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 C, P, N, PCOLS, M, DEPTH, R = 4, 20, 1000, 10, 50, 6, 5
@@ -368,11 +371,20 @@ def compare_state(tag, got, want):
 
 
 FUSED_CASES = ("gauss_tune", "gauss_draw", "bernoulli", "het_abs", "het_exp",
-               "cat_logit", "gauss_p1000", "gauss_mixed", "gauss_flat",
-               "gauss_p19", "gauss_global")
-# the form each case must run in (ops.draw.launch_plan): per-particle state in
-# shared memory, or in global memory where a chain's rows do not fit
-FUSED_FORMS = {"gauss_global": "global"}
+               "cat_logit", "gauss_p1000", "gauss_p5000", "gauss_mixed",
+               "gauss_flat", "gauss_p19", "gauss_global")
+# every case runs from each of these seeds of the random blocks
+FUSED_SEEDS = (17, 101, 102)
+# what a case's launch plan (ops.draw.launch_plan) must say, so that every
+# fork of the kernel is held against the plain version: per-particle state in
+# shared memory or, where a chain's rows do not fit, in global memory; X and
+# the split-weight CDF staged in shared memory or read from global memory
+FUSED_PLANS = {
+    "gauss_global": dict(form="global", x_staged=False),
+    "gauss_p1000": dict(x_staged=False, cdf_staged=True),
+    "gauss_p5000": dict(x_staged=False, cdf_staged=False),
+}
+FUSED_PLAN_DEFAULT = dict(form="shared", x_staged=True, cdf_staged=True)
 
 
 def fused_case(dev, name, seed=0):
@@ -383,8 +395,9 @@ def fused_case(dev, name, seed=0):
     and widths: ``gauss_flat`` (a hundredth of the precision: the weights stay
     close, so the ESS gate falls both ways and the winner is not always the
     heaviest particle), ``gauss_p19`` (19 particles: one slot of the cluster
-    stays idle) and ``gauss_global`` (n=16,384 rows: the form that keeps the
-    per-particle state in global memory)."""
+    stays idle), ``gauss_global`` (n=16,384 rows: the form that keeps the
+    per-particle state in global memory) and ``gauss_p5000`` (5000 columns:
+    the split-weight CDF is read from global memory)."""
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
 
     rng = np.random.default_rng(100 + seed)
@@ -397,8 +410,9 @@ def fused_case(dev, name, seed=0):
     if name.startswith("gauss"):
         lik = "gauss"
         tunings = (False, False) if name == "gauss_draw" else (True, True)
-        if name == "gauss_p1000":           # the width of the p=1000 config
-            X = rng.uniform(size=(200, 1000)).astype(np.float32)
+        if name in ("gauss_p1000", "gauss_p5000"):
+            # the width of the p=1000 config; five times that
+            X = rng.uniform(size=(200, int(name[7:]))).astype(np.float32)
             Y = (5 * X[:, 0] + 3 * X[:, 1] - 4 * X[:, 2]
                  + rng.normal(0, 0.5, 200)).astype(np.float32)
         elif name == "gauss_mixed":         # NaNs, one-hot and subset columns
@@ -522,9 +536,11 @@ def compare_fused(dev, name, seed=17):
     split nodes, launch plan)."""
     case = fused_case(dev, name)
     plan = fused_plan(case)
-    if plan.form != FUSED_FORMS.get(name, "shared"):
-        raise AssertionError(f"{name}: the kernel would run in the "
-                             f"{plan.form!r} form ({plan})")
+    for key, want in dict(FUSED_PLAN_DEFAULT,
+                          **FUSED_PLANS.get(name, {})).items():
+        if getattr(plan, key) != want:
+            raise AssertionError(f"{name}: the kernel would run with "
+                                 f"{key}={getattr(plan, key)!r} ({plan})")
     if name == "gauss_p19" and not (plan.cluster * plan.per_block
                                     > case["pg"].num_particles):
         raise AssertionError(f"{name}: no idle particle slot in {plan}")
@@ -828,11 +844,15 @@ def phase_kernels(dev, calls, cfg):
             check_close(f"select_refine {name}", g, w, *tol))
     fused = {}
     for name in FUSED_CASES:
-        err, splits, plan = compare_fused(dev, name)
+        err = 0.0
+        for seed in FUSED_SEEDS:
+            e, splits, plan = compare_fused(dev, name, seed)
+            err = max(err, e)
         fused[name] = dict(max_abs_err=err, split_nodes=splits, form=plan.form,
                            cluster=plan.cluster, particles_per_block=plan.per_block,
                            warps_per_particle=plan.warps,
-                           x_staged=plan.x_staged, smem_bytes=plan.smem)
+                           x_staged=plan.x_staged, cdf_staged=plan.cdf_staged,
+                           smem_bytes=plan.smem, seeds=list(FUSED_SEEDS))
     fused_generated = check_generated_fused(dev)
     errs["pgbart_step_fused"] = max(
         [v["max_abs_err"] for v in fused.values()]
@@ -1360,7 +1380,8 @@ def time_bign(dev, gen, bound, timed):
     """Times of the large-n kernel at n = 50,000 (gauss: the entry of the
     ``kernels`` line; bernoulli beside it) and the crossover table against
     the whole-step kernel."""
-    from pymc_bart_tpu_torch.ops.bign import BIGN_MIN_ROWS, launches_per_step
+    from pymc_bart_tpu_torch.ops.bign import launches_per_step
+    from pymc_bart_tpu_torch.sampler.pgbart import resolve_route
 
     entry = {}
     for name in ("gauss_draw", "bernoulli"):
@@ -1410,6 +1431,10 @@ def time_bign(dev, gen, bound, timed):
             lambda: fused_step(case, st_f, r_gen, False, "kernel"),
             iters=iters)[0]
         row[f"{lik}_fused_form"] = fused_plan(case).form
+        row[f"{lik}_route"] = resolve_route(
+            None, case["cfg"], case["pg"], case["X"], case["row"], lik,
+            chains=case["chains"], w_scalar=True, all_cont=True,
+            x_nan=False)[0]
 
     table = []
     for n in (1000, 2000, 4000, 8192, 16384, 32768, 50_000, 200_000):
@@ -1418,38 +1443,40 @@ def time_bign(dev, gen, bound, timed):
             cross(name, n, lik, row)
         table.append(row)
     # the same at the n=1000 models' shapes (P=20, m=50: B=5 trees a step,
-    # 5 refinements), reported beside the table that sets the constant
+    # 5 refinements), where the rows leave shared memory earlier
     wide = []
-    for n in (1000, 4000, 16384, 50_000):
+    for n in (1000, 4000, 6000, 8192, 16384, 50_000):
         row = dict(n=n)
         cross("gauss_n1000", n, "gauss", row)
         wide.append(row)
     torch.cuda.synchronize()
-    return entry, dict(BIGN_MIN_ROWS=BIGN_MIN_ROWS, C=LN["C"], P=LN["P"],
-                       m=LN["M"], rows=table,
+    return entry, dict(rule="route=None takes the large-n kernel where the "
+                       "whole-step kernel's form is global", C=LN["C"],
+                       P=LN["P"], m=LN["M"], rows=table,
                        rows_at_p20_m50=dict(C=LN["C"], P=P, m=M, rows=wide))
 
 
-def check_crossover(crossover):
-    """The constant in the code must be what the crossover table supports:
-    the large-n kernel is the faster one in both regimes at every measured n
-    from ``BIGN_MIN_ROWS`` on, and not yet at the measured n just below."""
-    threshold = crossover["BIGN_MIN_ROWS"]
-
-    def large_n_wins(row):
-        return all(row[f"{lik}_bign_ms"] <= row[f"{lik}_fused_ms"]
-                   for lik in ("gauss", "bernoulli"))
-
-    for row in crossover["rows"]:
-        if row["n"] >= threshold and not large_n_wins(row):
-            raise AssertionError(
-                f"BIGN_MIN_ROWS={threshold}, but at n={row['n']} the "
-                f"whole-step kernel is the faster one: {row}")
-    below = [row for row in crossover["rows"] if row["n"] < threshold]
-    if below and large_n_wins(below[-1]):
-        raise AssertionError(
-            f"BIGN_MIN_ROWS={threshold}, but the large-n kernel already wins "
-            f"both regimes at n={below[-1]['n']}: {below[-1]}")
+def check_crossover(crossover, slack=1.15):
+    """The route ``pgbart_step(route=None)`` takes must be what the crossover
+    table supports: at every measured shape the kernel of the route taken is
+    the faster of the two, or within ``slack`` of the other (at the crossover
+    itself the two are close and either will do).  The n=1000 models must
+    stay on the whole-step kernel, the n=50,000 models on the large-n one."""
+    rows = crossover["rows"] + crossover["rows_at_p20_m50"]["rows"]
+    for row in rows:
+        for lik in ("gauss", "bernoulli"):
+            if f"{lik}_route" not in row:
+                continue
+            taken = row[f"{lik}_route"]
+            other = "fused" if taken == "bign" else "bign"
+            if row[f"{lik}_{taken}_ms"] > slack * row[f"{lik}_{other}_ms"]:
+                raise AssertionError(
+                    f"route=None takes {taken!r} at n={row['n']} ({lik}), "
+                    f"but the other kernel is the faster one: {row}")
+            want = {1000: "fused", 50_000: "bign"}.get(row["n"], taken)
+            if taken != want:
+                raise AssertionError(
+                    f"route=None takes {taken!r} at n={row['n']}: {row}")
 
 
 def phase_profile(dev, steps=20):
@@ -1528,42 +1555,6 @@ def phase_profile(dev, steps=20):
                   for r in rows[:12]])
 
 
-def phase_clocks(dev, steps=20):
-    """Where a step of the whole-step kernel spends its cycles: the kernel
-    built with phase clocks (``-DDRAW_PHASE_CLOCKS``), gauss and bernoulli at
-    the main shapes, generated Gumbels; cycles per step of thread 0 of one
-    block (the middle one) of chain 0's cluster."""
-    from pymc_bart_tpu_torch.ops import draw
-
-    draw.BUILD_DEFINES = ("DRAW_PHASE_CLOCKS",)
-    try:
-        for name in ("gauss_draw", "bernoulli"):
-            case = fused_case(dev, name)
-            gen = torch.Generator(device=dev).manual_seed(5)
-            state = grown_state(case, gen, dev)
-            rands = fused_rands(case, gen, False, dev, row_gumbels=False)
-            plan = fused_plan(case)
-            for _ in range(3):
-                fused_step(case, state, rands, False, "kernel")
-            torch.cuda.synchronize()
-            draw.phase_clocks(reset_for_rank=plan.cluster // 2)
-            for _ in range(steps):
-                fused_step(case, state, rands, False, "kernel")
-            torch.cuda.synchronize()
-            cycles = {k: v / steps for k, v in draw.phase_clocks().items()}
-            probes = ("16 cluster barriers", "16 block barriers")
-            total = sum(v for k, v in cycles.items() if k not in probes)
-            emit("clocks", case=name, steps=steps, rank=plan.cluster // 2,
-                 cluster=plan.cluster, cycles_per_step=cycles,
-                 cycles_per_step_total=total,
-                 share={k: v / total for k, v in cycles.items()
-                        if k not in probes},
-                 stamped_ms=cuda_ms(lambda: fused_step(case, state, rands,
-                                                       False, "kernel"))[0])
-    finally:
-        draw.BUILD_DEFINES = ()
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -1619,8 +1610,6 @@ def main(argv=None):
         times = phase_timing(dev, calls, cfg, smi, runs)
     if "profile" in phases:
         phase_profile(dev)
-    if "clocks" in phases:
-        phase_clocks(dev)
 
     if set(ALL_PHASES) <= set(phases):
         kernels = []

@@ -105,26 +105,9 @@ __device__ __forceinline__ unsigned int gumbel_stream(int b, int d, int D,
 // SMC bookkeeping of one chain between two growth rounds, on ONE warp
 // ---------------------------------------------------------------------------
 
-// Sum over the lanes of a warp by a shuffle tree; every lane gets the total.
-__device__ __forceinline__ float warp_sum_f(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ float warp_max_f(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Inclusive prefix sum over the lanes (lane i gets v_0 + ... + v_i), by the
-// shuffle ladder: the same order of additions in every call.
-__device__ __forceinline__ float warp_scan_f(float v) {
-  const int lane = threadIdx.x & 31;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += u;
-  }
   return v;
 }
 
@@ -134,13 +117,13 @@ __device__ __forceinline__ float warp_scan_f(float v) {
 // weight and ll gathered at the ancestors.  lw, llp, take are updated in
 // place; cdf and prob are scratch; all arrays hold P entries that the warp
 // can read and write (shared or global memory).  Called by all 32 lanes.
-// Up to 32 particles sit one to a lane: the sums are shuffle trees, the CDF a
-// shuffle ladder, the search a broadcast of each CDF entry.  More particles
-// go through memory, the three running sums taken by every lane in index
-// order.  Either way the order of additions is fixed, so every warp that
-// computes a chain's step from the same inputs gets the same bits.  Products
-// are rounded before they are added (no fused multiply-add), as the plain
-// PyTorch version rounds them.
+// Up to 32 particles sit one to a lane and every lane takes the three running
+// sums (softmax total, sum of squares, CDF) over broadcasts of the lanes'
+// values; more particles go through memory.  Either way the sums are float32
+// additions in INDEX order, the order of the plain PyTorch version
+// (ops/sums.py::seq_sum, seq_cumsum), so every warp and the plain version get
+// the same bits from the same inputs.  Products are rounded before they are
+// added (no fused multiply-add), as PyTorch rounds them.
 __device__ __forceinline__ void smc_warp(float* __restrict__ lw,
                                          float* __restrict__ llp,
                                          const float* __restrict__ ll,
@@ -158,11 +141,22 @@ __device__ __forceinline__ void smc_warp(float* __restrict__ lw,
     if (gate) {
       const float mx = warp_max_f(free ? lw_i : -INFINITY);
       const float e = free ? expf(lw_i - mx) : 0.f;
-      const float tot = warp_sum_f(e);
+      // (short unrolling: a fully unrolled loop keeps its 31 broadcasts in
+      // registers, which costs the row kernels that inline this function
+      // their occupancy)
+      float tot = 0.f;
+#pragma unroll 4
+      for (int j = 1; j < P; ++j) tot += __shfl_sync(full, e, j);
       const float pr = e / tot;
-      const float sumsq = warp_sum_f(__fmul_rn(pr, pr));
-      const float run = warp_scan_f(pr);
-      const float c_i = run / __shfl_sync(full, run, P - 1);
+      float sumsq = 0.f, run = 0.f, run_i = 0.f;
+#pragma unroll 4
+      for (int j = 1; j < P; ++j) {
+        const float p_j = __shfl_sync(full, pr, j);
+        sumsq = __fadd_rn(sumsq, __fmul_rn(p_j, p_j));
+        run += p_j;
+        if (lane == j) run_i = run;
+      }
+      const float c_i = run_i / run;  // lane 0: 0, as the CDF starts
       const float log_mean = mx + logf(tot / (float)(P - 1));
       const float ess = 1.f / fmaxf(sumsq, 1e-38f);
       if (ess < 0.5f * (float)(P - 1)) {  // the same in every lane
@@ -247,9 +241,16 @@ __device__ __forceinline__ int winner_warp(const float* __restrict__ lw,
     const bool in = lane < P;
     const float mx = warp_max_f(in ? lw[lane] : -INFINITY);
     const float e = in ? expf(lw[lane] - mx) : 0.f;
-    const float uu = u * warp_sum_f(e);
-    const float run = warp_scan_f(e);  // by all lanes, before the test
-    cnt = __popc(__ballot_sync(full, in && run < uu));
+    float tot = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < P; ++j) tot += __shfl_sync(full, e, j);
+    const float uu = u * tot;
+    float run = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < P; ++j) {  // prefix sums in index order, in every lane
+      run += __shfl_sync(full, e, j);
+      cnt += (run < uu) ? 1 : 0;
+    }
   } else {
     float mx = -INFINITY;
     for (int i = lane; i < P; i += 32) mx = fmaxf(mx, lw[i]);

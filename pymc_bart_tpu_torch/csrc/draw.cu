@@ -74,6 +74,12 @@
 // over the p columns is a float64 running sum rounded once per entry (the
 // plain version reproduces it with a float64 cumsum); counts are popcounts.
 // NaN-able values (split values) are selected, never blended.
+// The plain version (sampler/pgbart.py::step_rounds with ops/grow.py,
+// ops/select.py) takes the same sums the same way (ops/sums.py: float64
+// rounded once, and the same fixed point with the same per-tree scale), and
+// this file is compiled without fused multiply-add (ops/_build.py), so every
+// float32 product is rounded before it is added, as PyTorch rounds it: the
+// two then round the same numbers and agree in every discrete decision.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -265,8 +271,10 @@ __device__ __forceinline__ float row_ll(int lik, float c0, float y, float noi,
 // integer round(r * 2^k), with k chosen per tree so that the largest |r| of
 // the chain has 38 bits (row counts below 2^20 then fit 63 bits with room).
 // Integer addition has no order, so the sums are the same bits from run to
-// run whatever the order of the atomics, and their error (2^-39 of the
-// largest residual per row) is far below a float32 sum's in any order.
+// run whatever the order of the atomics, and the same bits as the plain
+// version's (ops/sums.py::keyed_sum_fixed quantises with the same scale);
+// their error (2^-39 of the largest residual per row) is far below a float32
+// sum's in any order.
 __device__ __forceinline__ long long to_fixed(float r, double scale) {
   return __double2ll_rn((double)r * scale);
 }
@@ -310,9 +318,10 @@ struct Part {
   int* sv; float* sl; int* st; float* lf; float* ct; LiT* li;
 };
 
-// Phase clocks (compiled in with -DDRAW_PHASE_CLOCKS): cycles that thread 0 of
-// one block of chain 0's cluster spends up to each stamp, summed over the
-// launches since the last reset.
+// Phase clocks (compiled in with -DDRAW_PHASE_CLOCKS, as
+// scripts/draw_phase_clocks.py builds the file; the package never does):
+// cycles that thread 0 of one block of chain 0's cluster spends up to each
+// stamp, summed over the launches since the last reset.
 #ifdef DRAW_PHASE_CLOCKS
 __device__ long long g_clock[16];
 __device__ int g_clock_rank;
@@ -1047,19 +1056,17 @@ extern "C" int pgbart_step_launch(const void* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Phase clocks of the launches since the last reset (all zero unless built
-// with -DDRAW_PHASE_CLOCKS): 16 cycle counts into `out`, or reset.
-extern "C" int pgbart_step_clocks(long long* out, int reset) {
 #ifdef DRAW_PHASE_CLOCKS
-  if (reset) {  // reset - 1: the block of chain 0's cluster that stamps
+// Phase clocks of the launches since the last reset: 16 cycle counts into
+// `out`, or (reset > 0) set them to 0 and let block reset - 1 of chain 0's
+// cluster stamp from now on.
+extern "C" int pgbart_step_clocks(long long* out, int reset) {
+  if (reset) {
     const long long zero[16] = {0};
     const int rank = reset - 1;
     cudaMemcpyToSymbol(g_clock_rank, &rank, sizeof(rank));
     return (int)cudaMemcpyToSymbol(g_clock, zero, sizeof(zero));
   }
   return (int)cudaMemcpyFromSymbol(out, g_clock, sizeof(long long) * 16);
-#else
-  if (!reset) for (int i = 0; i < 16; ++i) out[i] = 0;
-  return 0;
-#endif
 }
+#endif

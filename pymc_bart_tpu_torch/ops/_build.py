@@ -16,16 +16,17 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNEL_SOURCES = ("grow", "smc", "select", "draw", "bign")
-# bign.cu rounds its float32 arithmetic where its plain PyTorch version does
-# (one rounding per operation), so it is compiled without fused multiply-add
-EXTRA_FLAGS = {"bign": ("-fmad=false",)}
+# the whole-step kernels round their float32 arithmetic where their plain
+# PyTorch versions do (one rounding per operation), so they are compiled
+# without fused multiply-add
+EXTRA_FLAGS = {"bign": ("-fmad=false",), "draw": ("-fmad=false",)}
 
-_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -38,40 +39,37 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _target(name: str, defines: Tuple[str, ...] = ()) -> Path:
+def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update(" ".join(defines).encode())
+    h.update(" ".join(EXTRA_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _command(name: str, out: Path, verbose: bool,
-             defines: Tuple[str, ...] = ()):
+def _command(name: str, out: Path, verbose: bool):
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR),
-           *EXTRA_FLAGS.get(name, ()), *(f"-D{d}" for d in defines),
-           "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+           *EXTRA_FLAGS.get(name, ()), "-o", str(out),
+           str(CSRC_DIR / f"{name}.cu")]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     return cmd
 
 
-def build_all(names: Iterable[str] = KERNEL_SOURCES, verbose: bool = False,
-              defines: Tuple[str, ...] = ()):
+def build_all(names: Iterable[str] = KERNEL_SOURCES, verbose: bool = False):
     """Compile every missing kernel library, one ``nvcc`` per source, all
-    started together.  Returns {name: compiler output}.  ``defines`` are
-    preprocessor symbols of a variant build (a library of its own)."""
+    started together.  Returns {name: compiler output}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _target(name, defines)
+        out = _target(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
         procs[name] = (subprocess.Popen(
-            _command(name, tmp, verbose, defines), stdout=subprocess.PIPE,
+            _command(name, tmp, verbose), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
     logs = {}
     failed = []
@@ -87,17 +85,16 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES, verbose: bool = False,
     return logs
 
 
-def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use);
-    ``defines`` selects a variant build."""
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
     with _lock:
-        lib = _libs.get((name, defines))
+        lib = _libs.get(name)
         if lib is None:
-            out = _target(name, defines)
+            out = _target(name)
             if not out.exists():
-                build_all([name], defines=defines)
+                build_all([name])
             lib = ctypes.CDLL(str(out))
-            _libs[(name, defines)] = lib
+            _libs[name] = lib
         return lib
 
 

@@ -1,6 +1,6 @@
-"""One whole PGBART step for LARGE n: CUDA kernel wrapper, plain version, the
-gate that admits a configuration and the row count from which the sampler
-takes this route.
+"""One whole PGBART step for LARGE n: CUDA kernel wrapper, plain version and
+the gate that admits a configuration (``sampler.pgbart.resolve_route`` says
+when the sampler takes this route).
 
 Counterpart of ``pymc_bart_tpu/ops/bign_pallas.py`` (``pgbart_step_bign``,
 ``bign_supported_reason``); the kernel is ``csrc/bign.cu``.  The step computes
@@ -54,13 +54,7 @@ from ..config import BartConfig, PgbartConfig
 from . import _build
 from .draw import LIK_CODES
 from .smc import smc_resample_plain
-
-# ``pgbart_step(route=None)`` takes this route from this many rows on (where
-# the gate admits the configuration): the smallest n of the crossover table
-# of ``chip_smoke.py`` (phase ``timing``; PERF.md keeps it) at which this
-# route's kernel is the faster one for both regimes (the table's numbers, with
-# their card, are in PERF.md).
-BIGN_MIN_ROWS = 16384
+from .sums import seq_cumsum, sum64 as _sum64, true_div
 
 _ROWLL_LIKS = ("bernoulli", "het_abs", "het_exp", "cat_logit")
 _MAX_DEPTH = 8            # node accumulators of a block (mirrors csrc/bign.cu)
@@ -148,11 +142,6 @@ def memory_bytes(cfg: BartConfig, pg: PgbartConfig, n: int, p: int,
 # ---------------------------------------------------------------------------
 
 
-def _sum64(x, dim=1):
-    """Sum in float64, rounded to float32 once."""
-    return x.to(torch.float64).sum(dim=dim).to(torch.float32)
-
-
 def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
                            pg: PgbartConfig, w_chain, tuning: bool, *,
                            lik: str = "gauss", lik_const: float = 0.0,
@@ -203,7 +192,7 @@ def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
         resid = y[None, :] - noi                                 # (C, n)
         root_r = _sum64(resid)
         root_q = _sum64(resid * resid)
-        root_mu = root_r / float(n) / mf
+        root_mu = true_div(true_div(root_r, n), mf)
         cdf = alpha_cdf_of(state.alpha_vec)[chain_of]            # (CP, p)
         total = cdf[:, -1:]
         lsd = state.leaf_sd[:, 0]
@@ -292,7 +281,7 @@ def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
                 return torch.stack([a_l, a_r], dim=2).reshape(CP, 2 * G)
 
             c_ch, r_ch, q_ch = pair(cl, cr), pair(rl, rr), pair(ql, qr)
-            mu_ch = (r_ch / c_ch.clamp_min(1.0) / mf
+            mu_ch = (true_div(r_ch / c_ch.clamp_min(1.0), mf)
                      + eps[:, 2 * lo:2 * lo + 2 * G] * lsd[chain_of][:, None])
             grow_rep, act_rep = pair(grow_ok, grow_ok), pair(act_fin, act_fin)
             ch = slice(hi, hi + 2 * G)
@@ -329,8 +318,7 @@ def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
 
         # winner by inverse CDF over exp(log_w - max)
         lw = log_w.reshape(C, P)
-        cdf_w = torch.cumsum(torch.exp(lw - lw.max(dim=1, keepdim=True).values),
-                             dim=1)
+        cdf_w = seq_cumsum(torch.exp(lw - lw.max(dim=1, keepdim=True).values))
         u = rands.usel[b] * cdf_w[:, -1]
         wq = (base[:, 0] + (cdf_w < u[:, None]).sum(dim=1).clamp(0, P - 1))
         sv_w, sl_w, lf_w, ct_w, rs_w, rq_w, lm_w = (
@@ -340,7 +328,7 @@ def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
         else:
             # R Metropolis sweeps on the leaf values, on the node statistics
             mask = (sv_w < 0) & (ct_w > 0)
-            center = rs_w / ct_w.clamp_min(1.0) / mf
+            center = true_div(rs_w / ct_w.clamp_min(1.0), mf)
             hiv = 0.5 / (lsd * lsd)
             zero = torch.zeros_like(lf_w)
 
@@ -381,8 +369,8 @@ def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
             wf_mean = wf_mean + delta / wc
             wf_m2 = wf_m2 + delta * (pred_w - wf_mean)
             state.wf_mean, state.wf_m2 = wf_mean[:, :, None], wf_m2[:, :, None]
-            sd = _sum64(torch.sqrt((wf_m2 / wc.clamp_min(1.0))
-                                   .clamp_min(1e-12))) / float(n)
+            sd = true_div(_sum64(torch.sqrt(
+                (wf_m2 / wc.clamp_min(1.0)).clamp_min(1e-12))), n)
             state.leaf_sd = torch.where(
                 (state.iteration > m)[:, None], sd.clamp_min(1e-6)[:, None],
                 state.leaf_sd)

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
@@ -115,6 +116,7 @@ def smem_bytes(plan: DrawPlan, D: int, P: int, S: int, n: int, p: int,
     return _round(off, 16)
 
 
+@functools.lru_cache(maxsize=256)
 def launch_plan(C: int, P: int, D: int, S: int, n: int, p: int,
                 R: int = 5) -> Union[DrawPlan, str]:
     """The form and launch geometry of the whole-step kernel for these shapes
@@ -124,8 +126,8 @@ def launch_plan(C: int, P: int, D: int, S: int, n: int, p: int,
     The cluster is the smallest that holds the chain's particles at
     ``ceil(P / 16)`` to a block; a particle's team gets as many warps as 512
     threads a block allow.  The shared form is taken where its state fits a
-    block's shared memory (X is left in global memory and teams shrink before
-    the form gives way), else the global form; a form is never chosen because
+    block's shared memory (X is left in global memory before the form gives
+    way), else the global form; a form is never chosen because
     the other failed to run.  ``C`` does not bound the kernel: chains are
     independent clusters."""
     if D < 1 or D > _MAX_DEPTH:
@@ -144,13 +146,13 @@ def launch_plan(C: int, P: int, D: int, S: int, n: int, p: int,
             continue
         for x_staged in ((True, False) if shared
                          and 4 * n * p <= _X_STAGE_BYTES else (False,)):
-            for warps in range(_MAX_WARPS // per_block, 0, -1):
-                plan = DrawPlan("shared" if shared else "global", cluster,
-                                per_block, warps, x_staged, cdf_staged)
-                smem = smem_bytes(plan, D, P, S, n, p, R)
-                if smem <= _MAX_SMEM:
-                    return dataclasses.replace(plan, smem=smem)
-                smallest = smem
+            plan = DrawPlan("shared" if shared else "global", cluster,
+                            per_block, _MAX_WARPS // per_block, x_staged,
+                            cdf_staged)
+            smem = smem_bytes(plan, D, P, S, n, p, R)
+            if smem <= _MAX_SMEM:
+                return dataclasses.replace(plan, smem=smem)
+            smallest = smem
     return (f"a block needs {smallest} bytes of shared memory (depth {D}, "
             f"{P} particles); the card offers {_MAX_SMEM}")
 
@@ -267,33 +269,8 @@ class _DrawArgs(ctypes.Structure):
                    ("p_grow", _F * _MAX_DEPTH)])
 
 
-# preprocessor symbols of the library the wrapper loads: ("DRAW_PHASE_CLOCKS",)
-# selects the build with phase clocks (``phase_clocks``), for measurements
-BUILD_DEFINES = ()
-
-CLOCK_PHASES = (
-    "prepare tree", "particle set-up", "ancestor copy + node decisions",
-    "gumbel arg-max + split value", "child sums", "commit level",
-    "routing + log-likelihood", "cluster barrier", "smc bookkeeping",
-    "leaf sums + current ll", "refinement sweeps", "commit tree", "finish",
-    "ancestor copy alone", "16 cluster barriers", "16 block barriers")
-
-
-def phase_clocks(reset_for_rank: Optional[int] = None):
-    """Cycles per phase (``CLOCK_PHASES``) that thread 0 of one block of
-    chain 0's cluster spent, summed over the launches since the last reset;
-    all zero unless ``BUILD_DEFINES`` selects the build with clocks.
-    ``reset_for_rank``: set the counts to 0 and let the block of that rank
-    (clamped to the cluster) stamp from now on."""
-    out = (ctypes.c_longlong * 16)()
-    reset = 0 if reset_for_rank is None else 1 + int(reset_for_rank)
-    _build.check_launch(_lib().pgbart_step_clocks(out, reset),
-                        "pgbart_step_fused (phase clocks)")
-    return dict(zip(CLOCK_PHASES, out))
-
-
 def _lib():
-    lib = _build.load("draw", BUILD_DEFINES)
+    lib = _build.load("draw")
     fn = lib.pgbart_step_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(_DrawArgs), _P]
@@ -302,8 +279,6 @@ def _lib():
         lib.pgbart_step_max_clusters.restype = _I
         lib.pgbart_step_smem_bytes.argtypes = [ctypes.POINTER(_DrawArgs)]
         lib.pgbart_step_smem_bytes.restype = ctypes.c_longlong
-        lib.pgbart_step_clocks.argtypes = [_P, _I]
-        lib.pgbart_step_clocks.restype = _I
         lib.pgbart_step_args_size.restype = _I
         if lib.pgbart_step_args_size() != ctypes.sizeof(_DrawArgs):
             raise RuntimeError(

@@ -37,6 +37,7 @@ import torch
 
 from ..config import BartConfig
 from . import _build
+from .sums import fixed_scale, keyed_sum_fixed, sum64, true_div
 from .trees import float_to_int32, hash_bit
 
 _RESPONSE_CODE = {"constant": 0, "linear": 1, "mix": 2}
@@ -133,13 +134,15 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     child = 2 * li + 1 + (~left).to(torch.int64)
     tentative = torch.where(row_active, child, li)
 
-    # child sufficient statistics through a (2G, n) one-hot (deterministic
-    # on every device, unlike a scatter-add with float atomics)
+    # child sufficient statistics: counts through a (2G, n) one-hot, the
+    # residual sums in fixed point (no order of addition: the same bits on
+    # every device and in the whole-step kernel)
     cslots = hi + torch.arange(2 * G, device=dev)
     oh = (cslots[None, None, :, None] == tentative[:, :, None, :]).to(
         torch.float32)                                           # (C,P,2G,n)
     ccounts = oh.sum(-1)                                         # (C, P, 2G)
-    csums = torch.einsum("ckn,cpgn->cpkg", resid, oh)            # (C,P,k,2G)
+    csums = keyed_sum_fixed(resid, tentative - hi, 2 * G,
+                            *fixed_scale(resid))                 # (C,P,k,2G)
     cl = ccounts[..., 0::2]
     cr = ccounts[..., 1::2]
     grow_ok = want & (cl > 0) & (cr > 0)
@@ -160,7 +163,7 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
         parent_ok, ccounts, ct[:, :, hi:hi + 2 * G])
 
     c_safe = ccounts.clamp_min(1.0)[:, :, None, :]
-    mu_base = csums / c_safe / m
+    mu_base = true_div(csums / c_safe, m)
     pk = parent_ok[:, :, None, :]
     if lin:
         s_x = torch.einsum("cpn,cpgn->cpg", xv, oh)[:, :, None, :]
@@ -196,7 +199,7 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     pred = torch.where(moved[:, :, None, :], mu_row, pred_prev)
 
     diff = resid[:, None] - pred
-    ll = -0.5 * (ll_weight[:, None] * diff * diff).sum(dim=(2, 3))
+    ll = -0.5 * sum64((ll_weight[:, None] * diff * diff).flatten(2))
     return (sv_new, sl_new, st_new, lf_new, ct_new, sp_new,
             li_new.to(torch.int32), pred, ll)
 

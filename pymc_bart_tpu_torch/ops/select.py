@@ -25,6 +25,8 @@ from typing import Optional
 import torch
 
 from . import _build
+from .sums import (fixed_scale, keyed_sum_fixed, seq_cumsum, sum64,
+                   true_div)
 
 
 def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
@@ -41,7 +43,7 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     R = num_refinements
 
     mx = log_w.max(dim=1, keepdim=True).values
-    cdf = torch.cumsum(torch.exp(log_w - mx), dim=1)
+    cdf = seq_cumsum(torch.exp(log_w - mx))
     u = u_sel * cdf[:, -1]
     widx = (cdf < u[:, None]).sum(dim=1).clamp(0, P - 1)         # (C,)
 
@@ -58,21 +60,22 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     r = resid[:, 0]
     llw = ll_weight[:, 0]
     leaf_mask = ((sv_w < 0) & (ct_w > 0)).to(torch.float32)
-    soh = (torch.arange(S, device=sv.device)[None, :, None]
-           == li64[:, None, :]).to(torch.float32)                # (C, S, n)
-    leaf_rsum = torch.einsum("cn,csn->cs", r, soh)
-    center = leaf_rsum / ct_w.clamp_min(1.0) / float(m)
+    # per-leaf residual sums in fixed point, the other sums in float64
+    # rounded once: what the whole-step kernel computes (ops/sums.py)
+    leaf_rsum = keyed_sum_fixed(resid, li64[:, None, :], S,
+                                *fixed_scale(resid))[:, 0, 0]    # (C, S)
+    center = true_div(leaf_rsum / ct_w.clamp_min(1.0), m)
     hiv = half_inv_var
 
     def ll_of(pred_x):
         if ll_fn is not None:
             return ll_fn(pred_x)
         diff = r - pred_x
-        return -0.5 * (llw * diff * diff).sum(dim=1)
+        return -0.5 * sum64(llw * diff * diff)
 
     def lp_of(lf_x):
         dev = lf_x - center
-        return -hiv * (leaf_mask * dev * dev).sum(dim=1)
+        return -hiv * sum64(leaf_mask * dev * dev)
 
     ll_c = ll_of(pred_w) + lp_of(lf_w)
     for i in range(R):

@@ -9,9 +9,10 @@ per-chain model expressions are batched with ``torch.func.vmap``.
 Ported: the fused likelihood patterns ``y ~ Normal(BART, sigma)`` (code
 ``gauss``) and ``y ~ Bernoulli(sigmoid(BART))`` (code ``bernoulli``) with
 constant response and one output, on the large-n route of
-``pgbart.pgbart_step`` from ``ops.bign.BIGN_MIN_ROWS`` rows on, on the
-whole-step route where its gate admits the configuration and on the
-per-round route otherwise (``sample(pgbart_route=...)`` forces one); chunked
+``pgbart.pgbart_step`` where a chain's rows do not fit the whole-step
+kernel's shared memory (``pgbart.resolve_route``), on the whole-step route
+where its gate admits the configuration and on the per-round route
+otherwise (``sample(pgbart_route=...)`` forces one); chunked
 tune/draw loops, adaptation harmonisation, timings, stored posterior forests
 and convergence checks.  Arguments and models that wait for later work raise
 ``NotImplementedError`` by name.
@@ -424,9 +425,10 @@ def sample(
     device synchronisation).  ``harmonize_adaptation`` averages the adapted
     ``leaf_sd`` / ``alpha_vec`` across chains at the tune/draw boundary.
     ``pgbart_route``: ``None`` lets every PGBART step take the large-n route
-    from ``ops.bign.BIGN_MIN_ROWS`` rows on and the whole-step function below
-    that, where their gates admit the configuration (a warning says why a
-    forest takes the per-round route); ``"bign"`` / ``"fused"`` / ``"rounds"``
+    where a chain's rows do not fit the whole-step kernel's shared memory and
+    the whole-step function where they do (``pgbart.resolve_route``), where
+    their gates admit the configuration (a warning says why a forest takes
+    the per-round route); ``"bign"`` / ``"fused"`` / ``"rounds"``
     force one route.  On a CUDA device the large-n route generates its row
     Gumbels inside the kernel and the step draws no block that grows with n.
 

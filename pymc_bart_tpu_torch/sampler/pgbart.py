@@ -7,11 +7,12 @@ response and one output.  ``pgbart_step`` is the counterpart of
 
 * ``"bign"``: the whole step in the large-n formulation (``ops/bign.py``:
   rows spread over the card, node-space sufficient statistics for the
-  Gaussian code, row Gumbels generated inside the kernel), taken from
-  ``ops.bign.BIGN_MIN_ROWS`` rows on where its gate admits the configuration;
+  Gaussian code, row Gumbels generated inside the kernel), taken where its
+  gate admits the configuration and a chain's rows do not fit the shared
+  memory of the whole-step kernel's cluster (``fused_rows_on_chip``);
 * ``"fused"``: the whole step in one launch (``ops/draw.py``: a thread-block
   cluster per chain, row Gumbels generated inside the kernel too), taken
-  wherever its gate admits the configuration;
+  wherever else its gate admits the configuration;
 * ``"rounds"``: per tree ``D`` growth rounds (``ops/grow.py``), ``D-1`` SMC
   resampling steps (``ops/smc.py``) and one winner selection with Metropolis
   leaf refinement (``ops/select.py``), then the forest and sum-of-trees
@@ -45,6 +46,7 @@ from ..ops.grow import grow_round
 from ..ops.predict import tree_predict
 from ..ops.select import select_refine, select_refine_plain
 from ..ops.smc import smc_resample
+from ..ops.sums import sum64, true_div
 from ..ops.trees import Forest, init_forest
 
 
@@ -235,7 +237,7 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
         return torch.cat([old[:, None], fresh[:, None].expand(
             (C, P - 1) + fresh.shape[1:])], dim=1).contiguous()
 
-    root_mu = resid.sum(dim=1) / float(n) / cfg.m                 # (C, k)
+    root_mu = true_div(true_div(sum64(resid, dim=1), n), cfg.m)   # (C, k)
     sv = broadcast0(tree.split_var, torch.full((C, S), -1, dtype=i32,
                                                device=dev))
     sl = broadcast0(tree.split_val, torch.zeros((C, S), dtype=f32,
@@ -278,11 +280,11 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
             r_, w_ = (residT[:, None], llwT[:, None]) if lead else (residT,
                                                                     llwT)
             diff = r_ - pred_all
-            return -0.5 * (w_ * diff * diff).sum(dim=(-2, -1))
+            return -0.5 * sum64((w_ * diff * diff).flatten(-2))
         noi_ = noiT[:, None] if lead else noiT
         row_ = None if rowT is None else (rowT[:, None] if lead else rowT)
-        return closed_form_ll(lik, lik_const, noi_ + pred_all, yT,
-                              row_).sum(dim=(-2, -1))
+        return sum64(closed_form_ll(lik, lik_const, noi_ + pred_all, yT,
+                                    row_).flatten(-2))
 
     # all rows sit at the root: prediction = root leaf value
     pred = lf[:, :, :, 0:1].expand(C, P, k, n).contiguous()
@@ -342,15 +344,28 @@ def split_var_counts(forest: Forest, p: int) -> torch.Tensor:
 ROUTES = ("bign", "fused", "rounds")
 
 
+def fused_rows_on_chip(cfg: BartConfig, pg: PgbartConfig, X,
+                       chains: int) -> bool:
+    """Whether the whole-step kernel would keep a chain's rows in its
+    cluster's shared memory (``ops.draw.launch_plan``: the ``"shared"`` form).
+    There it is the faster of the two whole-step kernels; where the rows stay
+    in global memory the large-n kernel is (the crossover table of
+    ``chip_smoke.py``, phase ``timing``, holds the rule to the card)."""
+    n, p = X.shape
+    plan = _draw.launch_plan(chains, pg.num_particles, cfg.max_depth,
+                             cfg.n_nodes, n, p, max(pg.num_refinements, 1))
+    return not isinstance(plan, str) and plan.form == "shared"
+
+
 def resolve_route(route: Optional[str], cfg: BartConfig, pg: PgbartConfig, X,
                   gauss_w, lik: str, *, chains: int, w_scalar: bool,
                   all_cont: bool, x_nan: bool):
     """``(route taken, {route: why not})`` for one PGBART step.
 
-    ``route=None``: ``"bign"`` when its gate admits the configuration and
-    ``X`` has at least ``ops.bign.BIGN_MIN_ROWS`` rows, else ``"fused"`` where
-    its gate admits it, else ``"rounds"``.  A named route is taken or raises
-    with its gate's reason."""
+    ``route=None``: ``"bign"`` when its gate admits the configuration and the
+    whole-step kernel would not keep the rows on chip (``fused_rows_on_chip``),
+    else ``"fused"`` where its gate admits it, else ``"rounds"``.  A named
+    route is taken or raises with its gate's reason."""
     if route not in (None,) + ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     why = {}
@@ -358,9 +373,10 @@ def resolve_route(route: Optional[str], cfg: BartConfig, pg: PgbartConfig, X,
         why["bign"] = _bign.bign_unsupported_reason(
             cfg, pg, X, lik, w_scalar, all_cont, x_nan, chains=chains)
         if route is None and why["bign"] is None \
-                and X.shape[0] < _bign.BIGN_MIN_ROWS:
-            why["bign"] = (f"n={X.shape[0]} is below BIGN_MIN_ROWS="
-                           f"{_bign.BIGN_MIN_ROWS}")
+                and fused_rows_on_chip(cfg, pg, X, chains):
+            why["bign"] = (f"n={X.shape[0]} rows fit the shared memory of the "
+                           "whole-step kernel's cluster, where that kernel "
+                           "is the faster one")
         if why["bign"] is None:
             return "bign", why
         if route == "bign":
@@ -408,7 +424,7 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
         raise NotImplementedError("ancestor_sampling is not ported yet")
     C = state.sum_trees.shape[0]
     bign_possible = route == "bign" or (
-        route is None and X.shape[0] >= _bign.BIGN_MIN_ROWS)
+        route is None and not fused_rows_on_chip(cfg, pg, X, C))
     if bign_possible:       # the two reads synchronise: only where needed
         if all_cont is None:
             all_cont = bool((rules == 0).all())
@@ -501,8 +517,8 @@ def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
             delta = pred - state.wf_mean
             state.wf_mean = state.wf_mean + delta / wc
             state.wf_m2 = state.wf_m2 + delta * (pred - state.wf_mean)
-            sd = torch.sqrt((state.wf_m2 / wc.clamp_min(1.0))
-                            .clamp_min(1e-12)).sum(dim=1) / float(n)
+            sd = true_div(sum64(torch.sqrt(
+                (state.wf_m2 / wc.clamp_min(1.0)).clamp_min(1e-12)), dim=1), n)
             state.leaf_sd = torch.where(
                 (state.iteration > m)[:, None], sd.clamp_min(1e-6),
                 state.leaf_sd)

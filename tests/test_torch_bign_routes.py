@@ -12,7 +12,8 @@ route stores a salt per grown node, the large-n route (all-continuous rules)
 leaves the field alone, as the JAX package's two kernels do.
 
 Also here: the gate case by case, the ``route=None`` dispatch on both sides of
-``BIGN_MIN_ROWS``, and the optional Gumbel block of ``StepRands``.
+the row count at which the whole-step kernel's rows leave shared memory, and
+the optional Gumbel block of ``StepRands``.
 """
 
 import numpy as np
@@ -187,13 +188,17 @@ def test_route_none_on_both_sides_of_the_row_threshold(monkeypatch):
                         lambda *a, **kw: seen.append("bign") or real_bign(*a, **kw))
     monkeypatch.setattr(draw, "pgbart_step_fused",
                         lambda *a, **kw: seen.append("fused") or real_fused(*a, **kw))
-    assert bign.BIGN_MIN_ROWS > 1000       # the n = 1000 models stay fused
+    # the n = 1000 models stay fused, the n = 50,000 models do not
+    assert pgbart.fused_rows_on_chip(
+        BartConfig(m=50), PgbartConfig(num_particles=20),
+        torch.zeros((1000, 10)), 4)
+    assert not pgbart.fused_rows_on_chip(*_gate_args(), 4)
     r = rands()
     pgbart.pgbart_step(state.clone(), r, *args, True, row, w_scalar=True)
-    assert seen == ["fused"]               # n = 40 is below the threshold
-    monkeypatch.setattr(bign, "BIGN_MIN_ROWS", 40)
+    assert seen == ["fused"]               # 40 rows fit shared memory
+    monkeypatch.setattr(pgbart, "fused_rows_on_chip", lambda *a: False)
     pgbart.pgbart_step(state.clone(), r, *args, True, row, w_scalar=True)
-    assert seen == ["fused", "bign"]       # at the threshold: the large-n route
+    assert seen == ["fused", "bign"]       # rows off chip: the large-n route
     pgbart.pgbart_step(state.clone(), r, *args, True, row, w_scalar=False)
     assert seen == ["fused", "bign", "fused"]   # the gate refuses: per-row sigma
     pgbart.pgbart_step(state.clone(), r, *args, True, row, w_scalar=True,
@@ -203,11 +208,11 @@ def test_route_none_on_both_sides_of_the_row_threshold(monkeypatch):
         None, args[3], args[4], args[0], row, "gauss", chains=2,
         w_scalar=True, all_cont=True, x_nan=False)
     assert taken == "bign" and why == {"bign": None}
-    monkeypatch.setattr(bign, "BIGN_MIN_ROWS", 41)
+    monkeypatch.setattr(pgbart, "fused_rows_on_chip", lambda *a: True)
     taken, why = pgbart.resolve_route(
         None, args[3], args[4], args[0], row, "gauss", chains=2,
         w_scalar=True, all_cont=True, x_nan=False)
-    assert taken == "fused" and "BIGN_MIN_ROWS" in why["bign"]
+    assert taken == "fused" and "shared memory" in why["bign"]
     with pytest.raises(ValueError, match="scalar"):
         pgbart.pgbart_step(state.clone(), r, *args, True, row, route="bign")
     with pytest.raises(ValueError, match="route"):

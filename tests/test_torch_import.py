@@ -17,6 +17,7 @@ MODULES = [
     "pymc_bart_tpu_torch.ops.grow", "pymc_bart_tpu_torch.ops.smc",
     "pymc_bart_tpu_torch.ops.select", "pymc_bart_tpu_torch.ops.draw",
     "pymc_bart_tpu_torch.ops.bign", "pymc_bart_tpu_torch.ops._build",
+    "pymc_bart_tpu_torch.ops.sums",
     "pymc_bart_tpu_torch.sampler.pgbart", "pymc_bart_tpu_torch.sampler.hmc",
     "pymc_bart_tpu_torch.sampler.nuts", "pymc_bart_tpu_torch.sampler.compound",
     "pymc_bart_tpu_torch.models.expr",
