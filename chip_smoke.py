@@ -22,10 +22,11 @@ line:
    cat_logit, at p=1000 (n=200), on a small mixed case (NaNs, one-hot and
    subset columns), with a hundredth of the precision (the ESS gate falls
    both ways), with 19 particles (an idle slot in the cluster), at p=5000
-   (the split-weight CDF stays in global memory) and at n=16,384 (the form
-   that keeps the per-particle state in global memory; the phase prints the
-   plan of every case and fails if a case runs with another than it names),
-   each from three seeds.  Then its generated-Gumbel mode in both forms:
+   (the split-weight CDF stays in global memory), at n=16,384 and at depth
+   11 (the form that keeps the per-particle state in global memory, because
+   the rows or the node arrays do not fit; the phase prints the plan of
+   every case and fails if a case runs with another than it names), each
+   from three seeds.  Then its generated-Gumbel mode in both forms:
    equal to the plain version on the written-out block, and the same bits
    from two runs.  Integer outputs must be equal; floats within rtol 1e-4
    / atol 1e-5 (split values rtol 1e-5 / atol 1e-6; sums of trees rtol 1e-4
@@ -372,7 +373,7 @@ def compare_state(tag, got, want):
 
 FUSED_CASES = ("gauss_tune", "gauss_draw", "bernoulli", "het_abs", "het_exp",
                "cat_logit", "gauss_p1000", "gauss_p5000", "gauss_mixed",
-               "gauss_flat", "gauss_p19", "gauss_global")
+               "gauss_flat", "gauss_p19", "gauss_global", "gauss_deep")
 # every case runs from each of these seeds of the random blocks
 FUSED_SEEDS = (17, 101, 102)
 # what a case's launch plan (ops.draw.launch_plan) must say, so that every
@@ -381,6 +382,7 @@ FUSED_SEEDS = (17, 101, 102)
 # the split-weight CDF staged in shared memory or read from global memory
 FUSED_PLANS = {
     "gauss_global": dict(form="global", x_staged=False),
+    "gauss_deep": dict(form="global", x_staged=False),
     "gauss_p1000": dict(x_staged=False, cdf_staged=True),
     "gauss_p5000": dict(x_staged=False, cdf_staged=False),
 }
@@ -396,8 +398,10 @@ def fused_case(dev, name, seed=0):
     close, so the ESS gate falls both ways and the winner is not always the
     heaviest particle), ``gauss_p19`` (19 particles: one slot of the cluster
     stays idle), ``gauss_global`` (n=16,384 rows: the form that keeps the
-    per-particle state in global memory) and ``gauss_p5000`` (5000 columns:
-    the split-weight CDF is read from global memory)."""
+    per-particle state in global memory), ``gauss_p5000`` (5000 columns:
+    the split-weight CDF is read from global memory) and ``gauss_deep``
+    (depth 11 with a flat depth prior: the node arrays of 20 particles do not
+    fit shared memory, so the global form at n=1000)."""
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
 
     rng = np.random.default_rng(100 + seed)
@@ -434,6 +438,10 @@ def fused_case(dev, name, seed=0):
             cfg = BartConfig(m=LN["M"], max_depth=DEPTH)
             pg = PgbartConfig(num_particles=LN["P"], num_refinements=R)
             X, Y, _ = friedman(16384, PCOLS, seed=5)
+            chain_shift = chain_shift[:chains]
+        elif name == "gauss_deep":
+            chains = 2
+            cfg = BartConfig(m=10, max_depth=11, beta=0.5)
             chain_shift = chain_shift[:chains]
         row = np.broadcast_to(
             (0.01 if name == "gauss_flat" else 1.0) * (1.0 + 0.2 * chain_shift),

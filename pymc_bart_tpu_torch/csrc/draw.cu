@@ -40,9 +40,12 @@
 //     y, the row data, the residual base of the tree, the tree's random
 //     blocks, the split-weight CDF and, where it fits, X are staged in every
 //     block, so that no phase of a level waits for device memory.  Where a
-//     chain's rows do not fit (large n) the same kernel keeps the node arrays
-//     and li in global memory (form "global"); ops/draw.py chooses the form
-//     from the shapes alone.
+//     chain's rows or node arrays do not fit (large n, deep trees) the same
+//     kernel keeps the node arrays and li in global memory (form "global"),
+//     reads the tree's random blocks where they are, and takes the child
+//     sums and the blocks' leaf sums in global scratch, so that a block's
+//     shared memory holds one level's decisions and the winner only;
+//     ops/draw.py chooses the form from the shapes alone.
 //   * A row pass costs what the data needs: rows are touched only in nodes
 //     that grow (the Gumbel arg-max, generated Gumbels included), only in
 //     active nodes (child counts and residual sums) or final ones (routing),
@@ -117,9 +120,12 @@ struct DrawArgs {
   const int* sb; const float* ures; const float* usel; const float* epsr;
   const float* uacc;
   const unsigned int* seed;  // two words, read when rg is null
-  // scratch; the per-particle arrays only in the global form
+  // scratch; the per-particle arrays and the per-node sums only in the
+  // global form
   int* ps_sv; float* ps_sl; int* ps_st; float* ps_lf; float* ps_ct;
   int* ps_li; float* noi;
+  long long* g_acc; int* g_cnt;  // child sums and counts (2 Gm a particle)
+  long long* g_leaf;             // a block's leaf sums (S a block)
   float* cdf; int* vi_cnt;
   // output
   float* vi;
@@ -145,18 +151,22 @@ struct Smem {
   unsigned long long* best;
   int *varx, *vars, *setx, *flags;
   float *valx;
-  // per particle slot: the tree's random blocks (Gtot each, eps 2 Gtot)
+  // shared form, per particle slot: the tree's random blocks (Gtot each,
+  // eps 2 Gtot); the global form reads them where they are
   float *r_ug, *r_uv, *r_eps; int* r_sb;
   // fixed-point residual sums and counts per particle slot and child
-  // (PB x 2Gm), fixed-point residual sums per leaf of the winner (S)
+  // (PB x 2Gm; shared form, else in global scratch), fixed-point residual
+  // sums per leaf of the winner (S)
   long long* acc_ch; int* cnt_ch; long long* acc_lf;
   double* wpart;            // 4 W: two buffers of two warp partials
   int* any;                 // PB team flags: 1 a node wants to grow, 2 a node is final
   // the chain's particles (P each; ll holds two levels)
   float *lw, *llp, *ll, *ll0, *cdfp, *prob; int* take; int* widx;
-  // partial sums of the cluster's blocks, written by their owners
+  // partial sums of the cluster's blocks, written by their owners (the
+  // leaf sums of the global form meet in global scratch)
   double *x_prep, *x_ll; long long* x_leaf;
-  // the winner (S each), the tree's refinement noise (R x S), its uniforms
+  // the winner (S each), the tree's refinement noise (R x S; shared form),
+  // its uniforms
   float *lfw, *lfp, *mask, *ctr, *wct; int* wsv;
   float *r_epsr, *r_misc;
   float* cdf;               // p, when staged
@@ -191,12 +201,14 @@ __host__ __device__ inline size_t layout(Smem& s, unsigned char* base, const Pla
   s.setx = carve<int>(base, off, PB * Gm);
   s.flags = carve<int>(base, off, PB * Gm);
   s.valx = carve<float>(base, off, PB * Gm);
-  s.r_ug = carve<float>(base, off, PB * Gtot);
-  s.r_uv = carve<float>(base, off, PB * Gtot);
-  s.r_eps = carve<float>(base, off, PB * 2 * Gtot);
-  s.r_sb = carve<int>(base, off, PB * Gtot);
-  s.acc_ch = carve<long long>(base, off, PB * 2 * Gm);
-  s.cnt_ch = carve<int>(base, off, PB * 2 * Gm);
+  if (q.shared_form) {
+    s.r_ug = carve<float>(base, off, PB * Gtot);
+    s.r_uv = carve<float>(base, off, PB * Gtot);
+    s.r_eps = carve<float>(base, off, PB * 2 * Gtot);
+    s.r_sb = carve<int>(base, off, PB * Gtot);
+    s.acc_ch = carve<long long>(base, off, PB * 2 * Gm);
+    s.cnt_ch = carve<int>(base, off, PB * 2 * Gm);
+  }
   s.acc_lf = carve<long long>(base, off, S);
   s.wpart = carve<double>(base, off, 4 * W);
   s.any = carve<int>(base, off, PB);
@@ -210,14 +222,14 @@ __host__ __device__ inline size_t layout(Smem& s, unsigned char* base, const Pla
   s.widx = carve<int>(base, off, 4);
   s.x_prep = carve<double>(base, off, 3 * CS);
   s.x_ll = carve<double>(base, off, 2 * CS);
-  s.x_leaf = carve<long long>(base, off, (q.shared_form ? 1 : CS) * S);
+  if (q.shared_form) s.x_leaf = carve<long long>(base, off, S);
   s.lfw = carve<float>(base, off, S);
   s.lfp = carve<float>(base, off, S);
   s.mask = carve<float>(base, off, S);
   s.ctr = carve<float>(base, off, S);
   s.wct = carve<float>(base, off, S);
   s.wsv = carve<int>(base, off, S);
-  s.r_epsr = carve<float>(base, off, (size_t)q.R * S);
+  if (q.shared_form) s.r_epsr = carve<float>(base, off, (size_t)q.R * S);
   s.r_misc = carve<float>(base, off, (size_t)q.D + 1 + q.R);
   if (q.cdf_staged) s.cdf = carve<float>(base, off, q.p);
   if (q.x_staged) {
@@ -381,12 +393,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
   int* t_setx = s.setx + (size_t)slot * Gm;
   int* t_flags = s.flags + (size_t)slot * Gm;
   float* t_valx = s.valx + (size_t)slot * Gm;
-  float* t_ug = s.r_ug + (size_t)slot * Gtot;
-  float* t_uv = s.r_uv + (size_t)slot * Gtot;
-  int* t_sb = s.r_sb + (size_t)slot * Gtot;
-  float* t_eps = s.r_eps + (size_t)slot * 2 * Gtot;
-  long long* t_acc = s.acc_ch + (size_t)slot * 2 * Gm;
-  int* t_cnt = s.cnt_ch + (size_t)slot * 2 * Gm;
+  // (the tree's random blocks: staged per tree in the shared form, read
+  // where they are in the global form; the child sums likewise in shared
+  // memory or in global scratch)
+  const float *t_ug = nullptr, *t_uv = nullptr, *t_eps = nullptr;
+  const int* t_sb = nullptr;
+  const float* t_epsr = nullptr;
+  long long* t_acc = kSh ? s.acc_ch + (size_t)slot * 2 * Gm
+                         : a.g_acc + (size_t)(valid ? q : 0) * 2 * Gm;
+  int* t_cnt = kSh ? s.cnt_ch + (size_t)slot * 2 * Gm
+                   : a.g_cnt + (size_t)(valid ? q : 0) * 2 * Gm;
+  // a value that atomics of this block wrote to t_acc / t_cnt or that another
+  // block wrote to g_leaf: past the L1 cache when it lies in global memory
+  auto fresh = [](const auto* ptr) { return kSh ? *ptr : __ldcg(ptr); };
 
   // rows of the chain: y, the row data, the residual base of the tree
   const float* yv = kSh ? s.y : a.y;
@@ -514,8 +533,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
             : k == D ? a.usel[bc] : a.uacc[bc * R + (k - D - 1)];
       };
       const int RS = R * S, NM = D + 1 + R;
-      const float e0 = t < RS ? a.epsr[bc * RS + t] : 0.f;
-      const float e1 = t + T < RS ? a.epsr[bc * RS + t + T] : 0.f;
+      t_epsr = kSh ? s.r_epsr : a.epsr + bc * RS;
+      const float e0 = kSh && t < RS ? a.epsr[bc * RS + t] : 0.f;
+      const float e1 = kSh && t + T < RS ? a.epsr[bc * RS + t + T] : 0.f;
       const float m0 = t < NM ? misc(t) : 0.f;
       double acc = 0.0;
       float amax = 0.f;
@@ -526,9 +546,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
         amax = fmaxf(amax, fabsf(r));
         noiv[i] = ni;
       }
-      if (t < RS) s.r_epsr[t] = e0;
-      if (t + T < RS) s.r_epsr[t + T] = e1;
-      for (int k = t + 2 * T; k < RS; k += T) s.r_epsr[k] = a.epsr[bc * RS + k];
+      if (kSh) {
+        if (t < RS) s.r_epsr[t] = e0;
+        if (t + T < RS) s.r_epsr[t + T] = e1;
+        for (int k = t + 2 * T; k < RS; k += T) s.r_epsr[k] = a.epsr[bc * RS + k];
+      }
       if (t < NM) s.r_misc[t] = m0;
       for (int k = t + T; k < NM; k += T) s.r_misc[k] = misc(k);
       acc = warp_sum_d(acc);
@@ -578,11 +600,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
       // the tree's random blocks of this particle (first loads started
       // before the forest row's are waited for)
       const size_t rq = ((size_t)b * C + c) * P + pi;
+      float* w_ug = s.r_ug + (size_t)slot * Gtot;
+      float* w_uv = s.r_uv + (size_t)slot * Gtot;
+      int* w_sb = s.r_sb + (size_t)slot * Gtot;
+      float* w_eps = s.r_eps + (size_t)slot * 2 * Gtot;
       auto stage_rands = [&](int g, float ug, float uv, int sb, float ea, float eb) {
-        t_ug[g] = ug; t_uv[g] = uv; t_sb[g] = sb;
-        t_eps[2 * g] = ea; t_eps[2 * g + 1] = eb;
+        w_ug[g] = ug; w_uv[g] = uv; w_sb[g] = sb;
+        w_eps[2 * g] = ea; w_eps[2 * g + 1] = eb;
       };
-      const bool hg = tt < Gtot;
+      t_ug = kSh ? w_ug : a.ug + rq * Gtot;
+      t_uv = kSh ? w_uv : a.uv + rq * Gtot;
+      t_sb = kSh ? w_sb : a.sb + rq * Gtot;
+      t_eps = kSh ? w_eps : a.eps + 2 * rq * Gtot;
+      const bool hg = kSh && tt < Gtot;
       const size_t g0 = rq * Gtot + (hg ? tt : 0);
       const float ug0 = a.ug[g0], uv0 = a.uv[g0];
       const int sb0 = a.sb[g0];
@@ -600,7 +630,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
       }
       for (int i = tt; i < n; i += TT) o.li[i] = 0;
       if (hg) stage_rands(tt, ug0, uv0, sb0, ea0, eb0);
-      for (int g = tt + TT; g < Gtot; g += TT) {
+      for (int g = tt + TT; kSh && g < Gtot; g += TT) {
         const size_t gi = rq * Gtot + g;
         stage_rands(g, a.ug[gi], a.uv[gi], a.sb[gi], a.eps[2 * gi], a.eps[2 * gi + 1]);
       }
@@ -724,7 +754,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
         int any = 0;
         for (int g = tt; g < G; g += TT) {
           if (!(t_flags[g] & kWant)) continue;
-          const int cn[2] = {t_cnt[2 * g], t_cnt[2 * g + 1]};
+          const int cn[2] = {fresh(&t_cnt[2 * g]), fresh(&t_cnt[2 * g + 1])};
           if (cn[0] > 0 && cn[1] > 0) {
             const float val_raw = Xv[(size_t)key_row(t_best[g]) * p + t_varx[g]];
             t_flags[g] |= kFinal;
@@ -736,7 +766,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
             o.st[lo + g] = t_sb[lo + g];
             for (int k = 0; k < 2; ++k) {
               const float cnt = (float)cn[k];
-              const float sum = (float)((double)t_acc[2 * g + k] * fx_inv);
+              const float sum = (float)((double)fresh(&t_acc[2 * g + k]) * fx_inv);
               const float mu_base = sum / fmaxf(cnt, 1.f) / (float)m;
               o.lf[hi + 2 * g + k] = mu_base + t_eps[2 * lo + 2 * g + k] * lsd;
               o.ct[hi + 2 * g + k] = cnt;
@@ -835,7 +865,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
       if (lane == 0) s.wpart[warp] = acc;
       __syncthreads();
       for (int sn = t; sn < S; sn += T) {
-        if (kSplit) push(s.x_leaf, my * S + sn, s.acc_lf[sn]);
+        if (kSplit) a.g_leaf[((size_t)c * CS + rank) * S + sn] = s.acc_lf[sn];
         else s.x_leaf[sn] = s.acc_lf[sn];
       }
       if (t == 0) {
@@ -843,7 +873,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
         for (int k = 0; k < W; ++k) tot += s.wpart[k];
         if (kSplit) push(s.x_ll, my, tot); else s.x_ll[0] = tot;
       }
-      if (kSplit) cluster.sync(); else __syncthreads();
+      if (kSplit) {
+        __threadfence();  // the leaf sums in global scratch
+        cluster.sync();
+      } else {
+        __syncthreads();
+      }
     }
     const float h = 0.5f / (lsd * lsd);
     const float eps_scale = 0.3f * lsd;
@@ -852,7 +887,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
       double pr = 0.0, none = 0.0;
       for (int sn = t; sn < S; sn += T) {
         long long tot = 0;
-        for (int r = 0; r < TR; ++r) tot += s.x_leaf[(size_t)r * S + sn];
+        for (int r = 0; r < TR; ++r)
+          tot += kSplit ? fresh(&a.g_leaf[((size_t)c * CS + r) * S + sn])
+                        : s.x_leaf[sn];
         const float ctr = (float)((double)tot * fx_inv) / fmaxf(s.wct[sn], 1.f)
             / (float)m;
         s.ctr[sn] = ctr;
@@ -871,7 +908,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
       double* x = s.x_ll + ((r + 1) & 1) * CS;
       double pr = 0.0, acc = 0.0;
       for (int sn = t; sn < S; sn += T) {
-        const float lf = s.lfw[sn] + s.r_epsr[(size_t)r * S + sn] * eps_scale * s.mask[sn];
+        const float lf = s.lfw[sn] + t_epsr[(size_t)r * S + sn] * eps_scale * s.mask[sn];
         s.lfp[sn] = lf;
         const float dv = lf - s.ctr[sn];
         pr += (double)(s.mask[sn] * dv * dv);
@@ -982,7 +1019,9 @@ bool valid_args(const DrawArgs& a) {
       && a.p >= 1 && a.R >= 1 && a.S == (1 << (a.D + 1)) - 1 && a.CS >= 1
       && a.CS <= kMaxCluster && a.PB >= 1 && a.WP >= 1
       && a.PB * a.WP * 32 <= kMaxThreads && a.CS * a.PB >= a.P
-      && (a.rg || a.seed) && (a.shared_form ? a.S <= 65535 : a.ps_li != nullptr);
+      && (a.rg || a.seed)
+      && (a.shared_form ? a.S <= 65535
+                        : a.ps_li && a.g_acc && a.g_cnt && a.g_leaf);
 }
 
 // launch configuration of `a`; `attr` must outlive the use of `cfg`

@@ -38,7 +38,10 @@ particles spread over its blocks, a team of warps per particle (at most 512
 threads a block), and the per-particle state either in shared memory (form
 ``"shared"``: node arrays and a 16-bit row -> node array in two buffers, rows
 staged, X too where it is small) or, where that does not fit the 227 KB a
-block can use, in global memory (form ``"global"``).  The step's random
+block can use (many rows, or a deep tree's node arrays), in global memory
+(form ``"global"``: the tree's random blocks are then read where they are and
+the sums keyed by node are taken in global scratch, so depth 11 at 20
+particles still fits).  The step's random
 blocks and scratch must fit half of the card's memory.  A large covariate
 matrix stays in global memory, so neither ``n * p`` nor ``p`` is limited.
 """
@@ -96,13 +99,15 @@ def smem_bytes(plan: DrawPlan, D: int, P: int, S: int, n: int, p: int,
     Gm, Gtot, W = 2 ** (D - 1), 2**D - 1, PB * plan.warps
     shared = plan.form == "shared"
     items = [(8, PB * Gm)] + [(4, PB * Gm)] * 5
-    items += [(4, PB * Gtot), (4, PB * Gtot), (4, PB * 2 * Gtot),
-              (4, PB * Gtot)]
-    items += [(8, PB * 2 * Gm), (4, PB * 2 * Gm), (8, S), (8, 4 * W), (4, PB)]
+    if shared:      # the global form reads these where they are
+        items += [(4, PB * Gtot), (4, PB * Gtot), (4, PB * 2 * Gtot),
+                  (4, PB * Gtot), (8, PB * 2 * Gm), (4, PB * 2 * Gm)]
+    items += [(8, S), (8, 4 * W), (4, PB)]
     items += [(4, P), (4, P), (4, 2 * P), (4, P), (4, P), (4, P), (4, P),
               (4, 4)]
-    items += [(8, 3 * CS), (8, 2 * CS), (8, (1 if shared else CS) * S)]
-    items += [(4, S)] * 6 + [(4, R * S), (4, D + 1 + R)]
+    items += [(8, 3 * CS), (8, 2 * CS)] + ([(8, S)] if shared else [])
+    items += [(4, S)] * 6 + ([(4, R * S)] if shared else [])
+    items += [(4, D + 1 + R)]
     if plan.cdf_staged:
         items += [(4, p)]
     if plan.x_staged:
@@ -164,7 +169,8 @@ def step_bytes(C: int, B: int, P: int, D: int, S: int, n: int, p: int,
     rands = 4 * (B * C * P * 5 * Gtot + B * D * C + B * C + B * C * R * S
                  + B * C * R + (B * D * C * P * n if pre_drawn else 0))
     scratch = 4 * (2 * C * p + (0 if shared else
-                                2 * C * P * (5 * S + n) + C * n))
+                                2 * C * P * (5 * S + n) + C * n
+                                + 3 * C * P * 2**D + 2 * C * _MAX_CLUSTER * S))
     return rands + scratch
 
 
@@ -255,7 +261,8 @@ _POINTERS = (
     "alpha_vec", "leaf_sd", "wf_count", "wf_mean", "wf_m2", "batch_offset",
     "iteration", "X", "y", "rules", "lik_row", "ug", "uv", "rg", "eps", "sb",
     "ures", "usel", "epsr", "uacc", "seed", "ps_sv", "ps_sl", "ps_st",
-    "ps_lf", "ps_ct", "ps_li", "noi", "cdf", "vi_cnt", "vi")
+    "ps_lf", "ps_ct", "ps_li", "noi", "g_acc", "g_cnt", "g_leaf", "cdf",
+    "vi_cnt", "vi")
 _INTS = ("C", "P", "S", "n", "p", "m", "B", "D", "R", "lik", "tuning", "CS",
          "PB", "WP", "shared_form", "x_staged", "cdf_staged")
 
@@ -382,7 +389,11 @@ def pgbart_step_fused_kernel(state, rands, X, Y_target, rules,
     # scratch: one int32 and one float32 workspace, carved by offset
     CP = C * P
     per_particle = 0 if shared else 2 * CP * S
-    n_i = 2 * per_particle + (0 if shared else 2 * CP * n) + C * p
+    # (the global form's fixed-point sums: 64-bit words first, so aligned)
+    child_sums = 0 if shared else CP * 2**D
+    leaf_sums = 0 if shared else C * plan.cluster * S
+    n_i = (2 * child_sums + 2 * leaf_sums + child_sums + 2 * per_particle
+           + (0 if shared else 2 * CP * n) + C * p)
     n_f = 3 * per_particle + (0 if shared else C * n) + C * p
     ws_i, ws_f = _scratch_for(dev, n_i, n_f)
     vi = torch.empty((C, p), dtype=f32, device=dev)
@@ -407,7 +418,9 @@ def pgbart_step_fused_kernel(state, rands, X, Y_target, rules,
     a.seed = ptr(rands.seed) if rands.rg is None else None
     a.lik_row = ptr(lik_row) if lik_row is not None else None
     base, off = ptr(ws_i), 0
-    for name, size in (("ps_sv", per_particle), ("ps_st", per_particle),
+    for name, size in (("g_acc", 2 * child_sums), ("g_leaf", 2 * leaf_sums),
+                       ("g_cnt", child_sums),
+                       ("ps_sv", per_particle), ("ps_st", per_particle),
                        ("ps_li", 0 if shared else 2 * CP * n),
                        ("vi_cnt", C * p)):
         setattr(a, name, base + 4 * off if size else None)

@@ -260,6 +260,8 @@ def test_sample_on_the_fused_route_keeps_its_statistics():
     ((4, 10, 6, 127, 4000, 10), "shared", 10, 1, 16, False),   # X stays global
     ((2, 10, 6, 127, 16384, 10), "global", 10, 1, 16, False),  # rows do not fit
     ((4, 10, 6, 127, 200_000, 10), "global", 10, 1, 16, False),
+    ((4, 20, 10, 2047, 1000, 10), "global", 10, 2, 8, False),  # nodes do not fit
+    ((4, 20, 11, 4095, 1000, 10), "global", 10, 2, 8, False),
     ((4, 20, 6, 127, 200, 1000), "shared", 10, 2, 8, False),   # wide X
     ((2, 6, 4, 31, 200, 4), "shared", 6, 1, 16, True),
     ((4, 40, 6, 127, 1000, 10), "shared", 14, 3, 5, True),
