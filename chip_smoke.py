@@ -13,9 +13,12 @@ line:
 2. ``build``   compile the CUDA sources under ``pymc_bart_tpu_torch/csrc``
    (one nvcc per source, all started together) and load them.
 3. ``kernels`` each kernel against its plain PyTorch version on the card, on
-   the same inputs, at the main-path shapes (C=4, P=20, n=1000, p=10, S=127,
-   every level d for the growth round) and one small mixed growth case (NaNs,
-   one-hot and subset columns, linear response, k=2).  The whole-step kernel
+   the same inputs, at the main-path shapes (C=4, P=20, n=1000, p=10, S=127;
+   the growth round at every level of one tree update for the constant,
+   linear and mix responses from three seeds each, every float output's
+   error reported) and one small mixed growth case (NaNs, one-hot and subset
+   columns, linear response, k=2) with its rows in shared memory (n=200) and
+   in global memory (n=120,000).  The whole-step kernel
    ``pgbart_step_fused`` runs two consecutive steps from a grown state
    against its plain version, same random blocks: at the main shapes (m=50)
    for gauss with tuning on and off, bernoulli, het_abs, het_exp and
@@ -46,7 +49,9 @@ line:
 4. ``step``    one tuning and one draw step of ``pgbart_step`` for 4 chains on
    the fused route, on the per-round kernel route and on ``impl="plain"``,
    same random blocks; a non-Gaussian code must refuse the per-round route
-   on the card (its selection kernel is Gaussian).  Then one step at
+   on the card (its selection kernel is Gaussian); a linear forest's two
+   steps on the per-round route (which ``route=None`` must choose) against
+   ``impl="plain"``.  Then one step at
    n=50,000 three ways on the same blocks: the large-n kernel, its plain
    version (must agree as above) and the whole-step kernel (reported: it
    sums rows in float32 in another order, so at this n a decision may flip).
@@ -56,8 +61,12 @@ line:
    the stored forests, RMSE against the true f below 1.5), the logistic
    classifier ``y ~ Bernoulli(sigmoid(BART))`` on the fused route at four
    times the steps (finite draws, train accuracy above the majority-class
-   rate, mean log-likelihood above the constant-rate model's), and a shorter
-   Friedman run on the per-round route.  Then the two large-n models at
+   rate, mean log-likelihood above the constant-rate model's), a shorter
+   Friedman run on the per-round route, and the linear Friedman model of
+   ``bench.py`` (``config_friedman_linear``) with a short mix run, with
+   ``pgbart_route=None``: the per-round route's warning, 30 growth and 25
+   resampling launches a step and nothing else, RMSE below 1.5 (linear), and
+   the stored slopes, with the forests, predict the last draw.  Then the two large-n models at
    full width (4 chains, 10 particles, m=20, n=50,000, p=10, no
    refinements, route chosen by ``sample()`` itself): the Friedman regression
    (RMSE against the true f below half of std(f), the recount invariant) and
@@ -65,11 +74,13 @@ line:
    log-likelihood as above), on the large-n route with generated Gumbels.
    Kernel launch counts are set to 0 just before each run and read just
    after: a fused run launches the whole-step kernel once a step and none
-   of the others, a per-round run the three round kernels, a large-n run
+   of the others, a per-round run the three round kernels (a linear or mix
+   run the growth and resampling kernels only), a large-n run
    the large-n kernel once a step and none of the others.  No run may draw
    the (B, D, C, P, n) row-Gumbel block: every route works from a seed.
 6. ``timing``  CUDA-event times of each kernel and its plain version at the
-   main-path shapes: ``ms``/``plain_ms`` with the card's queue kept full
+   main-path shapes (the growth round for the constant and the linear
+   response): ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
    (the host's cost of a call included); the time of one whole step on both
    routes; the least time the card could take (bytes over 3.35 TB/s,
@@ -80,6 +91,8 @@ line:
    the whole-step kernel at n = 1000 ... 200,000 (C=4, P=10, m=20) and the
    same at P=20, m=50; the phase fails (after printing its line) if
    ``pgbart_step(route=None)`` takes the slower kernel at a measured shape.
+   ``linear_step``: one step of the linear model on the host clock and its
+   device time by ``torch.profiler``.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over a short
 ``sample()`` run on the fused route and on the large-n route: device busy
@@ -124,6 +137,13 @@ SOURCES = {
     "pgbart_step_bign": "pymc_bart_tpu_torch/csrc/bign.cu",
 }
 ROUND_KERNELS = ("grow_round", "smc_resample", "select_refine")
+# the growth round is held to its plain version at every level of a tree
+# update at the main shapes, for each response, from each seed
+GROW_RESPONSES = ("constant", "linear", "mix")
+GROW_SEEDS = (0, 1, 2)
+# rows of a growth round too many for shared memory: the kernel's form that
+# keeps them in global memory (ops/grow.py::smem_bytes)
+ROWS_GLOBAL = 120_000
 
 
 def emit(phase, **kw):
@@ -221,11 +241,23 @@ def check_close(name, got, want, rtol, atol):
 GROW_NAMES = ("sv", "sl", "st", "lf", "ct", "sp", "leaf_idx", "pred", "ll")
 
 
-def compare_grow(tag, got, want):
+def compare_grow(tag, got, want, errs=None):
+    """Integers equal, floats within tolerance; the max abs error of each
+    float output goes into ``errs`` (by name), and where one is not 0 the
+    first entry that differs is printed (to stderr)."""
     worst = 0.0
     for name, g, w in zip(GROW_NAMES, got, want):
         tol = (1e-5, 1e-6) if name == "sl" else (1e-4, 1e-5)
-        worst = max(worst, check_close(f"grow_round {tag} {name}", g, w, *tol))
+        e = check_close(f"grow_round {tag} {name}", g, w, *tol)
+        if e > 0:
+            diff = ~((g == w) | (torch.isnan(g) & torch.isnan(w)))
+            at = [int(v) for v in diff.nonzero()[0].tolist()]
+            print(f"grow_round {tag} {name}: max abs err {e}, first at "
+                  f"{at}: kernel {float(g[tuple(at)])} plain "
+                  f"{float(w[tuple(at)])}", file=sys.stderr, flush=True)
+        if errs is not None and g.dtype.is_floating_point:
+            errs[name] = max(errs.get(name, 0.0), e)
+        worst = max(worst, e)
     return worst
 
 
@@ -234,33 +266,34 @@ def compare_grow(tag, got, want):
 # ---------------------------------------------------------------------------
 
 
-def main_path_inputs(dev, seed=0):
+def main_path_inputs(dev, seed=0, response="constant", warm_impl="plain"):
     """Run one tree's SMC with the PLAIN versions on the card and record the
-    arguments of every grow / smc / select call (level by level)."""
+    arguments of every grow / smc / select call (level by level).  The
+    frozen particle is a grown tree: 12 steps first, with ``warm_impl``."""
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
     from pymc_bart_tpu_torch.ops.grow import grow_round_plain
     from pymc_bart_tpu_torch.ops.select import select_refine_plain
     from pymc_bart_tpu_torch.ops.smc import smc_resample_plain
     from pymc_bart_tpu_torch.sampler import pgbart
 
-    cfg = BartConfig(m=M, max_depth=DEPTH)
+    cfg = BartConfig(m=M, max_depth=DEPTH, response=response)
     pg = PgbartConfig(num_particles=P, num_refinements=R)
     S = cfg.n_nodes
-    X_np, Y_np, _ = friedman(N, PCOLS)
+    X_np, Y_np, _ = friedman(N, PCOLS, seed=6 if response != "constant" else 0)
     X = torch.from_numpy(X_np).to(dev)
     Y = torch.from_numpy(Y_np).to(dev)[:, None]
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
     rules = torch.zeros(PCOLS, dtype=torch.int32, device=dev)
     gauss_w = torch.ones((C, N, 1), device=dev)
-    # a few plain steps so the frozen particle is a grown tree
     for _ in range(12):
         rands = pgbart.draw_rands(gen, B=5, C=C, P=P, D=DEPTH, n=N, k=1, S=S,
-                                  num_refinements=R, device=dev)
+                                  num_refinements=R, device=dev,
+                                  response=response)
         state, _ = pgbart.pgbart_step(state, rands, X, Y, rules, cfg, pg,
-                                      True, gauss_w, impl="plain")
+                                      True, gauss_w, impl=warm_impl)
     rands = pgbart.draw_rands(gen, B=1, C=C, P=P, D=DEPTH, n=N, k=1, S=S,
-                              num_refinements=R, device=dev)
+                              num_refinements=R, device=dev, response=response)
     calls = {"grow": [], "smc": [], "select": []}
 
     def rec_grow(*a, impl=None, **kw):
@@ -297,13 +330,15 @@ def main_path_inputs(dev, seed=0):
     return calls, cfg
 
 
-def mixed_grow_case(dev, seed=3):
+def mixed_grow_case(dev, seed=3, n=200):
     """Small growth round with NaNs, one-hot and subset columns, the linear
-    response, two outputs and a non-identity ``take``."""
+    response, two outputs and a non-identity ``take``; with ``n`` beyond
+    what shared memory holds (``ROWS_GLOBAL``) the kernel keeps the rows in
+    global memory."""
     from pymc_bart_tpu_torch.config import BartConfig
 
     rng = np.random.default_rng(seed)
-    Cc, Pp, n, p, k, d = 2, 6, 200, 4, 2, 1
+    Cc, Pp, p, k, d = 2, 6, 4, 2, 1
     cfg = BartConfig(m=5, max_depth=4, n_outputs=k, response="linear")
     S, G = cfg.n_nodes, 2**d
     rules = np.array([0, 1, 2, 2], np.int32)
@@ -809,25 +844,45 @@ def phase_kernels(dev, calls, cfg):
     from pymc_bart_tpu_torch.ops.smc import smc_resample
 
     errs = {"grow_round": 0.0, "smc_resample": 0.0, "select_refine": 0.0}
-    grown = 0
-    for a, kw in calls["grow"]:
+    grow_cases = {}
+    for response in GROW_RESPONSES:
+        float_errs, grown, slopes = {}, 0, 0
+        for seed in GROW_SEEDS:
+            # the constant response's first trajectory is the main path's
+            # (its smc and select calls are compared below); the others warm
+            # up on the kernels
+            traj = (calls if (response, seed) == ("constant", 0) else
+                    main_path_inputs(dev, seed, response, warm_impl=None)[0])
+            for a, kw in traj["grow"]:
+                got = grow_round(*a, impl="kernel", **kw)
+                torch.cuda.synchronize()
+                want = grow_round(*a, impl="plain", **kw)
+                torch.cuda.synchronize()
+                compare_grow(f"{response} seed {seed} d={kw['d']}", got, want,
+                             float_errs)
+                grown += int(((got[0] >= 0) & (a[2] < 0)).sum())
+                slopes += int(((got[5] != 0) & (a[7] == 0)).sum())
+        if grown == 0:
+            raise AssertionError(f"{response}: no particle grew at the "
+                                 "main-path shapes")
+        if (slopes > 0) != (response != "constant"):
+            raise AssertionError(f"{response}: {slopes} slopes drawn")
+        grow_cases[response] = dict(max_abs_err=float_errs, grown_nodes=grown,
+                                    slopes_drawn=slopes,
+                                    seeds=list(GROW_SEEDS),
+                                    levels=list(range(DEPTH)))
+        errs["grow_round"] = max([errs["grow_round"], *float_errs.values()])
+    mixed_err = {}
+    for n_rows in (200, ROWS_GLOBAL):
+        a, kw = mixed_grow_case(dev, n=n_rows)
         got = grow_round(*a, impl="kernel", **kw)
         torch.cuda.synchronize()
         want = grow_round(*a, impl="plain", **kw)
         torch.cuda.synchronize()
-        errs["grow_round"] = max(errs["grow_round"],
-                                 compare_grow(f"d={kw['d']}", got, want))
-        grown += int(((got[0] >= 0) & (a[2] < 0)).sum())
-    if grown == 0:
-        raise AssertionError("no particle grew at the main-path shapes")
-    a, kw = mixed_grow_case(dev)
-    got = grow_round(*a, impl="kernel", **kw)
-    torch.cuda.synchronize()
-    want = grow_round(*a, impl="plain", **kw)
-    torch.cuda.synchronize()
-    mixed_err = compare_grow("mixed", got, want)
-    if not bool(((got[0] >= 1) & (a[2] < 0)).any()):
-        raise AssertionError("mixed case: no categorical split was drawn")
+        mixed_err[n_rows] = compare_grow(f"mixed n={n_rows}", got, want)
+        errs["grow_round"] = max(errs["grow_round"], mixed_err[n_rows])
+        if not bool(((got[0] >= 1) & (a[2] < 0)).any()):
+            raise AssertionError("mixed case: no categorical split was drawn")
 
     resampled = 0
     for a in calls["smc"]:
@@ -874,8 +929,9 @@ def phase_kernels(dev, calls, cfg):
     errs["pgbart_step_bign"] = max(
         [v["max_abs_err"] for v in large.values()]
         + [generated["max_abs_err_vs_plain_on_block"]])
-    emit("kernels", max_abs_err=errs, grow_mixed_max_abs_err=mixed_err,
-         grown_nodes=grown, smc_calls_that_resampled=resampled,
+    emit("kernels", max_abs_err=errs, grow_round_cases=grow_cases,
+         grow_mixed_max_abs_err=mixed_err,
+         smc_calls_that_resampled=resampled,
          pgbart_step_fused_cases=fused,
          pgbart_step_fused_generated=fused_generated,
          pgbart_step_bign_cases=large,
@@ -959,8 +1015,9 @@ def phase_step(dev):
     if not bool(torch.isfinite(sf.sum_trees).all()):
         raise AssertionError("whole-step kernel at n=50,000: not finite")
     check_close("large-n step iteration", sf.iteration, sb.iteration, 0, 0)
+    linear = linear_steps(dev)
     emit("step", max_abs_err_vs_plain=worst, split_nodes=splits, chains=C,
-         rounds_route_refuses_bernoulli=refusal,
+         rounds_route_refuses_bernoulli=refusal, linear=linear,
          large_n=dict(
              n=LN["N"], bign_max_abs_err_vs_plain=large_err,
              fused_split_vars_differing=int(
@@ -968,15 +1025,68 @@ def phase_step(dev):
              fused_sum_trees_max_abs_diff=max_err(sf.sum_trees, sb.sum_trees)))
 
 
-def sample_run(model, route, tune, draws, shape=None):
+def linear_steps(dev):
+    """A linear forest at the main shapes (the linear Friedman model's data):
+    ``route=None`` must resolve to the per-round route; one tuning and one
+    draw step there, the kernels against ``impl="plain"`` on the same
+    blocks."""
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    cfg = BartConfig(m=M, max_depth=DEPTH, response="linear")
+    pg = PgbartConfig(num_particles=P, num_refinements=R)
+    X_np, Y_np, _ = friedman(N, PCOLS, seed=6)
+    X = torch.from_numpy(X_np).to(dev)
+    Y = torch.from_numpy(Y_np).to(dev)[:, None]
+    rules = torch.zeros(PCOLS, dtype=torch.int32, device=dev)
+    gauss_w = torch.ones((C, N, 1), device=dev)
+    taken, why = pgbart.resolve_route(None, cfg, pg, X, gauss_w, "gauss",
+                                      chains=C, w_scalar=True, all_cont=True,
+                                      x_nan=False)
+    if taken != "rounds":
+        raise AssertionError(f"a linear forest resolves to route {taken!r}")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    first = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
+    states = {"rounds": first.clone(), "plain": first.clone()}
+    worst = 0.0
+    for tuning in (True, False):
+        rands = pgbart.draw_rands(
+            gen, B=pg.batch_size(M, tuning), C=C, P=P, D=DEPTH, n=N, k=1,
+            S=cfg.n_nodes, num_refinements=R, device=dev, response="linear")
+        vis = {}
+        for k, impl in (("rounds", None), ("plain", "plain")):
+            states[k], vis[k] = pgbart.pgbart_step(
+                states[k], rands, X, Y, rules, cfg, pg, tuning, gauss_w,
+                impl=impl)
+        torch.cuda.synchronize()
+        check_close("linear step vi", vis["rounds"], vis["plain"], 0.0, 0.0)
+        worst = max(worst, compare_state("linear step", states["rounds"],
+                                         states["plain"]))
+    f = states["rounds"].forest
+    slopes = int((f.slope != 0).sum())
+    if slopes == 0 or not bool((f.split_var >= 0).any()):
+        raise AssertionError("two linear steps grew no split or no slope")
+    return dict(route=taken, max_abs_err_vs_plain=worst,
+                split_nodes=int((f.split_var >= 0).sum()), slopes=slopes,
+                whole_step_refuses=why["fused"], large_n_refuses=why["bign"])
+
+
+def sample_run(model, route, tune, draws, shape=None, choose=False):
     """One ``sample()`` run on the card with every launch count set to 0
     just before and read just after; checks the counts of the route.
 
     ``shape``: ``dict(C, P, N, PCOLS, M, DEPTH)`` plus the ``sample()``
     arguments ``refinements`` and ``store_trees``; default the n=1000 shapes.
-    ``route``: ``"fused"`` / ``"rounds"`` force that route; ``"bign"`` leaves
-    the choice to ``sample()`` (``pgbart_route=None``), which must then take
-    the large-n route."""
+    ``route``: ``"fused"`` / ``"rounds"`` force that route; ``"bign"``, or
+    any route with ``choose``, leaves the choice to ``sample()``
+    (``pgbart_route=None``), which must then take that route (the per-round
+    route also says so in its warning).  A linear or mix forest must in
+    addition store slopes that, with the rest of its last draw's forests,
+    predict that draw."""
+    import warnings
+
+    from pymc_bart_tpu_torch.ops.predict import forest_predict
+    from pymc_bart_tpu_torch.ops.trees import Forest
     import pymc_bart_tpu_torch as pmb
     from pymc_bart_tpu_torch.ops.bign import pgbart_step_bign
     from pymc_bart_tpu_torch.ops.draw import pgbart_step_fused
@@ -1001,7 +1111,9 @@ def sample_run(model, route, tune, draws, shape=None):
         blocks_drawn.append(bool(kw.get("row_gumbels", True)))
         return real_draw(*a, **kw)
 
-    with pmb.Model():
+    choose = choose or route == "bign"
+    with pmb.Model(), warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
         rv = model(pmb)
         for w in wrappers.values():
             w.launches = 0
@@ -1014,12 +1126,19 @@ def sample_run(model, route, tune, draws, shape=None):
                                store_trees=sh["store_trees"],
                                chunk_size=max(1, draws // 2), timings=timings,
                                convergence_checks=False,
-                               pgbart_route=None if route == "bign" else route)
+                               pgbart_route=None if choose else route)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         finally:
             pgbart.draw_rands = real_draw
         launches = {k: int(w.launches) for k, w in wrappers.items()}
+    per_round_said = any("per-round sampler route" in str(w.message)
+                         for w in said)
+    if choose and per_round_said != (route == "rounds"):
+        raise AssertionError(f"route=None, expected {route!r}: the per-round "
+                             f"warning {'was' if per_round_said else 'was not'}"
+                             " given")
+    constant = rv.config.response == "constant"
     # on the card sample() draws no (B, D, C, P, n) block on any route: the
     # whole-step kernels generate their row Gumbels from a seed, the
     # per-round route has the same generator write them out
@@ -1031,9 +1150,10 @@ def sample_run(model, route, tune, draws, shape=None):
     B = max(1, int(sh["M"] * 0.1))
     want = dict.fromkeys(wrappers, 0)
     if route == "rounds":
+        # a linear / mix winner is selected in plain PyTorch, as in JAX
         want.update(grow_round=steps * B * sh["DEPTH"],
                     smc_resample=steps * B * (sh["DEPTH"] - 1),
-                    select_refine=steps * B)
+                    select_refine=steps * B if constant else 0)
     else:
         want["pgbart_step_" + route] = steps
     for k, v in launches.items():
@@ -1057,12 +1177,30 @@ def sample_run(model, route, tune, draws, shape=None):
         if not np.array_equal(vi[:, :, 0, :], recount):
             raise AssertionError("variable_inclusion != recount over the "
                                  "forests")
+        if not constant:
+            tr = rv.all_trees
+            if not (tr.slope != 0).any():
+                raise AssertionError("the stored forests hold no slope")
+            last = Forest(*(torch.as_tensor(np.ascontiguousarray(a[:, -1]))
+                            .cuda() for a in (
+                tr.split_var, tr.split_val, tr.split_set.view(np.int32),
+                tr.leaf, tr.count, tr.slope)))
+            fp = forest_predict(
+                last, torch.as_tensor(rv.X, dtype=torch.float32).cuda(),
+                torch.as_tensor(rv.rules_array()).cuda(), sh["DEPTH"])
+            fp = fp[..., 0].cpu().numpy()
+            if not np.allclose(fp, post[:, -1], rtol=1e-4, atol=1e-3):
+                raise AssertionError(
+                    "the stored forests with their slopes do not predict the "
+                    f"last draw: max abs diff {np.abs(fp - post[:, -1]).max()}")
     elif not (vi.sum(axis=-1) > 0).all():
         raise AssertionError("a draw's forest has no split at all")
     for c in range(1, sh["C"]):
         if np.array_equal(post[0], post[c]):
             raise AssertionError(f"chain {c} repeats chain 0")
-    out = dict(route=route, tune=tune, draws=draws, chains=sh["C"],
+    out = dict(route=route, route_chosen_by_sample=choose,
+               response=rv.config.response, tune=tune, draws=draws,
+               chains=sh["C"],
                n=sh["N"], seconds=seconds,
                tune_seconds=timings["tune_seconds"],
                draw_seconds_total=timings["draw_seconds_total"],
@@ -1104,14 +1242,15 @@ def phase_sample(dev, tune, draws, large_tune, large_draws):
         pmb.Normal("y", mu, sigma, observed=Y)
         return mu
 
-    def friedman_quality(idata, post, out):
+    def friedman_quality(idata, post, out, f=f_true, model="friedman",
+                         bound=True):
         sig = np.asarray(idata.posterior["sigma"].values)
         if sig.shape != post.shape[:2] or not np.isfinite(sig).all():
             raise AssertionError("sigma draws are missing or not finite")
-        rmse = float(np.sqrt(np.mean((post.mean(axis=(0, 1)) - f_true) ** 2)))
-        if not rmse < RMSE_BOUND:
+        rmse = float(np.sqrt(np.mean((post.mean(axis=(0, 1)) - f) ** 2)))
+        if bound and not rmse < RMSE_BOUND:
             raise AssertionError(f"rmse vs true f {rmse} >= {RMSE_BOUND}")
-        return dict(out, model="friedman", rmse_vs_true_f=rmse,
+        return dict(out, model=model, rmse_vs_true_f=rmse,
                     sigma_mean=float(sig.mean()))
 
     runs = {}
@@ -1133,6 +1272,27 @@ def phase_sample(dev, tune, draws, large_tune, large_draws):
     short = max(2, draws // 4)
     runs["friedman_rounds"] = friedman_quality(
         *sample_run(friedman_model, "rounds", short, 2 * short))
+
+    # the linear Friedman model of bench.py (config_friedman_linear) at full
+    # width: sample() takes the per-round route by itself; a short mix run
+    Xn, Yn, fn = friedman(N, PCOLS, seed=6)
+
+    def slope_model(response):
+        def build(pmb):
+            mu = pmb.BART("mu", Xn, Yn, m=M, max_depth=DEPTH,
+                          response=response)
+            sigma = pmb.HalfNormal("sigma", 1.0)
+            pmb.Normal("y", mu, sigma, observed=Yn)
+            return mu
+        return build
+
+    runs["friedman_linear"] = friedman_quality(
+        *sample_run(slope_model("linear"), "rounds", short, 2 * short,
+                    choose=True), f=fn, model="friedman linear")
+    mix_steps = max(2, draws // 16)
+    runs["friedman_mix"] = friedman_quality(
+        *sample_run(slope_model("mix"), "rounds", mix_steps, mix_steps,
+                    choose=True), f=fn, model="friedman mix", bound=False)
 
     # the two large-n models; sample() itself must choose the large-n route
     big = dict(LN, refinements=0)
@@ -1171,7 +1331,8 @@ def phase_sample(dev, tune, draws, large_tune, large_draws):
                                       **classifier_quality(post, Yc))
     del idata, post
     emit("sample", runs=runs)
-    launches = {k: runs["friedman_rounds"]["launches"][k]
+    per_round = ("friedman_rounds", "friedman_linear", "friedman_mix")
+    launches = {k: sum(runs[r]["launches"][k] for r in per_round)
                 for k in ROUND_KERNELS}
     for name, used_by in (
             ("pgbart_step_fused", ("friedman_fused", "logistic_fused")),
@@ -1200,24 +1361,33 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
         return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                     plain_call_ms=plain_call_ms)
 
-    # growth round: every level, then the mean over the D levels of a tree
-    rows = []
-    for a, kw in calls["grow"]:
-        outs = grow_round(*a, impl="kernel", **kw)
-        # every argument read once, every output written once
-        bts = nbytes(*a) + nbytes(*outs)
-        # per row and particle: Gumbel compare, routing compare, child-sum
-        # add, and diff, square, weight, add for the log-likelihood
-        ops = C * P * N * (3 + 4 * 1)
-        b_ms, by = bound(bts, ops)
-        rows.append(dict(
-            d=kw["d"], bytes=bts, bound_ms=b_ms, bound_by=by,
-            **timed(lambda: grow_round(*a, impl="kernel", **kw),
-                    lambda: grow_round(*a, impl="plain", **kw))))
-    out["grow_round"] = dict(
-        {key: float(np.mean([r[key] for r in rows]))
-         for key in ("ms", "call_ms", "plain_ms", "plain_call_ms", "bound_ms")},
-        bound_by=rows[0]["bound_by"], by_level=rows)
+    # growth round: every level, then the mean over the D levels of a tree;
+    # the constant response's main path, and the linear model's
+    def grow_levels(traj):
+        rows = []
+        for a, kw in traj["grow"]:
+            outs = grow_round(*a, impl="kernel", **kw)
+            # every argument read once, every output written once
+            bts = nbytes(*a) + nbytes(*outs)
+            # per row and particle: Gumbel compare, routing compare, child-sum
+            # add, and diff, square, weight, add for the log-likelihood; the
+            # linear response adds x, x^2, x r and the slope term
+            lin = kw["cfg"].response != "constant"
+            ops = C * P * N * (3 + 4 * 1 + (5 if lin else 0))
+            b_ms, by = bound(bts, ops)
+            rows.append(dict(
+                d=kw["d"], bytes=bts, bound_ms=b_ms, bound_by=by,
+                **timed(lambda: grow_round(*a, impl="kernel", **kw),
+                        lambda: grow_round(*a, impl="plain", **kw))))
+        return dict(
+            {key: float(np.mean([r[key] for r in rows]))
+             for key in ("ms", "call_ms", "plain_ms", "plain_call_ms",
+                         "bound_ms")},
+            bound_by=rows[0]["bound_by"], by_level=rows)
+
+    out["grow_round"] = grow_levels(calls)
+    out["grow_round"]["linear"] = grow_levels(
+        main_path_inputs(dev, 0, "linear", warm_impl=None)[0])
 
     a = calls["smc"][0]
     outs = smc_resample(*a, impl="kernel")
@@ -1328,6 +1498,7 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
         rands_ms[name] = float(np.median(draws[2:]))
     rates = {k: v["chain_draws_per_s"] for k, v in (runs or {}).items()}
     emit("timing", card=smi, kernels=out, chain_draws_per_s=rates,
+         linear_step=linear_step_times(dev),
          step_ms_fused_route=step_ms["fused"],
          step_ms_kernel_route=step_ms["rounds"],
          step_ms_plain_route=step_ms["plain"],
@@ -1336,9 +1507,70 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
          large_n_crossover=crossover,
          launches_per_step={"pgbart_step_fused": 1, "grow_round": 5 * DEPTH,
                             "smc_resample": 5 * (DEPTH - 1),
-                            "select_refine": 5, "pgbart_step_bign": 1})
+                            "select_refine": "5 (constant), 0 (linear, mix)",
+                            "pgbart_step_bign": 1})
     check_crossover(crossover)
     return out
+
+
+def linear_step_times(dev, reps=12, profiled=5):
+    """One PGBART step of the linear Friedman model at full width as
+    ``sample()`` issues it on the per-round route (blocks drawn with a seed,
+    the step enqueued, host clock around a synchronisation), and the device
+    busy time of a step (``torch.profiler``, kernels and copies), so that
+    the host's share is what is left."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    cfg = BartConfig(m=M, max_depth=DEPTH, response="linear")
+    pg = PgbartConfig(num_particles=P, num_refinements=R)
+    X_np, Y_np, _ = friedman(N, PCOLS, seed=6)
+    X = torch.from_numpy(X_np).to(dev)
+    Y = torch.from_numpy(Y_np).to(dev)[:, None]
+    rules = torch.zeros(PCOLS, dtype=torch.int32, device=dev)
+    gauss_w = torch.ones((C, N, 1), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    state = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
+
+    def step():
+        nonlocal state
+        rands = pgbart.draw_rands(
+            gen, B=pg.batch_size(M, False), C=C, P=P, D=DEPTH, n=N, k=1,
+            S=cfg.n_nodes, num_refinements=R, device=dev, row_gumbels=False,
+            response="linear")
+        state, _ = pgbart.pgbart_step(state, rands, X, Y, rules, cfg, pg,
+                                      False, gauss_w, w_scalar=True)
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and e.device_type == DeviceType.CUDA:
+            rows.append((dev_us / 1e3 / profiled, e.count // profiled,
+                         e.key[:60]))
+    rows.sort(reverse=True)
+    step_ms = float(np.median(times[2:]))
+    device_ms = sum(r[0] for r in rows)
+    return dict(step_ms=step_ms, device_ms=device_ms,
+                host_ms=step_ms - device_ms,
+                device_share=device_ms / step_ms,
+                device_events_per_step=sum(r[1] for r in rows),
+                top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:8]])
 
 
 def bign_bytes(case, rands, state, tuning):

@@ -95,7 +95,9 @@ def rands_from_numpy(per_chain: Sequence[Sequence[np.ndarray]],
     ``(ug (B,P,Gtot), uv, rg (B,D,P,n), eps (B,P,2Gtot,k), sb uint32 (B,P,Gtot),
     ures (B,D), usel (B,), epsr (B,R,k,S), uacc (B,R))`` -> ``StepRands``
     (tree axis first, chain axis second, ``eps`` K-major).  ``rg`` may be
-    ``None`` (the large-n route then generates the row Gumbels itself)."""
+    ``None`` (the large-n route then generates the row Gumbels itself).  An
+    11-tuple adds the blocks of the linear and mix responses, ``umix``
+    (B,P,2Gtot) and ``gsel`` (B,P)."""
     device = torch.device(device)
 
     def stack(i, axis, bits=False, perm=None):
@@ -108,8 +110,10 @@ def rands_from_numpy(per_chain: Sequence[Sequence[np.ndarray]],
             np.ascontiguousarray(np.stack(arrs, axis=axis))).to(device)
 
     no_rg = any(chain[2] is None for chain in per_chain)
+    linear = len(per_chain[0]) == 11
     return StepRands(
         ug=stack(0, 1), uv=stack(1, 1), rg=None if no_rg else stack(2, 2),
         eps=stack(3, 1, perm=(0, 1, 3, 2)), sb=stack(4, 1, bits=True),
         ures=stack(5, 2), usel=stack(6, 1), epsr=stack(7, 1),
-        uacc=stack(8, 1))
+        uacc=stack(8, 1), umix=stack(9, 1) if linear else None,
+        gsel=stack(10, 1) if linear else None)

@@ -66,6 +66,55 @@ __device__ __forceinline__ double warp_sum_d(double v) {
 }
 
 // ---------------------------------------------------------------------------
+// sums and maxima keyed by node, taken by warps
+// ---------------------------------------------------------------------------
+
+// Sums keyed by node are taken in FIXED POINT: a value v becomes the integer
+// round(v * 2^k), with k chosen so that the largest |v| of its kind has 38
+// bits (row counts below 2^24 then fit 63 bits).  Integer addition has no
+// order, so the sums are the same bits from run to run whatever the order of
+// the atomics, and the same bits as the plain version's
+// (ops/sums.py::keyed_sum_fixed, keyed_isum: the same scales); their error
+// (2^-39 of the largest value per row) is far below a float32 sum's in any
+// order.  ``v`` is a float32 value, or an exact float64 product of two.
+__device__ __forceinline__ long long to_fixed(double v, double scale) {
+  return __double2ll_rn(v * scale);
+}
+
+// Sum of q over the lanes of ``peers`` (every lane of the group calls it with
+// the same mask): two 32-bit warp reductions of the high and low 20 bits.
+__device__ __forceinline__ long long group_sum(unsigned int peers, long long q) {
+  const int hi = __reduce_add_sync(peers, (int)(q >> 20));
+  const unsigned int lo = __reduce_add_sync(peers, (unsigned int)(q & 0xFFFFF));
+  return (long long)hi * (1LL << 20) + (long long)lo;
+}
+
+// Adds q to acc[key] (and 1 to cnt[key]) for every lane with key >= 0: the
+// lanes with one key are found by a match, their values added by group_sum,
+// and the lowest lane of the group makes one atomic add.  All 32 lanes call.
+__device__ __forceinline__ void keyed_add(int key, long long q, long long* acc,
+                                          int* cnt, int lane) {
+  const unsigned int peers = __match_any_sync(0xffffffffu, key);
+  const long long sum = group_sum(peers, q);
+  if (key >= 0 && lane == __ffs(peers) - 1) {
+    atomicAdd((unsigned long long*)&acc[key], (unsigned long long)sum);
+    if (cnt) atomicAdd(&cnt[key], __popc(peers));
+  }
+}
+
+// Raises best[node] to the largest key among the lanes with that node
+// (node < 0: no key): a match, one 32-bit warp maximum of the value word, and
+// one atomic by the lowest lane that holds it (the lowest row of the warp).
+__device__ __forceinline__ void keyed_max(int node, unsigned long long key,
+                                          unsigned long long* best, int lane) {
+  const unsigned int peers = __match_any_sync(0xffffffffu, node);
+  const unsigned int hi = (unsigned int)(key >> 32);
+  const unsigned int top = __reduce_max_sync(peers, hi);
+  const unsigned int win = __ballot_sync(0xffffffffu, node >= 0 && hi == top) & peers;
+  if (node >= 0 && lane == __ffs(win) - 1) atomicMax(&best[node], key);
+}
+
+// ---------------------------------------------------------------------------
 // row Gumbels generated in the kernel
 // ---------------------------------------------------------------------------
 

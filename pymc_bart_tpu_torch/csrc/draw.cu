@@ -95,7 +95,10 @@ namespace {
 
 using bart::gen_gumbel;
 using bart::go_left;
+using bart::keyed_add;
+using bart::keyed_max;
 using bart::pack_key;
+using bart::to_fixed;
 using bart::warp_sum_d;
 
 constexpr int kMaxDepth = 16;
@@ -279,45 +282,8 @@ __device__ __forceinline__ float row_ll(int lik, float c0, float y, float noi,
   return (y > 0.f ? 1.f : 0.f) * F - lse;
 }
 
-// Sums keyed by node are taken in FIXED POINT: a residual r becomes the
-// integer round(r * 2^k), with k chosen per tree so that the largest |r| of
-// the chain has 38 bits (row counts below 2^20 then fit 63 bits with room).
-// Integer addition has no order, so the sums are the same bits from run to
-// run whatever the order of the atomics, and the same bits as the plain
-// version's (ops/sums.py::keyed_sum_fixed quantises with the same scale);
-// their error (2^-39 of the largest residual per row) is far below a float32
-// sum's in any order.
-__device__ __forceinline__ long long to_fixed(float r, double scale) {
-  return __double2ll_rn((double)r * scale);
-}
-
-// Adds q to acc[key] (and 1 to cnt[key]) for every lane with key >= 0: the
-// lanes with one key are found by a match, their values added by two 32-bit
-// warp reductions (high and low 20 bits), and the lowest lane of the group
-// makes one atomic add.  All 32 lanes call.
-__device__ __forceinline__ void keyed_add(int key, long long q, long long* acc,
-                                          int* cnt, int lane) {
-  const unsigned int peers = __match_any_sync(kFull, key);
-  const int hi = __reduce_add_sync(peers, (int)(q >> 20));
-  const unsigned int lo = __reduce_add_sync(peers, (unsigned int)(q & 0xFFFFF));
-  if (key >= 0 && lane == __ffs(peers) - 1) {
-    atomicAdd((unsigned long long*)&acc[key],
-              (unsigned long long)((long long)hi * (1LL << 20) + (long long)lo));
-    if (cnt) atomicAdd(&cnt[key], __popc(peers));
-  }
-}
-
-// Raises best[node] to the largest key among the lanes with that node
-// (node < 0: no key): a match, one 32-bit warp maximum of the value word, and
-// one atomic by the lowest lane that holds it (the lowest row of the warp).
-__device__ __forceinline__ void keyed_max(int node, unsigned long long key,
-                                          unsigned long long* best, int lane) {
-  const unsigned int peers = __match_any_sync(kFull, node);
-  const unsigned int hi = (unsigned int)(key >> 32);
-  const unsigned int top = __reduce_max_sync(peers, hi);
-  const unsigned int win = __ballot_sync(kFull, node >= 0 && hi == top) & peers;
-  if (node >= 0 && lane == __ffs(win) - 1) atomicMax(&best[node], key);
-}
+// Sums keyed by node: fixed point, bart::to_fixed / keyed_add (common.cuh),
+// with the tree's residual scale.
 
 // the row of the largest Gumbel from its packed key (row 0 for no key)
 __device__ __forceinline__ int key_row(unsigned long long key) {

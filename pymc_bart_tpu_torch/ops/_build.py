@@ -21,10 +21,11 @@ from typing import Dict, Iterable
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNEL_SOURCES = ("grow", "smc", "select", "draw", "bign")
-# the whole-step kernels round their float32 arithmetic where their plain
-# PyTorch versions do (one rounding per operation), so they are compiled
-# without fused multiply-add
-EXTRA_FLAGS = {"bign": ("-fmad=false",), "draw": ("-fmad=false",)}
+# these kernels round their float32 arithmetic where their plain PyTorch
+# versions do (one rounding per operation), so they are compiled without
+# fused multiply-add
+EXTRA_FLAGS = {"bign": ("-fmad=false",), "draw": ("-fmad=false",),
+               "grow": ("-fmad=false",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

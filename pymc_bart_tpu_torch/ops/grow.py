@@ -14,6 +14,11 @@ NaN -> right; child ``(count, sum r)`` and for ``linear``/``mix``
 ``N(sum r / count / m, leaf_sd)`` and slopes; incremental prediction;
 Gaussian log-likelihood ``-1/2 sum w (r - pred)^2``.
 
+Kernel and plain version take every sum by the rule of ``ops/sums.py``: the
+child sums keyed by child in fixed point (the residual on the chain's scale,
+x, x^2 and x r on their column's), the log-likelihood in float64 rounded
+once, quotients as true divisions; so they agree bit for bit.
+
 Layout (a leading chain axis ``C`` everywhere the JAX route is vmapped;
 K-major like the Pallas functions): ``take``/``frozen`` (C, P); ``sv``,
 ``sl``, ``st``, ``ct`` (C, P, S); ``lf``/``sp`` (C, P, k, S); ``leaf_idx``
@@ -31,19 +36,20 @@ Nothing falls back: a kernel that fails to build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional
 
 import torch
 
 from ..config import BartConfig
 from . import _build
-from .sums import fixed_scale, keyed_sum_fixed, sum64, true_div
+from .sums import (FIXED_BITS, chain_exponent, column_exponents, keyed_isum,
+                   keyed_linear_sums, keyed_sum_fixed, pow2, sum64, true_div)
 from .trees import float_to_int32, hash_bit
 
 _RESPONSE_CODE = {"constant": 0, "linear": 1, "mix": 2}
 # per-block shared memory the card offers (Hopper: 227 KB)
 _MAX_SMEM = 232448
-_THREADS = 256
 
 
 def p_grow_of(cfg: BartConfig, d: int) -> float:
@@ -134,15 +140,17 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     child = 2 * li + 1 + (~left).to(torch.int64)
     tentative = torch.where(row_active, child, li)
 
-    # child sufficient statistics: counts through a (2G, n) one-hot, the
-    # residual sums in fixed point (no order of addition: the same bits on
-    # every device and in the whole-step kernel)
-    cslots = hi + torch.arange(2 * G, device=dev)
-    oh = (cslots[None, None, :, None] == tentative[:, :, None, :]).to(
-        torch.float32)                                           # (C,P,2G,n)
-    ccounts = oh.sum(-1)                                         # (C, P, 2G)
-    csums = keyed_sum_fixed(resid, tentative - hi, 2 * G,
-                            *fixed_scale(resid))                 # (C,P,k,2G)
+    # child sufficient statistics keyed by the child slot: counts, and sums
+    # in fixed point (``ops/sums.py``; no order of addition: the same bits as
+    # the kernel's integer atomics)
+    G2 = 2 * G
+    key = tentative - hi
+    e_r = chain_exponent(resid)                                  # (C,)
+    ccounts = keyed_isum(torch.ones((C, P, 1, n), dtype=torch.int64,
+                                    device=dev), key, G2)[:, :, 0].to(
+        torch.float32)                                           # (C, P, 2G)
+    csums = keyed_sum_fixed(resid, key, G2, pow2(FIXED_BITS - e_r),
+                            pow2(e_r - FIXED_BITS))              # (C,P,k,2G)
     cl = ccounts[..., 0::2]
     cr = ccounts[..., 1::2]
     grow_ok = want & (cl > 0) & (cr > 0)
@@ -159,40 +167,42 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
 
     parent_ok = grow_ok.repeat_interleave(2, dim=-1)             # (C, P, 2G)
     ct_new = ct.clone()
-    ct_new[:, :, hi:hi + 2 * G] = torch.where(
-        parent_ok, ccounts, ct[:, :, hi:hi + 2 * G])
+    ct_new[:, :, hi:hi + G2] = torch.where(
+        parent_ok, ccounts, ct[:, :, hi:hi + G2])
 
     c_safe = ccounts.clamp_min(1.0)[:, :, None, :]
     mu_base = true_div(csums / c_safe, m)
     pk = parent_ok[:, :, None, :]
     if lin:
-        s_x = torch.einsum("cpn,cpgn->cpg", xv, oh)[:, :, None, :]
-        s_x2 = torch.einsum("cpn,cpgn->cpg", xv * xv, oh)[:, :, None, :]
-        s_xr = torch.einsum("ckn,cpn,cpgn->cpkg", resid, xv, oh)
+        # least-squares slope of the child residual on the parent's split
+        # covariate: sum x, x^2, x r in fixed point on the column's scale
+        e_x = column_exponents(X)                                # (p,)
+        s_x, s_x2, s_xr = keyed_linear_sums(
+            xv, resid, e_x[varx_row], e_x[varx_c].repeat_interleave(2, dim=-1),
+            e_r, key, G2)
         var_x = s_x2 - s_x * s_x / c_safe
         usable = (ccounts[:, :, None, :] >= 3.0) & (var_x > 1e-6)
         if cfg.response == "mix":
             um = (u_mix if u_mix is not None
-                  else torch.ones((C, P, 2 * G), device=dev))
+                  else torch.ones((C, P, G2), device=dev))
             usable = usable & (um[:, :, None, :] < 0.5)
         slope_hat = (s_xr - (s_x / c_safe) * csums) / var_x.clamp_min(1e-6)
         slope_hat = torch.where(usable, slope_hat,
                                 torch.zeros_like(slope_hat))
         intercept = (csums - slope_hat * s_x) / c_safe
-        mu_base = torch.where(usable, intercept / m, mu_base)
-        new_csp = torch.where(pk, slope_hat / m, sp[..., hi:hi + 2 * G])
+        mu_base = torch.where(usable, true_div(intercept, m), mu_base)
+        new_csp = torch.where(pk, true_div(slope_hat, m), sp[..., hi:hi + G2])
         sp_new = sp.clone()
-        sp_new[..., hi:hi + 2 * G] = new_csp
+        sp_new[..., hi:hi + G2] = new_csp
     else:
         sp_new = sp
     mu = mu_base + eps * leaf_sd[:, None, :, None]
-    new_clf = torch.where(pk, mu, lf[..., hi:hi + 2 * G])
+    new_clf = torch.where(pk, mu, lf[..., hi:hi + G2])
     lf_new = lf.clone()
-    lf_new[..., hi:hi + 2 * G] = new_clf
+    lf_new[..., hi:hi + G2] = new_clf
 
     # incremental prediction: only rows that moved change value
-    ch_row = (tentative - hi).clamp(0, 2 * G - 1)[:, :, None, :].expand(
-        C, P, k, n)
+    ch_row = key.clamp(0, G2 - 1)[:, :, None, :].expand(C, P, k, n)
     mu_row = torch.gather(new_clf, 3, ch_row)
     if lin:
         mu_row = mu_row + torch.gather(new_csp, 3, ch_row) * xv[:, :, None, :]
@@ -210,33 +220,52 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = ([_P] * 19 + [_I] + [_P] + [_P, _I] + [_P, _I] + [_P] * 9
-             + [_I] * 8 + [ctypes.c_float, _I, _P])
+_POINTERS = ("take", "frozen", "sv", "sl", "st", "lf", "ct", "sp", "li",
+             "pred", "X", "resid", "llw", "rules", "cdf", "lsd", "u_grow",
+             "u_var", "set_bits", "row_gum", "eps", "u_mix", "x_exp", "sv_o",
+             "sl_o", "st_o", "lf_o", "ct_o", "sp_o", "li_o", "pred_o", "ll_o")
+_INTS = ("ld_g", "ld_e", "ld_m", "C", "P", "S", "n", "p", "k", "d", "m",
+         "response", "shared_rows")
+
+
+class _GrowArgs(ctypes.Structure):
+    """Field by field the ``GrowArgs`` of csrc/grow.cu."""
+
+    _fields_ = ([(name, _P) for name in _POINTERS]
+                + [(name, _I) for name in _INTS] + [("p_grow", ctypes.c_float)])
 
 
 def _lib():
     lib = _build.load("grow")
     fn = lib.grow_round_launch
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+        fn.argtypes = [ctypes.POINTER(_GrowArgs), _P]
+        fn.restype = _I
+        lib.grow_round_smem_bytes.argtypes = [ctypes.POINTER(_GrowArgs)]
+        lib.grow_round_smem_bytes.restype = ctypes.c_longlong
+        lib.grow_round_args_size.restype = _I
+        if lib.grow_round_args_size() != ctypes.sizeof(_GrowArgs):
+            raise RuntimeError(
+                "grow_round: the argument block of csrc/grow.cu has "
+                f"{lib.grow_round_args_size()} bytes, the wrapper's "
+                f"{ctypes.sizeof(_GrowArgs)}")
+    return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if not isinstance(t, torch.Tensor) or t.device != device:
-        raise ValueError(f"grow_round: {name} must be a tensor on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"grow_round: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"grow_round: {name} has shape {tuple(t.shape)}, wants {shape}")
+def _check(t, name, dtype, shape, dev):
+    if (not isinstance(t, torch.Tensor) or t.dtype != dtype
+            or t.shape != shape or t.device != dev or not t.is_contiguous()):
+        raise ValueError(f"grow_round: {name} must be a contiguous {dtype} "
+                         f"tensor of shape {tuple(shape)} on {dev}")
 
 
-def _check_rows(t, name, dtype, shape, device):
+def _check_rows(t, name, dtype, shape, dev):
     """A (C, P, [k,] W) block that may be a column slice of a wider one:
     unit stride in the last axis, outer axes densely nested."""
-    _check(t, name, dtype, shape, device)
+    if (not isinstance(t, torch.Tensor) or t.dtype != dtype
+            or t.shape != shape or t.device != dev):
+        raise ValueError(f"grow_round: {name} must be a {dtype} tensor of "
+                         f"shape {tuple(shape)} on {dev}")
     ld = t.stride(-2)
     ok = t.stride(-1) == 1 and ld >= shape[-1]
     for ax in range(t.dim() - 3, -1, -1):
@@ -247,13 +276,29 @@ def _check_rows(t, name, dtype, shape, device):
     return ld
 
 
-def smem_bytes(G: int, k: int, response: str) -> int:
-    """Dynamic shared memory of one block (mirrors csrc/grow.cu)."""
-    nstat = 2 * k + 2 if response != "constant" else k
-    nchunks = max(1, _THREADS // (nstat * 2 * G))
-    words = 4 * G + 2 * G + 2 * G + 2 * k * 2 * G + nstat * 2 * G \
-        + nstat * 2 * G * nchunks + 32
-    return 8 * G + 4 * words
+def smem_bytes(G: int, k: int, response: str, n: int,
+               shared_rows: bool) -> int:
+    """Dynamic shared memory of one block (mirrors csrc/grow.cu::layout)."""
+    ns = 2 * k + 2 if response != "constant" else k
+    off = (8 * G + 8 * ns * 2 * G + 8 * 3 * G + 8 * 32 + 4 * 2 * G
+           + 4 * 4 * G + 4 + 4 * 2 * G + 2 * 4 * k * 2 * G)
+    off = (off + 15) & ~15
+    if shared_rows:
+        off += 2 * n
+    return (off + 15) & ~15
+
+
+# the column exponents of the latest X (a weak reference, its version, the
+# exponents): sample() hands every growth round the same X
+_x_exp = [None, -1, None]
+
+
+def _column_exponents_cached(X: torch.Tensor) -> torch.Tensor:
+    ref, version, e = _x_exp
+    if ref is None or ref() is not X or version != X._version:
+        e = column_exponents(X).contiguous()
+        _x_exp[:] = [weakref.ref(X), X._version, e]
+    return e
 
 
 def grow_round_kernel(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
@@ -271,18 +316,23 @@ def grow_round_kernel(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     if S != cfg.n_nodes or not 0 <= d < cfg.max_depth:
         raise ValueError(f"grow_round: level {d} outside a depth-"
                          f"{cfg.max_depth} tree with {S} slots")
-    if smem_bytes(G, k, cfg.response) > _MAX_SMEM:
+    if not 1 <= k <= 8 or n >= 2**24:
+        raise ValueError(f"grow_round kernel: k={k} outputs and n={n} rows "
+                         "(it takes 1 <= k <= 8 and n < 2^24)")
+    shared_rows = smem_bytes(G, k, cfg.response, n, True) <= _MAX_SMEM
+    if smem_bytes(G, k, cfg.response, n, shared_rows) > _MAX_SMEM:
         raise ValueError(
             f"grow_round kernel: level {d} with k={k} needs "
-            f"{smem_bytes(G, k, cfg.response)} bytes of shared memory")
+            f"{smem_bytes(G, k, cfg.response, n, False)} bytes of shared "
+            "memory")
     f32, i32 = torch.float32, torch.int32
     if frozen.dtype != i32:
         frozen = frozen.to(i32)
+    CP, CPS, CPkS = (C, P), (C, P, S), (C, P, k, S)
     for t, name, dt, shape in (
-            (take, "take", i32, (C, P)), (frozen, "frozen", i32, (C, P)),
-            (sv, "sv", i32, (C, P, S)), (sl, "sl", f32, (C, P, S)),
-            (st, "st", i32, (C, P, S)), (lf, "lf", f32, (C, P, k, S)),
-            (ct, "ct", f32, (C, P, S)), (sp, "sp", f32, (C, P, k, S)),
+            (take, "take", i32, CP), (frozen, "frozen", i32, CP),
+            (sv, "sv", i32, CPS), (sl, "sl", f32, CPS), (st, "st", i32, CPS),
+            (lf, "lf", f32, CPkS), (ct, "ct", f32, CPS), (sp, "sp", f32, CPkS),
             (leaf_idx, "leaf_idx", i32, (C, P, n)),
             (pred_prev, "pred_prev", f32, (C, P, k, n)),
             (X, "X", f32, (n, p)), (resid, "resid", f32, (C, k, n)),
@@ -291,8 +341,6 @@ def grow_round_kernel(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
             (leaf_sd, "leaf_sd", f32, (C, k)),
             (row_gum, "row_gum", f32, (C, P, n))):
         _check(t, name, dt, shape, dev)
-        if not t.is_contiguous():
-            raise ValueError(f"grow_round: {name} must be contiguous")
     ld_g = _check_rows(u_grow, "u_grow", f32, (C, P, G), dev)
     if (_check_rows(u_var, "u_var", f32, (C, P, G), dev) != ld_g
             or _check_rows(set_bits, "set_bits", i32, (C, P, G), dev) != ld_g):
@@ -303,30 +351,37 @@ def grow_round_kernel(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     if u_mix is not None:
         ld_m = _check_rows(u_mix, "u_mix", f32, (C, P, 2 * G), dev)
 
-    sv_o = torch.empty_like(sv)
-    sl_o = torch.empty_like(sl)
-    st_o = torch.empty_like(st)
-    lf_o = torch.empty_like(lf)
-    ct_o = torch.empty_like(ct)
-    sp_o = torch.empty_like(sp)
-    li_o = torch.empty_like(leaf_idx)
-    pred_o = torch.empty_like(pred_prev)
-    ll_o = torch.empty((C, P), dtype=f32, device=dev)
-
-    ptr = torch.Tensor.data_ptr
-    err = _lib()(
-        ptr(take), ptr(frozen), ptr(sv), ptr(sl), ptr(st), ptr(lf), ptr(ct),
-        ptr(sp), ptr(leaf_idx), ptr(pred_prev), ptr(X), ptr(resid),
-        ptr(ll_weight), ptr(rules), ptr(alpha_cdf), ptr(leaf_sd),
-        ptr(u_grow), ptr(u_var), ptr(set_bits), ld_g, ptr(row_gum),
-        ptr(eps), ld_e, ptr(u_mix) if u_mix is not None else None, ld_m,
-        ptr(sv_o), ptr(sl_o), ptr(st_o), ptr(lf_o), ptr(ct_o), ptr(sp_o),
-        ptr(li_o), ptr(pred_o), ptr(ll_o), C, P, S, n, p, k, d, cfg.m,
-        p_grow_of(cfg, d), _RESPONSE_CODE[cfg.response],
-        _build.current_stream())
+    outs = (torch.empty_like(sv), torch.empty_like(sl), torch.empty_like(st),
+            torch.empty_like(lf), torch.empty_like(ct), torch.empty_like(sp),
+            torch.empty_like(leaf_idx), torch.empty_like(pred_prev),
+            torch.empty((C, P), dtype=f32, device=dev))
+    a = _GrowArgs(
+        *(t.data_ptr() for t in (
+            take, frozen, sv, sl, st, lf, ct, sp, leaf_idx, pred_prev, X,
+            resid, ll_weight, rules, alpha_cdf, leaf_sd, u_grow, u_var,
+            set_bits, row_gum, eps)),
+        u_mix.data_ptr() if u_mix is not None else None,
+        _column_exponents_cached(X).data_ptr(),
+        *(t.data_ptr() for t in outs),
+        ld_g, ld_e, ld_m, C, P, S, n, p, k, d, cfg.m,
+        _RESPONSE_CODE[cfg.response], int(shared_rows), p_grow_of(cfg, d))
+    lib = _lib()
+    key = (G, k, cfg.response, n, shared_rows)
+    if key not in _checked_layouts:
+        got = int(lib.grow_round_smem_bytes(ctypes.byref(a)))
+        if got != smem_bytes(*key):
+            raise RuntimeError(
+                f"grow_round: csrc/grow.cu lays out {got} bytes of shared "
+                f"memory for {key}, the wrapper {smem_bytes(*key)}")
+        _checked_layouts.add(key)
+    err = lib.grow_round_launch(ctypes.byref(a), _build.current_stream())
     _build.check_launch(err, "grow_round")
     grow_round.launches += 1
-    return sv_o, sl_o, st_o, lf_o, ct_o, sp_o, li_o, pred_o, ll_o
+    return outs
+
+
+# shapes whose shared-memory layout the library has confirmed
+_checked_layouts = set()
 
 
 def grow_round(*args, impl: Optional[str] = None, **kwargs):

@@ -9,6 +9,12 @@ noise refine the leaf values under likelihood x
 ``N(leaf residual mean / m, leaf_sd)`` prior.  ``n_outputs == 1`` and the
 constant response only, as the TPU kernel; the wrapper raises otherwise.
 
+``select_refine_linear`` is the same step for the linear and mix responses,
+in plain PyTorch as the JAX package runs it in XLA (``_update_one_tree``,
+the winner and refinement block after the growth rounds): the winner by
+``jax.random.categorical`` (arg-max of ``log_w`` plus Gumbels), the
+prediction with the slope term (``ops/predict.py::leaf_values_at``).
+
 Shapes (leading chain axis ``C``, K-major with ``k == 1``): ``sv``, ``sl``,
 ``st``, ``ct`` (C, P, S); ``lf`` (C, P, 1, S); ``leaf_idx`` (C, P, n) int32;
 ``pred`` (C, P, 1, n); ``log_w`` (C, P); ``resid``/``ll_weight`` (C, 1, n);
@@ -25,6 +31,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .predict import leaf_values_at
 from .sums import (fixed_scale, keyed_sum_fixed, seq_cumsum, sum64,
                    true_div)
 
@@ -88,6 +95,61 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
         ll_c = torch.where(acc[:, 0], ll_p, ll_c)
     return (sv_w, sl_w, st_w, lf_w[:, None, :], ct_w, li_w,
             pred_w[:, None, :])
+
+
+def select_refine_linear(sv, sl, st, lf, ct, sp, leaf_idx, pred, log_w,
+                         resid, ll_weight, X, eps, u_acc, g_sel, leaf_sd, *,
+                         num_refinements: int, m: int):
+    """Winner and refinement of a linear / mix tree, all chains.
+
+    Shapes as ``select_refine_plain`` with ``k`` outputs (``lf``/``sp``
+    (C, P, k, S), ``pred`` (C, P, k, n), ``resid``/``ll_weight`` (C, k, n),
+    ``eps`` (C, R, k, S) already scaled, ``leaf_sd`` (C, k)); ``g_sel``
+    (C, P) Gumbels; ``X`` (n, p) the covariates the rounds routed on.  The
+    winner is ``argmax(log_w + g_sel)`` (first index on ties); each of the
+    ``num_refinements`` sweeps (none for 0) proposes ``lf + eps * mask`` on
+    the live leaves, predicts with the winner's slopes and accepts by
+    likelihood x ``N(leaf residual mean / m, leaf_sd)`` prior.  Returns
+    ``sv, sl, st (C, S)``, ``lf (C, k, S)``, ``ct (C, S)``, ``sp (C, k, S)``,
+    ``leaf_idx (C, n)``, ``pred (C, k, n)``."""
+    C, P, S = sv.shape
+    widx = (log_w + g_sel).argmax(dim=1)                          # (C,)
+
+    def pick(a):
+        idx = widx.reshape((C, 1) + (1,) * (a.dim() - 2))
+        return torch.gather(a, 1, idx.expand((C, 1) + a.shape[2:]))[:, 0]
+
+    sv_w, sl_w, st_w, ct_w, sp_w = (pick(a) for a in (sv, sl, st, ct, sp))
+    lf_w, li_w, pred_w = pick(lf), pick(leaf_idx), pick(pred)
+    if num_refinements == 0:
+        return sv_w, sl_w, st_w, lf_w, ct_w, sp_w, li_w, pred_w
+    li64 = li_w.to(torch.int64)
+    leaf_mask = ((sv_w < 0) & (ct_w > 0)).to(torch.float32)[:, None, :]
+    center = true_div(
+        keyed_sum_fixed(resid, li64[:, None, :], S, *fixed_scale(resid))[:, 0]
+        / ct_w.clamp_min(1.0)[:, None, :], m)                     # (C, k, S)
+    hiv = (0.5 / (leaf_sd * leaf_sd))[:, :, None]
+    spT = sp_w.transpose(1, 2)
+
+    def ll_of(pred_x):
+        diff = resid - pred_x
+        return -0.5 * sum64((ll_weight * diff * diff).flatten(1))
+
+    def lp_of(lf_x):
+        dev = lf_x - center
+        return -sum64((hiv * leaf_mask * dev * dev).flatten(1))
+
+    ll_c = ll_of(pred_w) + lp_of(lf_w)
+    for i in range(num_refinements):
+        lf_p = lf_w + eps[:, i] * leaf_mask
+        pred_p = leaf_values_at(sv_w, lf_p.transpose(1, 2), spT, X,
+                                li64).transpose(1, 2)
+        ll_p = ll_of(pred_p) + lp_of(lf_p)
+        acc = torch.log(u_acc[:, i]) < (ll_p - ll_c)
+        lf_w = torch.where(acc[:, None, None], lf_p, lf_w)
+        pred_w = torch.where(acc[:, None, None], pred_p, pred_w)
+        ll_c = torch.where(acc, ll_p, ll_c)
+    return sv_w, sl_w, st_w, lf_w, ct_w, sp_w, li_w, pred_w
 
 
 _P = ctypes.c_void_p

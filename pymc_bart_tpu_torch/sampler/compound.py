@@ -7,12 +7,14 @@ leading tensor axis ``C`` of one eager program (the JAX package vmaps them);
 per-chain model expressions are batched with ``torch.func.vmap``.
 
 Ported: the fused likelihood patterns ``y ~ Normal(BART, sigma)`` (code
-``gauss``) and ``y ~ Bernoulli(sigmoid(BART))`` (code ``bernoulli``) with
-constant response and one output, on the large-n route of
+``gauss``; constant, linear and mix responses) and
+``y ~ Bernoulli(sigmoid(BART))`` (code ``bernoulli``; constant response),
+with one output, on the large-n route of
 ``pgbart.pgbart_step`` where a chain's rows do not fit the whole-step
 kernel's shared memory (``pgbart.resolve_route``), on the whole-step route
 where its gate admits the configuration and on the per-round route
-otherwise (``sample(pgbart_route=...)`` forces one); chunked
+otherwise (``sample(pgbart_route=...)`` forces one; the linear and mix
+responses take the per-round route); chunked
 tune/draw loops, adaptation harmonisation, timings, stored posterior forests
 and convergence checks.  Arguments and models that wait for later work raise
 ``NotImplementedError`` by name.
@@ -436,8 +438,9 @@ def sample(
     ``resume``, ``profile_dir``, ``debug_nans``, ``posterior_dtype``,
     ``ancestor_sampling``, ``separate_trees`` (and with it the
     heteroscedastic and Categorical models), a likelihood that is neither
-    ``Normal(BART, sigma)`` nor ``Bernoulli(sigmoid(BART))``,
-    ``response != "constant"``, ``n_outputs != 1``.
+    ``Normal(BART, sigma)`` nor ``Bernoulli(sigmoid(BART))``, ``response=
+    "linear"`` / ``"mix"`` with another likelihood than
+    ``Normal(BART, sigma)``, ``n_outputs != 1``.
     """
     passed = dict(mesh=mesh, checkpoint_dir=checkpoint_dir, resume=resume,
                   profile_dir=profile_dir, debug_nans=debug_nans,
@@ -480,10 +483,6 @@ def sample(
     bart_static = []
     for brv in compiled.bart_rvs:
         cfg = brv.config
-        if cfg.response != "constant":
-            raise NotImplementedError(
-                f"BART variable {brv.name!r}: response={cfg.response!r} is "
-                "not ported yet (response != 'constant')")
         if cfg.n_outputs != 1:
             raise NotImplementedError(
                 f"BART variable {brv.name!r}: n_outputs={cfg.n_outputs} is "
@@ -498,6 +497,10 @@ def sample(
                 f"BART variable {brv.name!r}: only the fused likelihoods "
                 "y ~ Normal(BART, sigma) and y ~ Bernoulli(sigmoid(BART)) "
                 "are ported yet")
+        if cfg.response != "constant" and fused["kind"] != "gauss":
+            raise NotImplementedError(
+                f"BART variable {brv.name!r}: response={cfg.response!r} is "
+                "ported for y ~ Normal(BART, sigma) only")
         X_raw = np.asarray(brv.X, np.float32)
         rules_np = brv.rules_array()
         X_np = X_raw
@@ -612,7 +615,8 @@ def sample(
                 gen, B=pg.batch_size(cfg.m, tuning), C=C,
                 P=pg.num_particles, D=cfg.max_depth, n=n_i, k=k_i,
                 S=cfg.n_nodes, num_refinements=pg.num_refinements,
-                device=device, row_gumbels=bs["row_gumbels"])
+                device=device, row_gumbels=bs["row_gumbels"],
+                response=cfg.response)
             bart_states[i], vi = pgbart.pgbart_step(
                 bart_states[i], rands, bs["X"], bs["Yt"], bs["rules"], cfg,
                 pg, tuning, lik_row, lik=lik,

@@ -1,8 +1,9 @@
 """PGBART: the particle-Gibbs BART step, batched over chains (PyTorch).
 
 Counterpart of ``pymc_bart_tpu/sampler/pgbart.py`` for the closed-form
-likelihood codes (gauss, bernoulli, het_abs, het_exp, cat_logit), constant
-response and one output.  ``pgbart_step`` is the counterpart of
+likelihood codes (gauss, bernoulli, het_abs, het_exp, cat_logit) with the
+constant response, the Gaussian code with the linear and mix responses, and
+one output.  ``pgbart_step`` is the counterpart of
 ``_pgbart_step_dispatch``; it has three routes:
 
 * ``"bign"``: the whole step in the large-n formulation (``ops/bign.py``:
@@ -19,7 +20,10 @@ response and one output.  ``pgbart_step`` is the counterpart of
   commit and, while tuning, the split-prior and Welford ``leaf_sd``
   adaptation (``step_rounds``).  With ``impl="plain"`` this route is the
   plain version of the fused one.  Its selection kernel is Gaussian, so on a
-  CUDA device the other codes run on the other two routes only.
+  CUDA device the other codes run on the other two routes only.  The linear
+  and mix responses run here alone (both whole-step gates refuse them), with
+  the winner and refinement in plain PyTorch (``select_refine_linear``), as
+  the JAX package runs them in XLA.
 
 Chains are a leading tensor axis ``C`` where the JAX package uses ``vmap``.
 The step TAKES its random numbers (``StepRands``) as an argument, in the
@@ -28,8 +32,8 @@ tree axis first and the chain axis second; ``draw_rands`` makes one step's
 blocks from a ``torch.Generator``.  Tests feed the JAX package's own blocks.
 
 Not ported yet: the generic ``loglik_fn`` path and the XLA-only
-sufficient-statistics mode, multi-output and linear/mix responses in the
-step, rejuvenation and row sharding.
+sufficient-statistics mode, multi-output in the step, rejuvenation and row
+sharding.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from ..ops import bign as _bign
 from ..ops import draw as _draw
 from ..ops.grow import grow_round
 from ..ops.predict import tree_predict
-from ..ops.select import select_refine, select_refine_plain
+from ..ops.select import (select_refine, select_refine_linear,
+                          select_refine_plain)
 from ..ops.smc import smc_resample
 from ..ops.sums import sum64, true_div
 from ..ops.trees import Forest, init_forest
@@ -80,7 +85,11 @@ class StepRands:
     from ``seed`` (inside the kernel on the ``"bign"`` and ``"fused"`` routes,
     written out by the same generator for the ``"rounds"`` route); ``epsr`` is UNSCALED
     standard normal (the step multiplies by ``0.3 * leaf_sd``); ``sb`` is the
-    ``int32`` bit pattern of the JAX ``uint32`` salts.
+    ``int32`` bit pattern of the JAX ``uint32`` salts.  ``umix`` and ``gsel``
+    are drawn for the linear and mix responses only (``draw_rands(response=
+    ...)``): the children's slope coins and the winner's Gumbels (the winner
+    is ``argmax(log_w + gsel)``, ``jax.random.categorical``); that route's
+    refinement reads ``epsr``/``uacc`` and no ``usel``.
     """
 
     ug: torch.Tensor    # float32[B, C, P, Gtot] grow uniforms
@@ -94,6 +103,8 @@ class StepRands:
     uacc: torch.Tensor  # float32[B, C, R] refinement accept uniforms
     # int32[2]: the 64-bit seed of the in-kernel row Gumbels, on the device
     seed: Optional[torch.Tensor] = None
+    umix: Optional[torch.Tensor] = None  # float32[B, C, P, 2*Gtot]
+    gsel: Optional[torch.Tensor] = None  # float32[B, C, P] winner Gumbels
 
 
 def init_state(X, Y_target, cfg: BartConfig, split_prior=None, *,
@@ -143,14 +154,16 @@ def init_state(X, Y_target, cfg: BartConfig, split_prior=None, *,
 
 def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
                n: int, k: int, S: int, num_refinements: int,
-               device, row_gumbels: bool = True) -> StepRands:
+               device, row_gumbels: bool = True,
+               response: str = "constant") -> StepRands:
     """One step's random blocks from ``gen`` (which lives on ``device``).
 
     ``row_gumbels=False`` leaves out the (B, D, C, P, n) Gumbel block, the
     only one that grows with ``n``, and draws a 64-bit ``seed`` instead, from
     which the ``"bign"`` and ``"fused"`` routes generate the same block inside
     their kernels (the ``"rounds"`` route and the whole-step function's plain
-    version write it out first)."""
+    version write it out first).  ``response`` other than ``"constant"``
+    adds ``umix`` and ``gsel``, drawn after the other blocks."""
     Gtot = 2**D - 1
     R = max(num_refinements, 1)
     f32 = torch.float32
@@ -161,12 +174,13 @@ def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
     def norm(*shape):
         return torch.randn(shape, generator=gen, device=device, dtype=f32)
 
-    # Gumbel = -log(-log(u)) with u clamped away from 0 and 1
+    def gumbel(*shape):  # -log(-log(u)) with u clamped away from 0 and 1
+        u = unif(*shape).clamp_(torch.finfo(f32).tiny, 1.0 - 2.0**-24)
+        return u.log_().neg_().log_().neg_()
+
     rg = seed = None
     if row_gumbels:
-        tiny = torch.finfo(f32).tiny
-        u = unif(B, D, C, P, n).clamp_(tiny, 1.0 - 2.0**-24)
-        rg = u.log_().neg_().log_().neg_()
+        rg = gumbel(B, D, C, P, n)
     else:
         seed = torch.randint(-2**31, 2**31, (2,), generator=gen, device=device,
                              dtype=torch.int64).to(torch.int32)
@@ -178,10 +192,13 @@ def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
     else:
         epsr = torch.zeros((B, C, R, k, S), dtype=f32, device=device)
         uacc = torch.ones((B, C, R), dtype=f32, device=device)
-    return StepRands(ug=unif(B, C, P, Gtot), uv=unif(B, C, P, Gtot), rg=rg,
-                     eps=norm(B, C, P, k, 2 * Gtot), sb=sb,
-                     ures=unif(B, D, C), usel=unif(B, C), epsr=epsr,
-                     uacc=uacc, seed=seed)
+    out = StepRands(ug=unif(B, C, P, Gtot), uv=unif(B, C, P, Gtot), rg=rg,
+                    eps=norm(B, C, P, k, 2 * Gtot), sb=sb,
+                    ures=unif(B, D, C), usel=unif(B, C), epsr=epsr,
+                    uacc=uacc, seed=seed)
+    if response != "constant":
+        out.umix, out.gsel = unif(B, C, P, 2 * Gtot), gumbel(B, C, P)
+    return out
 
 
 def alpha_cdf_of(alpha_vec: torch.Tensor) -> torch.Tensor:
@@ -220,8 +237,11 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     For a non-Gaussian code the particle log-likelihood after each round is
     the closed form on ``sum_noi (C, n, k) + pred`` with the labels ``Y``
     (n, k) (the growth round's Gaussian value is ignored), and the winner is
-    refined under the same closed form.
-    Returns ``(sv, sl, st (C, S), leaf (C, S, k), ct (C, S), pred (C, n, k))``.
+    refined under the same closed form.  For the linear and mix responses
+    (Gaussian only) the rounds draw slopes and the winner is selected and
+    refined by ``select_refine_linear``.
+    Returns ``(sv, sl, st (C, S), leaf (C, S, k), ct (C, S), slope (C, S, k),
+    pred (C, n, k))``.
     """
     P = pg.num_particles
     S = cfg.n_nodes
@@ -260,6 +280,10 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     alpha_cdf = alpha_cdf_of(alpha_vec)
     residT = resid.transpose(1, 2).contiguous()                   # (C, k, n)
     gauss = lik == "gauss"
+    lin = cfg.response != "constant"
+    if lin and (rands.umix is None or rands.gsel is None):
+        raise ValueError(f"response={cfg.response!r}: rands lacks umix and "
+                         "gsel (draw_rands(response=...))")
     if gauss:
         llwT = gauss_w.transpose(1, 2).contiguous()
     else:
@@ -301,7 +325,9 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
             X, residT, rules, alpha_cdf, leaf_sd, llwT,
             rands.ug[b, :, :, off:off + G], rands.uv[b, :, :, off:off + G],
             rands.rg[b, d], rands.eps[b, :, :, :, 2 * off:2 * off + 2 * G],
-            rands.sb[b, :, :, off:off + G], None, d=d, cfg=cfg, impl=impl)
+            rands.sb[b, :, :, off:off + G],
+            rands.umix[b, :, :, 2 * off:2 * off + 2 * G] if lin else None,
+            d=d, cfg=cfg, impl=impl)
         if not gauss:
             ll = eval_ll(pred)
         take = ident
@@ -317,6 +343,14 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     eps_r = rands.epsr[b]                                         # (C,R,k,S)
     if pg.num_refinements > 0:
         eps_r = eps_r * (0.3 * leaf_sd)[:, None, :, None]
+    if lin:
+        sv_w, sl_w, st_w, lf_w, ct_w, sp_w, _li_w, pred_w = (
+            select_refine_linear(
+                sv, sl, st, lf, ct, sp, leaf_idx, pred, log_w, residT, llwT,
+                X, eps_r, rands.uacc[b], rands.gsel[b], leaf_sd,
+                num_refinements=pg.num_refinements, m=cfg.m))
+        return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w,
+                sp_w.transpose(1, 2), pred_w.transpose(1, 2))
     half_inv_var = 0.5 / (leaf_sd[:, 0] * leaf_sd[:, 0])
     if gauss:
         sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine(
@@ -330,7 +364,7 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
             num_refinements=R, m=cfg.m,
             ll_fn=lambda pred_x: eval_ll(pred_x[:, None, :]))
     return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w,
-            pred_w.transpose(1, 2))
+            torch.zeros_like(lf_w.transpose(1, 2)), pred_w.transpose(1, 2))
 
 
 def split_var_counts(forest: Forest, p: int) -> torch.Tensor:
@@ -408,14 +442,17 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     random variable), ``all_cont`` (every split rule continuous; read from
     ``rules`` when None) and ``x_nan`` (X holds a NaN; read from ``X`` when
     None).  ``impl`` forces the kernels or the plain versions on any route.
+    ``cfg.response`` ``"linear"`` / ``"mix"`` take the Gaussian code and the
+    per-round route (``rands`` from ``draw_rands(response=...)``);
+    ``n_outputs != 1`` is not ported.
     The state's tensors are UPDATED IN PLACE (forest, tree_pred and the
     Welford buffers are large and the step is the hot loop); clone the state
     first to keep the old one.  Returns ``(state, variable_inclusion (C, p))``.
     """
-    if cfg.response != "constant":
+    if cfg.response != "constant" and lik != "gauss":
         raise NotImplementedError(
-            f"response={cfg.response!r}: the select-refine round supports "
-            "the constant response only")
+            f"response={cfg.response!r} with likelihood code {lik!r}: the "
+            "linear and mix responses run with the Gaussian code only")
     if cfg.n_outputs != 1:
         raise NotImplementedError(
             f"n_outputs={cfg.n_outputs}: the select-refine round supports "
@@ -493,7 +530,7 @@ def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
                       forest.count[ar, jt], forest.slope[ar, jt])
         sum_noi = state.sum_trees - state.tree_pred[ar, jt]
         resid = Y - sum_noi
-        sv_w, sl_w, st_w, lf_w, ct_w, pred = _update_one_tree(
+        sv_w, sl_w, st_w, lf_w, ct_w, sp_w, pred = _update_one_tree(
             i, rands, tree, resid, state.alpha_vec, state.leaf_sd, X, rules,
             cfg, pg, gauss_w, impl, lik, lik_const, sum_noi, Y)
         forest.split_var[ar, jt] = sv_w
@@ -501,7 +538,7 @@ def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
         forest.split_set[ar, jt] = st_w
         forest.leaf[ar, jt] = lf_w
         forest.count[ar, jt] = ct_w
-        forest.slope[ar, jt] = 0.0
+        forest.slope[ar, jt] = sp_w
         state.tree_pred[ar, jt] = pred
         state.sum_trees = sum_noi + pred
         state.iteration = state.iteration + 1

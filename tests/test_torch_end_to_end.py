@@ -225,9 +225,10 @@ def _categorical_model(X, Y):
         observed=(Y > Y.mean()) * 1.0), "fused likelihoods"),
     (_het_model, "separate_trees"),
     (_categorical_model, "separate_trees"),
-    (lambda X, Y: tpmb.Normal(
-        "y", tpmb.BART("mu", X, Y, m=4, response="linear"), 1.0, observed=Y),
-     "response"),
+    (lambda X, Y: tpmb.Bernoulli(
+        "y", tpmb.math.sigmoid(tpmb.BART(
+            "mu", X, (Y > Y.mean()) * 1.0, m=4, response="linear")),
+        observed=(Y > Y.mean()) * 1.0), "response"),
     (lambda X, Y: tpmb.Normal(
         "y", tpmb.BART("mu", X, Y, m=4, shape=(2, 30))[0], 1.0, observed=Y),
      "n_outputs"),

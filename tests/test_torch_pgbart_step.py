@@ -126,12 +126,13 @@ def test_pgbart_step_matches_jax_per_round_route(tuning, monkeypatch):
 def test_step_refuses_what_is_not_ported():
     X, Y = _setup()
     tpg = TPgbartConfig(num_particles=PARTICLES)
-    for kw, word in ((dict(response="linear"), "response"),
-                     (dict(n_outputs=2), "n_outputs")):
+    for kw, lik, word in ((dict(response="linear"), "bernoulli", "response"),
+                          (dict(response="mix"), "het_abs", "response"),
+                          (dict(n_outputs=2), "gauss", "n_outputs")):
         tcfg = TBartConfig(m=M, max_depth=DEPTH, **kw)
         with pytest.raises(NotImplementedError, match=word):
             tpgbart.pgbart_step(None, None, torch.from_numpy(X), None, None,
-                                tcfg, tpg, False, None)
+                                tcfg, tpg, False, None, lik=lik)
 
 
 def test_draw_rands_shapes_and_determinism():
@@ -142,8 +143,9 @@ def test_draw_rands_shapes_and_determinism():
     assert a.rg.shape == (3, 3, 2, 4, 10) and a.eps.shape == (3, 2, 4, 1, 14)
     assert a.sb.dtype == torch.int32 and a.epsr.shape == (3, 2, 5, 1, 15)
     assert a.seed is None and b.seed is None    # drawn only without the block
+    assert a.umix is None and a.gsel is None    # drawn for linear / mix only
     for f in dataclasses.fields(a):
-        if f.name == "seed":
+        if f.name in ("seed", "umix", "gsel"):
             continue
         x, y = getattr(a, f.name), getattr(b, f.name)
         assert torch.equal(x, y), f.name
