@@ -18,7 +18,13 @@ line:
    linear and mix responses from three seeds each, every float output's
    error reported) and one small mixed growth case (NaNs, one-hot and subset
    columns, linear response, k=2) with its rows in shared memory (n=200) and
-   in global memory (n=120,000).  The whole-step kernel
+   in global memory (n=120,000).  The selection kernel ``select_refine``
+   against its plain version with every output equal bit for bit: the
+   selection of one tree update for the constant, linear and mix responses
+   from three seeds each (the constant ones with accepted and rejected
+   sweeps among them, which the phase checks), the linear and mix ones also
+   with a tenth of X NaN, a root-only winner and two tied particles, and a
+   linear one at n=50,000 (its rows in global memory).  The whole-step kernel
    ``pgbart_step_fused`` runs two consecutive steps from a grown state
    against its plain version, same random blocks: at the main shapes (m=50)
    for gauss with tuning on and off, bernoulli, het_abs, het_exp and
@@ -48,10 +54,11 @@ line:
    million generated values are all finite.
 4. ``step``    one tuning and one draw step of ``pgbart_step`` for 4 chains on
    the fused route, on the per-round kernel route and on ``impl="plain"``,
-   same random blocks; a non-Gaussian code must refuse the per-round route
-   on the card (its selection kernel is Gaussian); a linear forest's two
-   steps on the per-round route (which ``route=None`` must choose) against
-   ``impl="plain"``.  Then one step at
+   same random blocks; the logistic classifier's draw step on the per-round
+   route (growth and resampling kernels, the winner and refinement in plain
+   PyTorch as the JAX package runs them in XLA) against ``impl="plain"``; a
+   linear forest's two steps on the per-round route (which ``route=None``
+   must choose) against ``impl="plain"``.  Then one step at
    n=50,000 three ways on the same blocks: the large-n kernel, its plain
    version (must agree as above) and the whole-step kernel (reported: it
    sums rows in float32 in another order, so at this n a decision may flip).
@@ -64,9 +71,13 @@ line:
    rate, mean log-likelihood above the constant-rate model's), a shorter
    Friedman run on the per-round route, and the linear Friedman model of
    ``bench.py`` (``config_friedman_linear``) with a short mix run, with
-   ``pgbart_route=None``: the per-round route's warning, 30 growth and 25
-   resampling launches a step and nothing else, RMSE below 1.5 (linear), and
-   the stored slopes, with the forests, predict the last draw.  Then the two large-n models at
+   ``pgbart_route=None``: the per-round route's warning, 30 growth, 25
+   resampling and 5 selection launches a step and nothing else, no call of
+   ``select_refine_linear``, RMSE below 1.5 (linear), and the stored slopes,
+   with the forests, predict the last draw; the logistic classifier at depth
+   12 (both whole-step gates refuse it) with ``pgbart_route=None``: the
+   per-round route, its winner and refinement in plain PyTorch (accuracy and
+   log-likelihood as below).  Then the two large-n models at
    full width (4 chains, 10 particles, m=20, n=50,000, p=10, no
    refinements, route chosen by ``sample()`` itself): the Friedman regression
    (RMSE against the true f below half of std(f), the recount invariant) and
@@ -74,13 +85,13 @@ line:
    log-likelihood as above), on the large-n route with generated Gumbels.
    Kernel launch counts are set to 0 just before each run and read just
    after: a fused run launches the whole-step kernel once a step and none
-   of the others, a per-round run the three round kernels (a linear or mix
-   run the growth and resampling kernels only), a large-n run
+   of the others, a per-round run the three round kernels (a classifier the
+   growth and resampling kernels only), a large-n run
    the large-n kernel once a step and none of the others.  No run may draw
    the (B, D, C, P, n) row-Gumbel block: every route works from a seed.
 6. ``timing``  CUDA-event times of each kernel and its plain version at the
-   main-path shapes (the growth round for the constant and the linear
-   response): ``ms``/``plain_ms`` with the card's queue kept full
+   main-path shapes (the growth round and the selection for the constant and
+   the linear response): ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
    (the host's cost of a call included); the time of one whole step on both
    routes; the least time the card could take (bytes over 3.35 TB/s,
@@ -266,10 +277,12 @@ def compare_grow(tag, got, want, errs=None):
 # ---------------------------------------------------------------------------
 
 
-def main_path_inputs(dev, seed=0, response="constant", warm_impl="plain"):
+def main_path_inputs(dev, seed=0, response="constant", warm_impl="plain",
+                     n=N):
     """Run one tree's SMC with the PLAIN versions on the card and record the
     arguments of every grow / smc / select call (level by level).  The
-    frozen particle is a grown tree: 12 steps first, with ``warm_impl``."""
+    frozen particle is a grown tree: 12 steps first, with ``warm_impl``.
+    ``n`` rows of the Friedman data (default the main shapes')."""
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
     from pymc_bart_tpu_torch.ops.grow import grow_round_plain
     from pymc_bart_tpu_torch.ops.select import select_refine_plain
@@ -279,20 +292,20 @@ def main_path_inputs(dev, seed=0, response="constant", warm_impl="plain"):
     cfg = BartConfig(m=M, max_depth=DEPTH, response=response)
     pg = PgbartConfig(num_particles=P, num_refinements=R)
     S = cfg.n_nodes
-    X_np, Y_np, _ = friedman(N, PCOLS, seed=6 if response != "constant" else 0)
+    X_np, Y_np, _ = friedman(n, PCOLS, seed=6 if response != "constant" else 0)
     X = torch.from_numpy(X_np).to(dev)
     Y = torch.from_numpy(Y_np).to(dev)[:, None]
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
     rules = torch.zeros(PCOLS, dtype=torch.int32, device=dev)
-    gauss_w = torch.ones((C, N, 1), device=dev)
+    gauss_w = torch.ones((C, n, 1), device=dev)
     for _ in range(12):
-        rands = pgbart.draw_rands(gen, B=5, C=C, P=P, D=DEPTH, n=N, k=1, S=S,
+        rands = pgbart.draw_rands(gen, B=5, C=C, P=P, D=DEPTH, n=n, k=1, S=S,
                                   num_refinements=R, device=dev,
                                   response=response)
         state, _ = pgbart.pgbart_step(state, rands, X, Y, rules, cfg, pg,
                                       True, gauss_w, impl=warm_impl)
-    rands = pgbart.draw_rands(gen, B=1, C=C, P=P, D=DEPTH, n=N, k=1, S=S,
+    rands = pgbart.draw_rands(gen, B=1, C=C, P=P, D=DEPTH, n=n, k=1, S=S,
                               num_refinements=R, device=dev, response=response)
     calls = {"grow": [], "smc": [], "select": []}
 
@@ -324,9 +337,10 @@ def main_path_inputs(dev, seed=0, response="constant", warm_impl="plain"):
                                 None)
     finally:
         pgbart.grow_round, pgbart.smc_resample, pgbart.select_refine = saved
-    if len(calls["grow"]) != DEPTH or len(calls["smc"]) != DEPTH - 1:
-        raise AssertionError("one tree update did not make D growth rounds "
-                             "and D-1 resampling steps")
+    if (len(calls["grow"]) != DEPTH or len(calls["smc"]) != DEPTH - 1
+            or len(calls["select"]) != 1):
+        raise AssertionError("one tree update did not make D growth rounds, "
+                             "D-1 resampling steps and one selection")
     return calls, cfg
 
 
@@ -838,6 +852,129 @@ def check_generated(dev, seed=29):
 # ---------------------------------------------------------------------------
 
 
+SELECT_NAMES = {
+    False: ("sv", "sl", "st", "lf", "ct", "leaf_idx", "pred"),
+    True: ("sv", "sl", "st", "lf", "ct", "sp", "leaf_idx", "pred")}
+# rows of a linear selection too many for shared memory: the kernel's form
+# that keeps them in global memory (ops/select.py::smem_bytes)
+SELECT_ROWS_GLOBAL = 50_000
+
+
+def check_same(name, got, want):
+    """Every entry equal, bit for bit (float32 compared as bit patterns, so
+    -0.0 is not +0.0); returns the max abs error, 0."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    g, w = got, want
+    if got.dtype == torch.float32:
+        g, w = got.view(torch.int32), want.view(torch.int32)
+    if not torch.equal(g, w):
+        bad = (g != w).nonzero()[0].tolist()
+        raise AssertionError(
+            f"{name}: {int((g != w).sum())} entries differ, max abs err "
+            f"{max_err(got, want)}, first at {bad}: kernel "
+            f"{float(got[tuple(bad)])} plain {float(want[tuple(bad)])}")
+    return 0.0
+
+
+def sweep_decisions(a, kw):
+    """``(accepted, rejected)``: the Metropolis decisions, over chains and
+    sweeps, of one selection call, read off the plain version run with one
+    sweep more each time (a sweep accepted where the leaves moved)."""
+    from pymc_bart_tpu_torch.ops.select import select_refine_plain
+
+    a = list(a)
+    R_ = kw["num_refinements"]
+    eps, u_acc = a[10], a[11]
+
+    def leaves(r):
+        a[10], a[11] = eps[:, :max(r, 1)], u_acc[:, :max(r, 1)]
+        return select_refine_plain(*a, **dict(kw, num_refinements=r))[3]
+
+    prev, taken = leaves(0), []
+    for r in range(1, R_ + 1):
+        cur = leaves(r)
+        taken.append((cur != prev).flatten(1).any(dim=1))
+        prev = cur
+    taken = torch.stack(taken)
+    return int(taken.sum()), int((~taken).sum())
+
+
+def with_nan_and_root_winner(a, kw, seed=41):
+    """A linear / mix selection call made harder: a tenth of X NaN; in chain
+    0 particle 1 a root-only tree and the winner; in chain 1 particles 2 and
+    5 tied at the top of ``log_w + g_sel`` (the first must win)."""
+    a, kw = list(a), dict(kw)
+    gen = torch.Generator(device=a[0].device).manual_seed(seed)
+    X = kw["X"].clone()
+    X[torch.rand(X.shape, generator=gen, device=X.device) < 0.1] = float("nan")
+    sv, ct, li, pred = (a[i].clone() for i in (0, 4, 5, 6))
+    log_w, g_sel = a[7].clone(), kw["g_sel"].clone()
+    n = li.shape[2]
+    sv[0, 1] = -1
+    ct[0, 1] = 0.0
+    ct[0, 1, 0] = float(n)
+    li[0, 1] = 0
+    pred[0, 1] = a[3][0, 1, :, 0:1]     # the root's leaf value, no slope
+    g_sel[0, 1] = 1e4
+    log_w[1, 2] = log_w[1, 5] = 0.0
+    g_sel[1, 2] = g_sel[1, 5] = 2e4
+    a[0], a[4], a[5], a[6], a[7] = sv, ct, li, pred, log_w
+    kw.update(X=X, g_sel=g_sel)
+    return tuple(a), kw
+
+
+def compare_select(dev, trajs):
+    """``csrc/select.cu`` against its plain version, every output equal bit
+    for bit: the selection call of one tree update at the main shapes for
+    each response and seed (the constant response's with accepted and
+    rejected sweeps among them); for linear and mix also those calls with NaN
+    in X, a root-only winner and tied particles; a linear call at
+    n=SELECT_ROWS_GLOBAL, whose rows stay in global memory."""
+    from pymc_bart_tpu_torch.ops.select import select_refine, smem_bytes
+
+    def compare(tag, a, kw):
+        lin = kw.get("response", "constant") != "constant"
+        got = select_refine(*a, impl="kernel", **kw)
+        torch.cuda.synchronize()
+        want = select_refine(*a, impl="plain", **kw)
+        torch.cuda.synchronize()
+        if len(got) != len(SELECT_NAMES[lin]):
+            raise AssertionError(f"select_refine {tag}: {len(got)} outputs")
+        return max(check_same(f"select_refine {tag} {name}", g, w)
+                   for name, g, w in zip(SELECT_NAMES[lin], got, want))
+
+    out = {}
+    for response in GROW_RESPONSES:
+        err, acc, rej = 0.0, 0, 0
+        for seed in GROW_SEEDS:
+            a, kw = trajs[response, seed]["select"][0]
+            err = max(err, compare(f"{response} seed {seed}", a, kw))
+            n_acc, n_rej = sweep_decisions(a, kw)
+            acc, rej = acc + n_acc, rej + n_rej
+            if response != "constant":
+                a2, kw2 = with_nan_and_root_winner(a, kw)
+                err = max(err, compare(f"{response} seed {seed} nan/root",
+                                       a2, kw2))
+        if response == "constant" and not (acc and rej):
+            raise AssertionError(f"constant selection: {acc} sweeps accepted "
+                                 f"and {rej} rejected; both are needed")
+        out[response] = dict(max_abs_err=err, seeds=list(GROW_SEEDS),
+                             sweeps_accepted=acc, sweeps_rejected=rej,
+                             nan_x_root_winner_ties=response != "constant")
+    big, _ = main_path_inputs(dev, 0, "linear", warm_impl=None,
+                              n=SELECT_ROWS_GLOBAL)
+    a, kw = big["select"][0]
+    S = a[0].shape[2]
+    if smem_bytes(S, P, SELECT_ROWS_GLOBAL, True, True) <= 232448:
+        raise AssertionError("the large linear selection fits shared memory")
+    out[f"linear_n{SELECT_ROWS_GLOBAL}"] = dict(
+        max_abs_err=compare(f"linear n={SELECT_ROWS_GLOBAL}", a, kw),
+        form="global", sweeps_accepted=sweep_decisions(a, kw)[0])
+    return out
+
+
 def phase_kernels(dev, calls, cfg):
     from pymc_bart_tpu_torch.ops.grow import grow_round
     from pymc_bart_tpu_torch.ops.select import select_refine
@@ -845,14 +982,16 @@ def phase_kernels(dev, calls, cfg):
 
     errs = {"grow_round": 0.0, "smc_resample": 0.0, "select_refine": 0.0}
     grow_cases = {}
+    trajs = {}
     for response in GROW_RESPONSES:
         float_errs, grown, slopes = {}, 0, 0
         for seed in GROW_SEEDS:
             # the constant response's first trajectory is the main path's
-            # (its smc and select calls are compared below); the others warm
-            # up on the kernels
+            # (its smc calls are compared below); the others warm up on the
+            # kernels
             traj = (calls if (response, seed) == ("constant", 0) else
                     main_path_inputs(dev, seed, response, warm_impl=None)[0])
+            trajs[response, seed] = traj
             for a, kw in traj["grow"]:
                 got = grow_round(*a, impl="kernel", **kw)
                 torch.cuda.synchronize()
@@ -895,16 +1034,9 @@ def phase_kernels(dev, calls, cfg):
                 check_close(f"smc_resample {name}", g, w, 1e-4, 1e-5))
         ident = torch.arange(P, device=dev, dtype=torch.int32)
         resampled += int((got[1] != ident).any())
-    a, kw = calls["select"][0]
-    got = select_refine(*a, impl="kernel", **kw)
-    torch.cuda.synchronize()
-    want = select_refine(*a, impl="plain", **kw)
-    for name, g, w in zip(("sv", "sl", "st", "lf", "ct", "leaf_idx", "pred"),
-                          got, want):
-        tol = (1e-5, 1e-6) if name == "sl" else (1e-4, 1e-5)
-        errs["select_refine"] = max(
-            errs["select_refine"],
-            check_close(f"select_refine {name}", g, w, *tol))
+    select_cases = compare_select(dev, trajs)
+    errs["select_refine"] = max(v["max_abs_err"]
+                                for v in select_cases.values())
     fused = {}
     for name in FUSED_CASES:
         err = 0.0
@@ -932,6 +1064,7 @@ def phase_kernels(dev, calls, cfg):
     emit("kernels", max_abs_err=errs, grow_round_cases=grow_cases,
          grow_mixed_max_abs_err=mixed_err,
          smc_calls_that_resampled=resampled,
+         select_refine_cases=select_cases,
          pgbart_step_fused_cases=fused,
          pgbart_step_fused_generated=fused_generated,
          pgbart_step_bign_cases=large,
@@ -939,6 +1072,7 @@ def phase_kernels(dev, calls, cfg):
          large_n_shapes=dict(LN, S=2 ** (LN["DEPTH"] + 1) - 1),
          tolerance={"integers": "equal", "split_val": "rtol 1e-5 atol 1e-6",
                     "other floats": "rtol 1e-4 atol 1e-5",
+                    "select_refine": "every output equal, bit for bit",
                     "state of a whole step": {
                         k: "equal" if v is None else f"rtol {v[0]} atol {v[1]}"
                         for k, v in STATE_TOL.items()}},
@@ -979,15 +1113,7 @@ def phase_step(dev):
     splits = int((states["fused"].forest.split_var >= 0).sum())
     if splits == 0:
         raise AssertionError("two steps grew no split at all")
-    # the per-round selection kernel is Gaussian: on the card another code
-    # must refuse that route, not reach a plain version
-    try:
-        pgbart.pgbart_step(first.clone(), rands, X, Y, rules, cfg, pg, False,
-                           None, lik="bernoulli", route="rounds")
-    except NotImplementedError as e:
-        refusal = str(e)
-    else:
-        raise AssertionError("bernoulli ran on the per-round route on the card")
+    bernoulli = bernoulli_rounds_step(dev, rands)
     # one step at n = 50,000 three ways, same pre-drawn blocks
     from pymc_bart_tpu_torch.ops.draw import pgbart_step_fused
 
@@ -1017,12 +1143,53 @@ def phase_step(dev):
     check_close("large-n step iteration", sf.iteration, sb.iteration, 0, 0)
     linear = linear_steps(dev)
     emit("step", max_abs_err_vs_plain=worst, split_nodes=splits, chains=C,
-         rounds_route_refuses_bernoulli=refusal, linear=linear,
+         bernoulli_rounds=bernoulli, linear=linear,
          large_n=dict(
              n=LN["N"], bign_max_abs_err_vs_plain=large_err,
              fused_split_vars_differing=int(
                  (sf.forest.split_var != sb.forest.split_var).sum()),
              fused_sum_trees_max_abs_diff=max_err(sf.sum_trees, sb.sum_trees)))
+
+
+def bernoulli_rounds_step(dev, rands):
+    """The logistic classifier's draw step on the per-round route: growth and
+    resampling kernels, its winner and refinement in plain PyTorch (as the
+    JAX package runs them in XLA), against ``impl="plain"`` on the same
+    blocks."""
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+    from pymc_bart_tpu_torch.ops.grow import grow_round
+    from pymc_bart_tpu_torch.ops.select import select_refine
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    cfg = BartConfig(m=M, max_depth=DEPTH)
+    pg = PgbartConfig(num_particles=P, num_refinements=R)
+    Xl, Yl = logistic(N, PCOLS)
+    X = torch.from_numpy(Xl).to(dev)
+    Y = torch.from_numpy(Yl).to(dev)[:, None]
+    rules = torch.zeros(PCOLS, dtype=torch.int32, device=dev)
+    first = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
+    outs, launches = {}, {}
+    for k, impl in (("rounds", None), ("plain", "plain")):
+        before = (grow_round.launches, select_refine.launches)
+        outs[k] = pgbart.pgbart_step(first.clone(), rands, X, Y, rules, cfg,
+                                     pg, False, None, impl=impl,
+                                     lik="bernoulli", route="rounds")
+        launches[k] = dict(grow_round=grow_round.launches - before[0],
+                           select_refine=select_refine.launches - before[1])
+    torch.cuda.synchronize()
+    B = pg.batch_size(M, False)
+    if launches["rounds"] != dict(grow_round=B * DEPTH, select_refine=0) or \
+            any(launches["plain"].values()):
+        raise AssertionError(f"bernoulli per-round step: launches {launches}")
+    check_close("bernoulli rounds vi", outs["rounds"][1], outs["plain"][1],
+                0.0, 0.0)
+    err = compare_state("bernoulli rounds step", outs["rounds"][0],
+                        outs["plain"][0])
+    f = outs["rounds"][0].forest
+    if not bool((f.split_var >= 0).any()):
+        raise AssertionError("the bernoulli per-round step grew no split")
+    return dict(max_abs_err_vs_plain=err, launches=launches["rounds"],
+                split_nodes=int((f.split_var >= 0).sum()))
 
 
 def linear_steps(dev):
@@ -1071,9 +1238,14 @@ def linear_steps(dev):
                 whole_step_refuses=why["fused"], large_n_refuses=why["bign"])
 
 
-def sample_run(model, route, tune, draws, shape=None, choose=False):
+def sample_run(model, route, tune, draws, shape=None, choose=False,
+               gaussian=True):
     """One ``sample()`` run on the card with every launch count set to 0
     just before and read just after; checks the counts of the route.
+    ``gaussian``: the model's likelihood is Normal (the per-round route
+    selects with the kernel; a classifier selects in plain PyTorch).
+    Nothing may call ``ops.select.select_refine_linear``, the XLA-shaped
+    form of the linear selection that only the tests use.
 
     ``shape``: ``dict(C, P, N, PCOLS, M, DEPTH)`` plus the ``sample()``
     arguments ``refinements`` and ``store_trees``; default the n=1000 shapes.
@@ -1088,6 +1260,7 @@ def sample_run(model, route, tune, draws, shape=None, choose=False):
     from pymc_bart_tpu_torch.ops.predict import forest_predict
     from pymc_bart_tpu_torch.ops.trees import Forest
     import pymc_bart_tpu_torch as pmb
+    from pymc_bart_tpu_torch.ops import select as select_mod
     from pymc_bart_tpu_torch.ops.bign import pgbart_step_bign
     from pymc_bart_tpu_torch.ops.draw import pgbart_step_fused
     from pymc_bart_tpu_torch.ops.grow import grow_round
@@ -1111,6 +1284,16 @@ def sample_run(model, route, tune, draws, shape=None, choose=False):
         blocks_drawn.append(bool(kw.get("row_gumbels", True)))
         return real_draw(*a, **kw)
 
+    # select_refine_linear wherever a module holds it by that name
+    linear_holders = [m for m in (select_mod, pgbart)
+                      if hasattr(m, "select_refine_linear")]
+    real_linear = select_mod.select_refine_linear
+    linear_calls = []
+
+    def linear_spy(*a, **kw):
+        linear_calls.append(1)
+        return real_linear(*a, **kw)
+
     choose = choose or route == "bign"
     with pmb.Model(), warnings.catch_warnings(record=True) as said:
         warnings.simplefilter("always")
@@ -1118,6 +1301,8 @@ def sample_run(model, route, tune, draws, shape=None, choose=False):
         for w in wrappers.values():
             w.launches = 0
         pgbart.draw_rands = spy
+        for m in linear_holders:
+            m.select_refine_linear = linear_spy
         try:
             t0 = time.perf_counter()
             idata = pmb.sample(tune=tune, draws=draws, chains=sh["C"],
@@ -1131,7 +1316,12 @@ def sample_run(model, route, tune, draws, shape=None, choose=False):
             seconds = time.perf_counter() - t0
         finally:
             pgbart.draw_rands = real_draw
+            for m in linear_holders:
+                m.select_refine_linear = real_linear
         launches = {k: int(w.launches) for k, w in wrappers.items()}
+    if linear_calls:
+        raise AssertionError(f"{route} route: select_refine_linear was called "
+                             f"{len(linear_calls)} times on the card")
     per_round_said = any("per-round sampler route" in str(w.message)
                          for w in said)
     if choose and per_round_said != (route == "rounds"):
@@ -1150,10 +1340,11 @@ def sample_run(model, route, tune, draws, shape=None, choose=False):
     B = max(1, int(sh["M"] * 0.1))
     want = dict.fromkeys(wrappers, 0)
     if route == "rounds":
-        # a linear / mix winner is selected in plain PyTorch, as in JAX
+        # every Gaussian forest selects with the kernel; another likelihood
+        # in plain PyTorch, as in JAX
         want.update(grow_round=steps * B * sh["DEPTH"],
                     smc_resample=steps * B * (sh["DEPTH"] - 1),
-                    select_refine=steps * B if constant else 0)
+                    select_refine=steps * B if gaussian else 0)
     else:
         want["pgbart_step_" + route] = steps
     for k, v in launches.items():
@@ -1207,7 +1398,8 @@ def sample_run(model, route, tune, draws, shape=None, choose=False):
                chain_draws_per_s=sh["C"] * draws
                / timings["draw_seconds_total"],
                vi_top5=np.argsort(vi.sum(axis=(0, 1))[0])[::-1][:5].tolist(),
-               launches=launches, gumbel_blocks_drawn=sum(blocks_drawn))
+               launches=launches, gumbel_blocks_drawn=sum(blocks_drawn),
+               select_refine_linear_calls=len(linear_calls))
     return idata, post, out
 
 
@@ -1294,6 +1486,22 @@ def phase_sample(dev, tune, draws, large_tune, large_draws):
         *sample_run(slope_model("mix"), "rounds", mix_steps, mix_steps,
                     choose=True), f=fn, model="friedman mix", bound=False)
 
+    # a depth-12 classifier at 20 particles: both whole-step gates refuse it,
+    # so sample() takes the per-round route by itself
+    deep_steps = max(4, draws // 8)
+
+    def deep_classifier(pmb):
+        lo = pmb.BART("lo", Xl, Yl, m=M, max_depth=12)
+        pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Yl)
+        return lo
+
+    idata, post, out = sample_run(
+        deep_classifier, "rounds", deep_steps, deep_steps,
+        dict(DEPTH=12, store_trees=False), choose=True, gaussian=False)
+    runs["logistic_depth12_rounds"] = dict(out, model="logistic depth 12",
+                                           **classifier_quality(post, Yl))
+    del idata, post
+
     # the two large-n models; sample() itself must choose the large-n route
     big = dict(LN, refinements=0)
     Xb, Yb, fb = friedman(LN["N"], LN["PCOLS"], seed=5)
@@ -1331,7 +1539,8 @@ def phase_sample(dev, tune, draws, large_tune, large_draws):
                                       **classifier_quality(post, Yc))
     del idata, post
     emit("sample", runs=runs)
-    per_round = ("friedman_rounds", "friedman_linear", "friedman_mix")
+    per_round = ("friedman_rounds", "friedman_linear", "friedman_mix",
+                 "logistic_depth12_rounds")
     launches = {k: sum(runs[r]["launches"][k] for r in per_round)
                 for k in ROUND_KERNELS}
     for name, used_by in (
@@ -1386,8 +1595,8 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
             bound_by=rows[0]["bound_by"], by_level=rows)
 
     out["grow_round"] = grow_levels(calls)
-    out["grow_round"]["linear"] = grow_levels(
-        main_path_inputs(dev, 0, "linear", warm_impl=None)[0])
+    linear_calls = main_path_inputs(dev, 0, "linear", warm_impl=None)[0]
+    out["grow_round"]["linear"] = grow_levels(linear_calls)
 
     a = calls["smc"][0]
     outs = smc_resample(*a, impl="kernel")
@@ -1397,19 +1606,28 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
         **timed(lambda: smc_resample(*a, impl="kernel"),
                 lambda: smc_resample(*a, impl="plain")))
 
-    a, kw = calls["select"][0]
-    outs = select_refine(*a, impl="kernel", **kw)
-    S = cfg.n_nodes
-    # the work this data needs: the winner's rows only (not all P particles),
-    # log_w, resid, ll_weight, the noise, and the outputs
-    bts = C * (4 * S + 2 * N) * 4 + nbytes(a[7], a[8], a[9], a[10], a[11],
-                                           a[12], a[13]) + nbytes(*outs)
-    ops = C * ((R + 1) * (4 * N + 4 * S) + N)
-    b_ms, by = bound(bts, ops)
-    out["select_refine"] = dict(
-        bound_ms=b_ms, bound_by=by,
-        **timed(lambda: select_refine(*a, impl="kernel", **kw),
-                lambda: select_refine(*a, impl="plain", **kw)))
+    def select_times(a, kw):
+        outs = select_refine(*a, impl="kernel", **kw)
+        lin = kw.get("response", "constant") != "constant"
+        S = a[0].shape[2]
+        # the work this data needs: the winner's node arrays (and slopes)
+        # and rows only, not all P particles'; log_w, resid, ll_weight, the
+        # noise, u_sel or the Gumbels, the prior scale; one covariate a row;
+        # the outputs
+        bts = (C * ((5 + lin) * S + 2 * N + lin * N) * 4
+               + nbytes(a[7], a[8], a[9], a[10], a[11], a[13],
+                        kw["g_sel"] if lin else a[12]) + nbytes(*outs))
+        # per sweep and the winner's own prediction: per row the gather
+        # (and slope add), difference, square, weight, add; per leaf the
+        # proposal, deviation, square, weight, add; the leaf sums
+        ops = C * ((R + 1) * ((5 + lin) * N + 6 * S) + 2 * N)
+        b_ms, by = bound(bts, ops)
+        return dict(bound_ms=b_ms, bound_by=by, bytes=bts,
+                    **timed(lambda: select_refine(*a, impl="kernel", **kw),
+                            lambda: select_refine(*a, impl="plain", **kw)))
+
+    out["select_refine"] = select_times(*calls["select"][0])
+    out["select_refine"]["linear"] = select_times(*linear_calls["select"][0])
 
     # the whole-step kernel at the main shapes, from a grown state; every
     # launch advances the state in place, as on the main path.  The main path
@@ -1507,7 +1725,7 @@ def phase_timing(dev, calls, cfg, smi, runs=None):
          large_n_crossover=crossover,
          launches_per_step={"pgbart_step_fused": 1, "grow_round": 5 * DEPTH,
                             "smc_resample": 5 * (DEPTH - 1),
-                            "select_refine": "5 (constant), 0 (linear, mix)",
+                            "select_refine": 5,
                             "pgbart_step_bign": 1})
     check_crossover(crossover)
     return out

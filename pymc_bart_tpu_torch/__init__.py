@@ -16,10 +16,10 @@ Usage (PyMC-shaped)::
         idata = pmb.sample(tune=200, draws=600, chains=4)   # on the GPU
 
 ``sample`` runs on ``cuda`` unless ``device="cpu"`` is passed.  On CUDA
-tensors a PGBART step is one launch of the whole-step kernel where its gate
-admits the configuration, else one launch per growth, SMC-resampling and
-select-refine round; all four are hand-written CUDA kernels built from
-``csrc/`` at first use.
+tensors a PGBART step is one launch of the large-n or the whole-step kernel
+where a gate admits the configuration, else one launch per growth,
+SMC-resampling and select-refine round; all five are hand-written CUDA
+kernels built from ``csrc/`` at first use.
 """
 
 __version__ = "0.1.0"
@@ -51,6 +51,7 @@ from .models import (
     StudentT,
     Uniform,
     math,
+    preprocess_xy,
     set_data,
 )
 from .sampler import PGBART, sample
@@ -62,6 +63,6 @@ __all__ = [
     "HalfNormal", "InferenceData", "LogNormal", "Model", "NegativeBinomial",
     "Normal", "OneHotSplitRule", "PGBART", "PgbartConfig", "Poisson",
     "PosteriorForests", "SplitRule", "StudentT", "SubsetSplitRule", "Uniform",
-    "check_convergence", "ess_bulk", "math", "rhat", "sample", "set_data",
-    "summary",
+    "check_convergence", "ess_bulk", "math", "preprocess_xy", "rhat",
+    "sample", "set_data", "summary",
 ]

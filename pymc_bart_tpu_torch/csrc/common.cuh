@@ -102,6 +102,26 @@ __device__ __forceinline__ void keyed_add(int key, long long q, long long* acc,
   }
 }
 
+// Adds v to a 64-bit shared-memory accumulator by two native 32-bit atomics,
+// the low word's carry added to the high word (a 64-bit shared atomicAdd
+// compiles to a compare-and-swap loop on this card).
+__device__ __forceinline__ void add64(long long* acc, long long v) {
+  unsigned int* w = (unsigned int*)acc;
+  const unsigned int lo = (unsigned int)v;
+  const unsigned int hi = (unsigned int)((unsigned long long)v >> 32);
+  const unsigned int old = atomicAdd(w, lo);
+  atomicAdd(w + 1, hi + (old + lo < old ? 1u : 0u));
+}
+
+// keyed_add for an accumulator in shared memory, without counts: the group's
+// sum goes in by add64.  All 32 lanes call.
+__device__ __forceinline__ void keyed_add_shared(int key, long long q,
+                                                 long long* acc, int lane) {
+  const unsigned int peers = __match_any_sync(0xffffffffu, key);
+  const long long sum = group_sum(peers, q);
+  if (key >= 0 && lane == __ffs(peers) - 1) add64(&acc[key], sum);
+}
+
 // Raises best[node] to the largest key among the lanes with that node
 // (node < 0: no key): a match, one 32-bit warp maximum of the value word, and
 // one atomic by the lowest lane that holds it (the lowest row of the warp).
@@ -319,6 +339,34 @@ __device__ __forceinline__ int winner_warp(const float* __restrict__ lw,
     __syncwarp();
   }
   return min(max(cnt, 0), P - 1);
+}
+
+// Whether (a, ia) ranks above (b, ib) in an arg-max: the larger value, NaN
+// above every number, the lower index among equals (torch.argmax's order).
+__device__ __forceinline__ bool argmax_before(float a, int ia, float b, int ib) {
+  const bool an = isnan(a), bn = isnan(b);
+  if (an || bn) return an && (!bn || ia < ib);
+  return a > b || (a == b && ia < ib);
+}
+
+// Arg-max over i < P of lw[i] + g[i] (each sum rounded to float32), the first
+// index on ties: the winner of jax.random.categorical with Gumbels g.  One
+// warp, every lane returns it.
+__device__ __forceinline__ int argmax_warp(const float* __restrict__ lw,
+                                           const float* __restrict__ g, int P) {
+  const int lane = threadIdx.x & 31;
+  float bv = -INFINITY;
+  int bi = 0x7fffffff;  // no entry: below every entry of the same value
+  for (int i = lane; i < P; i += 32) {
+    const float v = __fadd_rn(lw[i], g[i]);
+    if (argmax_before(v, i, bv, bi)) { bv = v; bi = i; }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (argmax_before(ov, oi, bv, bi)) { bv = ov; bi = oi; }
+  }
+  return bi;
 }
 
 }  // namespace bart

@@ -55,6 +55,7 @@
 
 namespace {
 
+using bart::add64;
 using bart::go_left;
 using bart::group_sum;
 using bart::keyed_max;
@@ -130,17 +131,6 @@ __host__ __device__ inline size_t layout(Smem& s, unsigned char* base, int G,
   s.rows = (unsigned short*)(base + off);
   if (shared_rows) off += 2 * (size_t)n;
   return align16(off);
-}
-
-// Adds v to a 64-bit shared-memory accumulator by two native 32-bit atomics,
-// the low word's carry added to the high word (a 64-bit shared atomicAdd
-// compiles to a compare-and-swap loop, which costs 4 % of a launch here).
-__device__ __forceinline__ void add64(long long* acc, long long v) {
-  unsigned int* w = (unsigned int*)acc;
-  const unsigned int lo = (unsigned int)v;
-  const unsigned int hi = (unsigned int)((unsigned long long)v >> 32);
-  const unsigned int old = atomicAdd(w, lo);
-  atomicAdd(w + 1, hi + (old + lo < old ? 1u : 0u));
 }
 
 extern __shared__ unsigned long long smem_u64[];

@@ -19,6 +19,7 @@ from .model import (
     Poisson,
     StudentT,
     Uniform,
+    preprocess_xy,
     set_data,
 )
 
@@ -27,5 +28,5 @@ __all__ = [
     "DataArray", "Dataset", "Deterministic", "Exponential", "Expr", "FreeRV",
     "Gamma", "HalfNormal", "InferenceData", "LogNormal", "Model",
     "NegativeBinomial", "Normal", "ObservedRV", "Op", "Poisson", "StudentT",
-    "Uniform", "evaluate", "math", "set_data",
+    "Uniform", "evaluate", "math", "preprocess_xy", "set_data",
 ]

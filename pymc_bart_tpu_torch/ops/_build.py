@@ -25,7 +25,7 @@ KERNEL_SOURCES = ("grow", "smc", "select", "draw", "bign")
 # versions do (one rounding per operation), so they are compiled without
 # fused multiply-add
 EXTRA_FLAGS = {"bign": ("-fmad=false",), "draw": ("-fmad=false",),
-               "grow": ("-fmad=false",)}
+               "grow": ("-fmad=false",), "select": ("-fmad=false",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -2,25 +2,32 @@
 
 Counterpart of ``pymc_bart_tpu/ops/select_pallas.py``
 (``select_refine_pallas``) and of ``pymc_bart_tpu/sampler/pgbart.py::_leaf_rsum``;
-the kernel is ``csrc/select.cu``.  The winner is picked by inverse CDF on
-``u_sel`` over ``exp(log_w - max)``; its arrays are extracted; per-leaf
-residual sums give the prior centres; ``R`` Metropolis sweeps with pre-drawn
-noise refine the leaf values under likelihood x
-``N(leaf residual mean / m, leaf_sd)`` prior.  ``n_outputs == 1`` and the
-constant response only, as the TPU kernel; the wrapper raises otherwise.
+the kernel is ``csrc/select.cu``.  The winner's arrays are extracted;
+per-leaf residual sums give the prior centres; ``R`` Metropolis sweeps with
+pre-drawn noise refine the leaf values under likelihood x
+``N(leaf residual mean / m, leaf_sd)`` prior.  ``n_outputs == 1``; the kernel
+is Gaussian.  Two responses:
 
-``select_refine_linear`` is the same step for the linear and mix responses,
-in plain PyTorch as the JAX package runs it in XLA (``_update_one_tree``,
-the winner and refinement block after the growth rounds): the winner by
-``jax.random.categorical`` (arg-max of ``log_w`` plus Gumbels), the
-prediction with the slope term (``ops/predict.py::leaf_values_at``).
+* ``"constant"``, as the TPU kernel: the winner by inverse CDF on ``u_sel``
+  over ``exp(log_w - max)``, the prediction the leaf value;
+* ``"linear"`` / ``"mix"``, as the JAX package runs them in XLA
+  (``_update_one_tree``, the winner and refinement block after the growth
+  rounds): the winner by ``jax.random.categorical`` (arg-max of ``log_w``
+  plus the Gumbels ``g_sel``, first index on ties), the prediction with the
+  winner's slope term (``ops/predict.py::leaf_values_at``), its slopes
+  ``sp`` extracted too.
+
+``select_refine_linear`` is the same step for the linear and mix responses
+with ``k`` outputs, written as the XLA code is (the prediction recomputed
+every sweep); the tests hold the plain version's linear form to it.
 
 Shapes (leading chain axis ``C``, K-major with ``k == 1``): ``sv``, ``sl``,
-``st``, ``ct`` (C, P, S); ``lf`` (C, P, 1, S); ``leaf_idx`` (C, P, n) int32;
-``pred`` (C, P, 1, n); ``log_w`` (C, P); ``resid``/``ll_weight`` (C, 1, n);
-``eps`` (C, R, 1, S) already scaled; ``u_acc`` (C, R); ``u_sel`` (C,);
-``half_inv_var`` (C,).  Returns ``sv, sl, st (C, S)``, ``lf (C, 1, S)``,
-``ct (C, S)``, ``leaf_idx (C, n)``, ``pred (C, 1, n)``.
+``st``, ``ct`` (C, P, S); ``lf`` and ``sp`` (C, P, 1, S); ``leaf_idx``
+(C, P, n) int32; ``pred`` (C, P, 1, n); ``log_w`` (C, P); ``resid``/
+``ll_weight`` (C, 1, n); ``eps`` (C, R, 1, S) already scaled; ``u_acc``
+(C, R); ``u_sel`` (C,); ``g_sel`` (C, P); ``half_inv_var`` (C,); ``X``
+(n, p).  Returns ``sv, sl, st (C, S)``, ``lf (C, 1, S)``, ``ct (C, S)``,
+[``sp (C, 1, S)`` for linear / mix,] ``leaf_idx (C, n)``, ``pred (C, 1, n)``.
 """
 
 from __future__ import annotations
@@ -35,24 +42,37 @@ from .predict import leaf_values_at
 from .sums import (fixed_scale, keyed_sum_fixed, seq_cumsum, sum64,
                    true_div)
 
+RESPONSES = ("constant", "linear", "mix")
+
 
 def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
                         ll_weight, eps, u_acc, u_sel, half_inv_var, *,
-                        num_refinements: int, m: int = 1, ll_fn=None):
+                        num_refinements: int, m: int = 1, ll_fn=None,
+                        response: str = "constant", sp=None, X=None,
+                        g_sel=None):
     """Plain PyTorch version (same signature and outputs as the kernel).
 
     ``ll_fn(pred (C, n)) -> (C,)`` replaces the Gaussian log-likelihood for
-    the other closed-form codes (the kernel is Gaussian only)."""
+    the other closed-form codes (constant response; the kernel is Gaussian
+    only).  For ``response`` ``"linear"`` / ``"mix"`` the slope term
+    ``sp[leaf] * x`` of every row is taken once (the sweeps move intercepts
+    only) and added to each proposal's leaf value, as the kernel does."""
     C, P, S = sv.shape
     n = leaf_idx.shape[2]
     if lf.shape[2] != 1:
         raise ValueError("select_refine supports n_outputs == 1 only")
+    lin = _is_linear(response)
+    if lin and ll_fn is not None:
+        raise ValueError("the linear and mix responses are Gaussian only")
     R = num_refinements
 
-    mx = log_w.max(dim=1, keepdim=True).values
-    cdf = seq_cumsum(torch.exp(log_w - mx))
-    u = u_sel * cdf[:, -1]
-    widx = (cdf < u[:, None]).sum(dim=1).clamp(0, P - 1)         # (C,)
+    if lin:
+        widx = (log_w + g_sel).argmax(dim=1)                     # (C,)
+    else:
+        mx = log_w.max(dim=1, keepdim=True).values
+        cdf = seq_cumsum(torch.exp(log_w - mx))
+        u = u_sel * cdf[:, -1]
+        widx = (cdf < u[:, None]).sum(dim=1).clamp(0, P - 1)     # (C,)
 
     def pick(a):
         idx = widx.reshape((C, 1) + (1,) * (a.dim() - 2))
@@ -63,12 +83,22 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     lf_w = pick(lf)[:, 0]                                        # (C, S)
     pred_w = pick(pred)[:, 0]                                    # (C, n)
     li64 = li_w.to(torch.int64)
+    if lin:
+        sp_w = pick(sp)[:, 0]                                    # (C, S)
+        p = X.shape[1]
+        pvar = torch.gather(sv_w.to(torch.int64), 1,
+                            ((li64 - 1) // 2).clamp_min(0))
+        xp = X[torch.arange(n, device=X.device).expand(C, n),
+               pvar.clamp(0, p - 1)]
+        xp = torch.where((li64 > 0) & (pvar >= 0),
+                         torch.nan_to_num(xp, nan=0.0), torch.zeros_like(xp))
+        sx = torch.gather(sp_w, 1, li64) * xp                    # (C, n)
 
     r = resid[:, 0]
     llw = ll_weight[:, 0]
     leaf_mask = ((sv_w < 0) & (ct_w > 0)).to(torch.float32)
     # per-leaf residual sums in fixed point, the other sums in float64
-    # rounded once: what the whole-step kernel computes (ops/sums.py)
+    # rounded once: what the kernels compute (ops/sums.py)
     leaf_rsum = keyed_sum_fixed(resid, li64[:, None, :], S,
                                 *fixed_scale(resid))[:, 0, 0]    # (C, S)
     center = true_div(leaf_rsum / ct_w.clamp_min(1.0), m)
@@ -81,20 +111,35 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
         return -0.5 * sum64(llw * diff * diff)
 
     def lp_of(lf_x):
+        # the order of products of the JAX package's constant kernel and of
+        # its XLA linear refinement (select_refine_linear)
         dev = lf_x - center
+        if lin:
+            return -sum64(hiv[:, None] * leaf_mask * dev * dev)
         return -hiv * sum64(leaf_mask * dev * dev)
 
     ll_c = ll_of(pred_w) + lp_of(lf_w)
     for i in range(R):
         lf_p = lf_w + eps[:, i, 0, :] * leaf_mask
         pred_p = torch.gather(lf_p, 1, li64)
+        if lin:
+            pred_p = pred_p + sx
         ll_p = ll_of(pred_p) + lp_of(lf_p)
         acc = (torch.log(u_acc[:, i]) < (ll_p - ll_c))[:, None]
         lf_w = torch.where(acc, lf_p, lf_w)
         pred_w = torch.where(acc, pred_p, pred_w)
         ll_c = torch.where(acc[:, 0], ll_p, ll_c)
-    return (sv_w, sl_w, st_w, lf_w[:, None, :], ct_w, li_w,
-            pred_w[:, None, :])
+    head = (sv_w, sl_w, st_w, lf_w[:, None, :], ct_w)
+    if lin:
+        head = head + (sp_w[:, None, :],)
+    return head + (li_w, pred_w[:, None, :])
+
+
+def _is_linear(response: str) -> bool:
+    if response not in RESPONSES:
+        raise ValueError(f"response must be one of {RESPONSES}, got "
+                         f"{response!r}")
+    return response != "constant"
 
 
 def select_refine_linear(sv, sl, st, lf, ct, sp, leaf_idx, pred, log_w,
@@ -152,21 +197,61 @@ def select_refine_linear(sv, sl, st, lf, ct, sp, leaf_idx, pred, log_w,
     return sv_w, sl_w, st_w, lf_w, ct_w, sp_w, li_w, pred_w
 
 
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_POINTERS = ("sv", "sl", "st", "lf", "ct", "sp", "li", "pred", "lw", "resid",
+             "llw", "X", "eps", "uacc", "usel", "gsel", "hiv", "sv_o", "sl_o",
+             "st_o", "lf_o", "ct_o", "sp_o", "li_o", "pred_o")
+_INTS = ("C", "P", "S", "n", "p", "R", "ld_r", "m", "lin", "shared_rows")
+_MAX_SMEM = 232448      # dynamic shared memory a block may take (H100)
+
+
+class _SelectArgs(ctypes.Structure):
+    """Field by field the ``SelectArgs`` of csrc/select.cu."""
+
+    _fields_ = ([(name, _P) for name in _POINTERS]
+                + [(name, _I) for name in _INTS])
 
 
 def _lib():
-    fn = _build.load("select").select_refine_launch
+    lib = _build.load("select")
+    fn = lib.select_refine_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 21 + [_I] * 6 + [_P]
-        fn.restype = ctypes.c_int
-    return fn
+        fn.argtypes = [ctypes.POINTER(_SelectArgs), _P]
+        fn.restype = _I
+        lib.select_refine_smem_bytes.argtypes = [ctypes.POINTER(_SelectArgs)]
+        lib.select_refine_smem_bytes.restype = ctypes.c_longlong
+        lib.select_refine_args_size.restype = _I
+        if lib.select_refine_args_size() != ctypes.sizeof(_SelectArgs):
+            raise RuntimeError(
+                "select_refine: the argument block of csrc/select.cu has "
+                f"{lib.select_refine_args_size()} bytes, the wrapper's "
+                f"{ctypes.sizeof(_SelectArgs)}")
+    return lib
+
+
+def smem_bytes(S: int, P: int, n: int, lin: bool, shared_rows: bool) -> int:
+    """Dynamic shared memory of one block (mirrors csrc/select.cu::layout)."""
+    off = 8 * 6 * 32 + 8 * S + 4 * 32 + 4 * P + 4 * 4 * S
+    off = (off + 15) & ~15
+    if shared_rows:
+        off += (4 + 4 + (4 if lin else 0) + 2) * n
+    return (off + 15) & ~15
+
+
+# shapes whose shared-memory layout the library has confirmed
+_checked_layouts = set()
 
 
 def select_refine_kernel(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
                          ll_weight, eps, u_acc, u_sel, half_inv_var, *,
-                         num_refinements: int, m: int = 1):
+                         num_refinements: int, m: int = 1,
+                         response: str = "constant", sp=None, X=None,
+                         g_sel=None):
     """Launch ``csrc/select.cu`` on the current stream (no synchronisation)."""
     if not sv.is_cuda:
         raise ValueError("select_refine kernel needs CUDA tensors")
@@ -174,44 +259,79 @@ def select_refine_kernel(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     C, P, S = sv.shape
     n = leaf_idx.shape[2]
     R = num_refinements
+    lin = _is_linear(response)
     if lf.dim() != 4 or lf.shape[2] != 1:
         raise ValueError("select_refine supports n_outputs == 1 only")
+    if R < 0 or n >= 2**24 or S >= 2**16:
+        raise ValueError(f"select_refine kernel: R={R} sweeps, n={n} rows and "
+                         f"S={S} slots (it takes R >= 0, n < 2^24, S < 2^16)")
+    ld_r = eps.shape[1] if eps.dim() == 4 else -1
+    if ld_r < max(R, 1):
+        raise ValueError(f"select_refine: eps must hold at least {max(R, 1)} "
+                         "sweeps")
     f32, i32 = torch.float32, torch.int32
-    for t, name, dt, shape in (
-            (sv, "sv", i32, (C, P, S)), (sl, "sl", f32, (C, P, S)),
-            (st, "st", i32, (C, P, S)), (lf, "lf", f32, (C, P, 1, S)),
-            (ct, "ct", f32, (C, P, S)), (leaf_idx, "leaf_idx", i32, (C, P, n)),
-            (pred, "pred", f32, (C, P, 1, n)), (log_w, "log_w", f32, (C, P)),
-            (resid, "resid", f32, (C, 1, n)),
-            (ll_weight, "ll_weight", f32, (C, 1, n)),
-            (eps, "eps", f32, (C, R, 1, S)), (u_acc, "u_acc", f32, (C, R)),
-            (u_sel, "u_sel", f32, (C,)),
-            (half_inv_var, "half_inv_var", f32, (C,))):
+    checks = [
+        (sv, "sv", i32, (C, P, S)), (sl, "sl", f32, (C, P, S)),
+        (st, "st", i32, (C, P, S)), (lf, "lf", f32, (C, P, 1, S)),
+        (ct, "ct", f32, (C, P, S)), (leaf_idx, "leaf_idx", i32, (C, P, n)),
+        (pred, "pred", f32, (C, P, 1, n)), (log_w, "log_w", f32, (C, P)),
+        (resid, "resid", f32, (C, 1, n)),
+        (ll_weight, "ll_weight", f32, (C, 1, n)),
+        (eps, "eps", f32, (C, ld_r, 1, S)), (u_acc, "u_acc", f32, (C, ld_r)),
+        (half_inv_var, "half_inv_var", f32, (C,))]
+    if lin:
+        p = X.shape[1] if isinstance(X, torch.Tensor) and X.dim() == 2 else 0
+        checks += [(sp, "sp", f32, (C, P, 1, S)), (X, "X", f32, (n, p)),
+                   (g_sel, "g_sel", f32, (C, P))]
+        if p < 1:
+            raise ValueError("select_refine: the linear and mix responses "
+                             "need X (n, p)")
+    else:
+        p = 0
+        checks.append((u_sel, "u_sel", f32, (C,)))
+    for t, name, dt, shape in checks:
         if (not isinstance(t, torch.Tensor) or t.device != dev
                 or t.dtype != dt or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"select_refine: {name} must be a contiguous "
                              f"{dt} tensor of shape {shape} on {dev}")
-    if 4 * (4 * S + S * max(1, 256 // S) + 32) > 232448:
-        raise ValueError(f"select_refine kernel: {S} node slots do not fit "
-                         "in shared memory")
-    sv_o = torch.empty((C, S), dtype=i32, device=dev)
-    sl_o = torch.empty((C, S), dtype=f32, device=dev)
-    st_o = torch.empty((C, S), dtype=i32, device=dev)
-    lf_o = torch.empty((C, 1, S), dtype=f32, device=dev)
-    ct_o = torch.empty((C, S), dtype=f32, device=dev)
-    li_o = torch.empty((C, n), dtype=i32, device=dev)
-    pred_o = torch.empty((C, 1, n), dtype=f32, device=dev)
-    ptr = torch.Tensor.data_ptr
-    err = _lib()(
-        ptr(sv), ptr(sl), ptr(st), ptr(lf), ptr(ct), ptr(leaf_idx), ptr(pred),
-        ptr(log_w), ptr(resid), ptr(ll_weight), ptr(eps), ptr(u_acc),
-        ptr(u_sel), ptr(half_inv_var), ptr(sv_o), ptr(sl_o), ptr(st_o),
-        ptr(lf_o), ptr(ct_o), ptr(li_o), ptr(pred_o), C, P, S, n, R, m,
-        _build.current_stream())
+    shared_rows = smem_bytes(S, P, n, lin, True) <= _MAX_SMEM
+    if smem_bytes(S, P, n, lin, shared_rows) > _MAX_SMEM:
+        raise ValueError(f"select_refine kernel: {S} node slots need "
+                         f"{smem_bytes(S, P, n, lin, False)} bytes of shared "
+                         "memory")
+    outs = [torch.empty((C, S), dtype=i32, device=dev),
+            torch.empty((C, S), dtype=f32, device=dev),
+            torch.empty((C, S), dtype=i32, device=dev),
+            torch.empty((C, 1, S), dtype=f32, device=dev),
+            torch.empty((C, S), dtype=f32, device=dev),
+            torch.empty((C, 1, S), dtype=f32, device=dev) if lin else None,
+            torch.empty((C, n), dtype=i32, device=dev),
+            torch.empty((C, 1, n), dtype=f32, device=dev)]
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    a = _SelectArgs(
+        *(ptr(t) for t in (sv, sl, st, lf, ct, sp if lin else None, leaf_idx,
+                           pred, log_w, resid, ll_weight, X if lin else None,
+                           eps, u_acc, None if lin else u_sel,
+                           g_sel if lin else None, half_inv_var)),
+        *(ptr(t) for t in outs),
+        C, P, S, n, p, R, ld_r, m, int(lin), int(shared_rows))
+    lib = _lib()
+    key = (S, P, n, lin, shared_rows)
+    if key not in _checked_layouts:
+        got = int(lib.select_refine_smem_bytes(ctypes.byref(a)))
+        if got != smem_bytes(*key):
+            raise RuntimeError(
+                f"select_refine: csrc/select.cu lays out {got} bytes of "
+                f"shared memory for {key}, the wrapper {smem_bytes(*key)}")
+        _checked_layouts.add(key)
+    err = lib.select_refine_launch(ctypes.byref(a), _build.current_stream())
     _build.check_launch(err, "select_refine")
     select_refine.launches += 1
-    return sv_o, sl_o, st_o, lf_o, ct_o, li_o, pred_o
+    return tuple(t for t in outs if t is not None)
 
 
 def select_refine(*args, impl: Optional[str] = None, **kwargs):

@@ -19,11 +19,10 @@ one output.  ``pgbart_step`` is the counterpart of
   leaf refinement (``ops/select.py``), then the forest and sum-of-trees
   commit and, while tuning, the split-prior and Welford ``leaf_sd``
   adaptation (``step_rounds``).  With ``impl="plain"`` this route is the
-  plain version of the fused one.  Its selection kernel is Gaussian, so on a
-  CUDA device the other codes run on the other two routes only.  The linear
-  and mix responses run here alone (both whole-step gates refuse them), with
-  the winner and refinement in plain PyTorch (``select_refine_linear``), as
-  the JAX package runs them in XLA.
+  plain version of the fused one.  The selection kernel is Gaussian, for the
+  constant, linear and mix responses; the other codes select and refine in
+  plain PyTorch on every device, as the JAX package does in XLA.  The linear
+  and mix responses run here alone (both whole-step gates refuse them).
 
 Chains are a leading tensor axis ``C`` where the JAX package uses ``vmap``.
 The step TAKES its random numbers (``StepRands``) as an argument, in the
@@ -48,8 +47,7 @@ from ..ops import bign as _bign
 from ..ops import draw as _draw
 from ..ops.grow import grow_round
 from ..ops.predict import tree_predict
-from ..ops.select import (select_refine, select_refine_linear,
-                          select_refine_plain)
+from ..ops.select import select_refine, select_refine_plain
 from ..ops.smc import smc_resample
 from ..ops.sums import sum64, true_div
 from ..ops.trees import Forest, init_forest
@@ -237,9 +235,9 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     For a non-Gaussian code the particle log-likelihood after each round is
     the closed form on ``sum_noi (C, n, k) + pred`` with the labels ``Y``
     (n, k) (the growth round's Gaussian value is ignored), and the winner is
-    refined under the same closed form.  For the linear and mix responses
-    (Gaussian only) the rounds draw slopes and the winner is selected and
-    refined by ``select_refine_linear``.
+    refined under the same closed form, in plain PyTorch.  For the linear
+    and mix responses (Gaussian only) the rounds draw slopes and the winner
+    is selected among the particles by its Gumbels ``rands.gsel``.
     Returns ``(sv, sl, st (C, S), leaf (C, S, k), ct (C, S), slope (C, S, k),
     pred (C, n, k))``.
     """
@@ -287,11 +285,6 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     if gauss:
         llwT = gauss_w.transpose(1, 2).contiguous()
     else:
-        if impl == "kernel" or (impl is None and resid.is_cuda):
-            raise NotImplementedError(
-                f"likelihood code {lik!r} on a CUDA device runs on the "
-                "fused route only (route='fused'): the per-round selection "
-                "kernel is Gaussian")
         llwT = torch.zeros((C, k, n), dtype=f32, device=dev)
         noiT = sum_noi.transpose(1, 2)                            # (C, k, n)
         yT = Y.reshape(n, k).transpose(0, 1)                      # (k, n)
@@ -343,28 +336,27 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     eps_r = rands.epsr[b]                                         # (C,R,k,S)
     if pg.num_refinements > 0:
         eps_r = eps_r * (0.3 * leaf_sd)[:, None, :, None]
+    args = (sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
+            eps_r.contiguous(), rands.uacc[b], rands.usel[b],
+            0.5 / (leaf_sd[:, 0] * leaf_sd[:, 0]))
     if lin:
-        sv_w, sl_w, st_w, lf_w, ct_w, sp_w, _li_w, pred_w = (
-            select_refine_linear(
-                sv, sl, st, lf, ct, sp, leaf_idx, pred, log_w, residT, llwT,
-                X, eps_r, rands.uacc[b], rands.gsel[b], leaf_sd,
-                num_refinements=pg.num_refinements, m=cfg.m))
-        return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w,
-                sp_w.transpose(1, 2), pred_w.transpose(1, 2))
-    half_inv_var = 0.5 / (leaf_sd[:, 0] * leaf_sd[:, 0])
-    if gauss:
+        sv_w, sl_w, st_w, lf_w, ct_w, sp_w, _li_w, pred_w = select_refine(
+            *args, num_refinements=R, m=cfg.m, impl=impl,
+            response=cfg.response, sp=sp, X=X, g_sel=rands.gsel[b])
+        sp_w = sp_w.transpose(1, 2)
+    elif gauss:
         sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine(
-            sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
-            eps_r.contiguous(), rands.uacc[b], rands.usel[b], half_inv_var,
-            num_refinements=R, m=cfg.m, impl=impl)
+            *args, num_refinements=R, m=cfg.m, impl=impl)
+        sp_w = torch.zeros_like(lf_w.transpose(1, 2))
     else:
+        # the other codes' winner and refinement are plain PyTorch on every
+        # device, as the JAX package runs them in XLA (its fused_other branch)
         sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine_plain(
-            sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
-            eps_r.contiguous(), rands.uacc[b], rands.usel[b], half_inv_var,
-            num_refinements=R, m=cfg.m,
+            *args, num_refinements=R, m=cfg.m,
             ll_fn=lambda pred_x: eval_ll(pred_x[:, None, :]))
-    return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w,
-            torch.zeros_like(lf_w.transpose(1, 2)), pred_w.transpose(1, 2))
+        sp_w = torch.zeros_like(lf_w.transpose(1, 2))
+    return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w, sp_w,
+            pred_w.transpose(1, 2))
 
 
 def split_var_counts(forest: Forest, p: int) -> torch.Tensor:

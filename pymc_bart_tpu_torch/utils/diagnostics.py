@@ -1,6 +1,11 @@
 """Convergence diagnostics: split-R-hat and bulk ESS.
 
-Counterpart of ``pymc_bart_tpu/utils/diagnostics.py`` (NumPy only, copied).
+Counterpart of ``pymc_bart_tpu/utils/diagnostics.py`` (NumPy, and
+``torch.special.ndtri`` for the inverse normal).  Two of the reference's
+faults are mended here: ties are ranked by their average rank (argsort of
+argsort gives tied draws distinct ranks, so a constant quantity showed a
+spurious R-hat), and ``check_convergence`` says what it does with
+``rhat_threshold``.
 
 The reference delegates diagnostics to arviz (deprecated
 ``plot_convergence`` points at arviz-plots, reference utils.py:99-131);
@@ -14,6 +19,7 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..models.inference_data import InferenceData
 
@@ -27,22 +33,35 @@ def _split_chains(x: np.ndarray) -> np.ndarray:
     return np.concatenate([first, second], axis=0)
 
 
+def _average_ranks(v: np.ndarray) -> np.ndarray:
+    """1-based ranks of the 1-d ``v``; tied values share the mean of the
+    ranks they span."""
+    order = np.argsort(v, kind="stable")
+    sv = v[order]
+    new = np.ones(len(v), dtype=bool)
+    new[1:] = sv[1:] != sv[:-1]
+    first = np.flatnonzero(new)
+    last = np.append(first[1:], len(v)) - 1
+    ranks = np.empty(len(v))
+    ranks[order] = ((first + last) / 2.0 + 1.0)[np.cumsum(new) - 1]
+    return ranks
+
+
 def _rank_normalize(x: np.ndarray) -> np.ndarray:
     """Rank-normalize draws across all chains (per remaining dims)."""
     shape = x.shape
     flat = x.reshape(-1, int(np.prod(shape[2:])) if x.ndim > 2 else 1)
     out = np.empty_like(flat, dtype=np.float64)
     n = flat.shape[0]
-    from scipy.stats import norm
-
     for j in range(flat.shape[1]):
-        ranks = np.argsort(np.argsort(flat[:, j])) + 1
-        out[:, j] = norm.ppf((ranks - 0.375) / (n + 0.25))
+        q = (_average_ranks(flat[:, j]) - 0.375) / (n + 0.25)
+        out[:, j] = torch.special.ndtri(torch.from_numpy(q)).numpy()
     return out.reshape(shape)
 
 
 def rhat(x: np.ndarray) -> np.ndarray:
-    """Rank-normalized split-R-hat of (chains, draws, ...) samples."""
+    """Rank-normalized split-R-hat of (chains, draws, ...) samples; 1 for a
+    quantity whose draws are all equal."""
     x = _split_chains(np.asarray(x, np.float64))
     z = _rank_normalize(x)
     c, d = z.shape[:2]
@@ -51,7 +70,8 @@ def rhat(x: np.ndarray) -> np.ndarray:
     between = d * chain_means.var(axis=0, ddof=1)
     within = chain_vars.mean(axis=0)
     var_plus = (d - 1) / d * within + between / d
-    return np.sqrt(var_plus / np.maximum(within, 1e-12))
+    return np.where(var_plus == 0, 1.0,
+                    np.sqrt(var_plus / np.maximum(within, 1e-12)))
 
 
 def ess_bulk(x: np.ndarray) -> np.ndarray:
@@ -111,10 +131,13 @@ def check_convergence(idata: InferenceData, rhat_threshold: float = 1.1,
     For vector/array variables (e.g. per-row ``mu`` at n=50k) the check
     looks at ``max_slices`` evenly spaced scalar slices rather than every
     element — enough to flag non-convergence without an O(n) rank-sort
-    pass after every ``sample()``.  Returns ``{var: max_rhat_checked}``;
-    entries above ``rhat_threshold`` indicate chains that have not mixed
-    (PyMC surfaces the same statistic through arviz after sampling —
-    reference relies on ``pm.sample``'s convergence checks).
+    pass after every ``sample()``.  Returns ``{var: max_rhat_checked}`` for
+    every variable checked, whatever its value: ``rhat_threshold`` does not
+    filter the result (it is kept for the reference's signature);
+    ``maybe_warn_convergence`` compares the maxima with its threshold.
+    Entries above about 1.1 indicate chains that have not mixed (PyMC
+    surfaces the same statistic through arviz after sampling — reference
+    relies on ``pm.sample``'s convergence checks).
     """
     out: Dict[str, float] = {}
     for name in idata.posterior.keys():
@@ -136,7 +159,7 @@ def maybe_warn_convergence(idata: InferenceData,
     maxima either way."""
     import warnings
 
-    rhats = check_convergence(idata, rhat_threshold=rhat_threshold)
+    rhats = check_convergence(idata)
     bad = {k: v for k, v in rhats.items() if v > rhat_threshold}
     if bad:
         worst = max(bad, key=bad.get)

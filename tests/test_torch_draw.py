@@ -249,8 +249,9 @@ def test_plain_version_refuses_what_the_gate_refuses():
         tdraw.pgbart_step_fused(state, rands, *args, row, True, impl="kernel")
     with pytest.raises(NotImplementedError, match="poisson"):
         tpgbart.step_rounds(state, rands, *args, True, row, lik="poisson")
-    # the per-round selection kernel is Gaussian: asked for kernels, another
-    # code names the fused route instead of reaching a plain version
-    with pytest.raises(NotImplementedError, match="fused route"):
+    # another code runs the per-round route too (its winner and refinement
+    # in plain PyTorch); asked for kernels, CPU tensors are refused by the
+    # growth kernel instead of reaching a plain version
+    with pytest.raises(ValueError, match="CUDA"):
         tpgbart.step_rounds(state, rands, *args, True, None, impl="kernel",
                             lik="bernoulli")

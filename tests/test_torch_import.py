@@ -63,7 +63,8 @@ def test_module_list_covers_every_port_module():
 def test_sources_import_only_torch_and_numpy():
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|pymc_bart_tpu)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|pymc_bart_tpu|scipy)\b",
+                     re.M)
     files = list((ROOT / "pymc_bart_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
@@ -96,3 +97,26 @@ def test_chip_smoke_fails_without_a_gpu():
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert res.stdout.strip() == ""
+
+
+# the JAX package's public names that the port does not export yet: the
+# predictive and interpretability functions (ROADMAP.md, queue 1)
+NOT_PORTED = {
+    "sample_prior_predictive", "sample_posterior_predictive",
+    "compute_variable_importance", "get_variable_inclusion",
+    "export_variable_inclusion", "plot_variable_inclusion",
+    "plot_variable_importance", "plot_scatter_submodels", "plot_pdp",
+    "plot_ice", "plot_convergence", "vi_to_kulprit",
+}
+
+
+def test_port_exports_the_public_names_of_the_jax_package():
+    import pymc_bart_tpu
+    import pymc_bart_tpu_torch
+
+    port = set(pymc_bart_tpu_torch.__all__)
+    assert set(pymc_bart_tpu.__all__) - NOT_PORTED <= port, sorted(
+        set(pymc_bart_tpu.__all__) - NOT_PORTED - port)
+    assert not NOT_PORTED & port, sorted(NOT_PORTED & port)
+    for name in port:
+        assert hasattr(pymc_bart_tpu_torch, name), name
