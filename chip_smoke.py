@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,step,sample,timing]
+    python3 chip_smoke.py [--phases device,build,kernels,step,sample,models,timing]
                           [--ptxas] [--tune N] [--draws N]
                           [--large-tune N] [--large-draws N]
+                          [--model-tune N] [--model-draws N]
 
 Drives ``pymc_bart_tpu_torch`` on the card and exits non-zero if any phase
 fails (no exception is caught and carried past).  Each phase prints one JSON
@@ -27,15 +28,20 @@ line:
    linear one at n=50,000 (its rows in global memory).  The whole-step kernel
    ``pgbart_step_fused`` runs two consecutive steps from a grown state
    against its plain version, same random blocks: at the main shapes (m=50)
-   for gauss with tuning on and off, bernoulli, het_abs, het_exp and
-   cat_logit, at p=1000 (n=200), on a small mixed case (NaNs, one-hot and
+   for gauss with tuning on and off, bernoulli, het_abs (with one growth
+   target a chain, as a scale forest has it), het_exp and cat_logit, at
+   p=1000 (n=200), on a small mixed case (NaNs, one-hot and
    subset columns), with a hundredth of the precision (the ESS gate falls
    both ways), with 19 particles (an idle slot in the cluster), at p=5000
    (the split-weight CDF stays in global memory), at n=16,384 and at depth
    11 (the form that keeps the per-particle state in global memory, because
    the rows or the node arrays do not fit; the phase prints the plan of
-   every case and fails if a case runs with another than it names), each
-   from three seeds.  Then its generated-Gumbel mode in both forms:
+   every case and fails if a case runs with another than it names), and on
+   the inputs phase ``models`` gives it (n=500, m=30, P=10): the
+   heteroscedastic model's mean forest (gauss with a precision
+   1/(|w1| + 0.05)^2 that varies row by row, p=2), its scale forest
+   (het_abs, one target a chain, p=2) and a class forest of the
+   Categorical model (cat_logit, p=4, k=3), each from three seeds.  Then its generated-Gumbel mode in both forms:
    equal to the plain version on the written-out block, and the same bits
    from two runs.  Integer outputs must be equal; floats within rtol 1e-4
    / atol 1e-5 (split values rtol 1e-5 / atol 1e-6; sums of trees rtol 1e-4
@@ -89,7 +95,24 @@ line:
    growth and resampling kernels only), a large-n run
    the large-n kernel once a step and none of the others.  No run may draw
    the (B, D, C, P, n) row-Gumbel block: every route works from a seed.
-6. ``timing``  CUDA-event times of each kernel and its plain version at the
+6. ``models``  the separate-trees models and rejuvenation through
+   ``sample()``: the heteroscedastic model of ``bench.py`` (n=500, two
+   forests of m=30, 4 chains, ``ancestor_sampling``; 200/200 steps by
+   default): both forests must run on the whole-step kernel (2 launches a
+   step, nothing else), ``corr_mean_output`` at least 0.8, and
+   ``scale_hi_over_lo`` printed; its posterior predictions on 200 new rows
+   after ``set_data`` (shapes, finite, the mean y against the mean w[0]); a
+   separate-trees Categorical model (k=3, cat_logit on the whole-step kernel,
+   3 launches a step, accuracy above the majority rate); the large-n
+   regression without and with ``ancestor_sampling`` from one seed and
+   budget (the large-n kernel once a step; rmse, sigma and step time of
+   both); one rejuvenation sweep at the large-n shapes on the card against
+   the CPU from the same state and numbers (trees equal, leaves within 1e-6),
+   its host time, device time and CUDA kernels (``torch.profiler``), and a
+   step's time with and without it on the large-n route and at the
+   heteroscedastic shapes.  The phase prints the launch counts of each run
+   in its own line; the kernels line counts phase ``sample``'s.
+7. ``timing``  CUDA-event times of each kernel and its plain version at the
    main-path shapes (the growth round and the selection for the constant and
    the linear response): ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
@@ -117,6 +140,7 @@ as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -125,7 +149,8 @@ import time
 import numpy as np
 import torch
 
-ALL_PHASES = ("device", "build", "kernels", "step", "sample", "timing")
+ALL_PHASES = ("device", "build", "kernels", "step", "sample", "models",
+              "timing")
 EXTRA_PHASES = ("profile",)    # only when asked for with --phases
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
@@ -422,7 +447,8 @@ def compare_state(tag, got, want):
 
 FUSED_CASES = ("gauss_tune", "gauss_draw", "bernoulli", "het_abs", "het_exp",
                "cat_logit", "gauss_p1000", "gauss_p5000", "gauss_mixed",
-               "gauss_flat", "gauss_p19", "gauss_global", "gauss_deep")
+               "gauss_flat", "gauss_p19", "gauss_global", "gauss_deep",
+               "het_mean", "het_scale", "cat_model")
 # every case runs from each of these seeds of the random blocks
 FUSED_SEEDS = (17, 101, 102)
 # what a case's launch plan (ops.draw.launch_plan) must say, so that every
@@ -450,7 +476,11 @@ def fused_case(dev, name, seed=0):
     per-particle state in global memory), ``gauss_p5000`` (5000 columns:
     the split-weight CDF is read from global memory) and ``gauss_deep``
     (depth 11 with a flat depth prior: the node arrays of 20 particles do not
-    fit shared memory, so the global form at n=1000)."""
+    fit shared memory, so the global form at n=1000).  ``het_mean``,
+    ``het_scale`` and ``cat_model``: the inputs of phase ``models``' sampler
+    entries at their shapes (n=500, m=30, P=10, the models' data), with the
+    row data and targets made by the sampler's own functions from the other
+    forests' values, which vary by chain and by row."""
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
 
     rng = np.random.default_rng(100 + seed)
@@ -500,11 +530,14 @@ def fused_case(dev, name, seed=0):
         row = None
     elif name in ("het_abs", "het_exp"):
         # the scale forest of a heteroscedastic model: row data (y - mu0)^2
-        # and the link-aware growth target of the scale
+        # and the link-aware growth target of the scale; het_abs with one
+        # target a chain from each chain's mu0, as sample() gives it
+        # (Y (C, n, 1): the kernel's y_stride), het_exp one for all chains
         lik_const = 0.05 if name == "het_abs" else 0.0
         mu0 = Y.mean() + 0.1 * chain_shift
         row = (Y[None, :, None] - mu0) ** 2
-        s_hat = np.abs(Y - Y.mean()) / 0.7978845608
+        s_hat = (np.abs(Y[None, :, None] - mu0) if name == "het_abs"
+                 else np.abs(Y - Y.mean())) / 0.7978845608
         Y = (s_hat - lik_const if name == "het_abs"
              else np.log(np.maximum(s_hat, 1e-3))).astype(np.float32)
     elif name == "cat_logit":
@@ -514,6 +547,10 @@ def fused_case(dev, name, seed=0):
         Y = (4.0 * (labels == 0) - 2.0).astype(np.float32)
         others = rng.normal(0.0, 0.5, size=(chains, N, 2))
         row = np.log(np.exp(others).sum(axis=2, keepdims=True))
+    elif name in ("het_mean", "het_scale", "cat_model"):
+        X, Y, lik, lik_const, row = model_entry_inputs(name, rng, chains)
+        cfg = BartConfig(m=30, max_depth=DEPTH)
+        pg = PgbartConfig(num_particles=10, num_refinements=R)
     else:
         raise ValueError(name)
     if rules is None:
@@ -522,10 +559,48 @@ def fused_case(dev, name, seed=0):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return dict(cfg=cfg, pg=pg, X=t(X), Y=t(Y.astype(np.float32))[:, None],
+    Y = t(Y.astype(np.float32))
+    return dict(cfg=cfg, pg=pg, X=t(X), Y=Y[:, None] if Y.dim() == 1 else Y,
                 rules=t(rules), lik=lik, lik_const=lik_const, chains=chains,
                 row=None if row is None else t(row.astype(np.float32)),
                 tunings=tunings)
+
+
+def model_entry_inputs(name, rng, chains):
+    """``(X, Y, lik, lik_const, row)`` of one sampler entry of phase
+    ``models`` as ``sample()`` hands them to the kernel: the heteroscedastic
+    model's mean forest (``het_mean``: the precision 1/(|w1| + 0.05)^2 of
+    the scale forest's values w1) and scale forest (``het_scale``: row data
+    and one growth target a chain from the mean forest's values, by
+    ``compound.scale_forest_data``), or class forest 1 of the Categorical
+    model (``cat_model``: the +-2 target, the other classes' logsumexp by
+    ``compound.class_forest_data``).  The other forests' values are drawn
+    around the truth, different in every chain and row."""
+    from pymc_bart_tpu_torch.sampler.compound import (class_forest_data,
+                                                      scale_forest_data)
+
+    if name == "cat_model":
+        X, labels, _prob = categorical_data()
+        j = 1
+        W = torch.from_numpy(rng.normal(0.0, 1.0, size=(chains, len(labels),
+                                                        3)).astype(np.float32))
+        row = class_forest_data(W, j).numpy()
+        Y = (4.0 * (labels == j) - 2.0).astype(np.float32)
+        return X, Y, "cat_logit", 0.0, row
+    X, y, mu_true = het_data()
+    jitter = rng.normal(0.0, 0.1, size=(chains, len(y))).astype(np.float32)
+    if name == "het_mean":
+        # sigma = |w[1]| + 0.05 and its precision, as sample()'s row data
+        w1 = (0.2 + 1.5 * (X[:, 1] > 0)).astype(np.float32) + jitter
+        sigma = np.abs(w1) + np.float32(0.05)
+        row = (np.float32(1.0) / sigma ** 2)[..., None]
+        if not (row.std(axis=1) > 0).all():
+            raise AssertionError("het_mean: the precision does not vary "
+                                 "over the rows")
+        return X, y, "gauss", 0.0, row
+    mu0 = torch.from_numpy(mu_true.astype(np.float32) + jitter)
+    row, target = scale_forest_data("het_abs", 0.05, torch.from_numpy(y), mu0)
+    return X, target.numpy(), "het_abs", 0.05, row.numpy()
 
 
 def fused_step(case, state, rands, tuning, impl=None):
@@ -570,13 +645,19 @@ def with_block(case, rands, tuning):
         P=pg.num_particles, D=cfg.max_depth, n=case["X"].shape[0]))
 
 
+def initial_target(case):
+    """The (n, 1) target the state starts from: chain 0's where a case has
+    one a chain."""
+    return case["Y"][0] if case["Y"].dim() == 3 else case["Y"]
+
+
 def grown_state(case, gen, dev, steps=11):
     """A state in which every tree has been updated at least once and the
     ``leaf_sd`` adaptation has begun: ``steps`` tuning steps of the kernel on
     generated Gumbels."""
     from pymc_bart_tpu_torch.sampler import pgbart
 
-    state = pgbart.init_state(case["X"], case["Y"], case["cfg"],
+    state = pgbart.init_state(case["X"], initial_target(case), case["cfg"],
                               chains=case["chains"], device=dev)
     for _ in range(steps):
         state, _ = fused_step(case, state,
@@ -702,9 +783,12 @@ def bign_case(dev, name, n=None, seed=0):
     elif name == "bernoulli":
         X, Y = logistic(n, LN["PCOLS"], seed=7)
     elif name in ("het_abs", "het_exp"):
+        # as in fused_case: het_abs with one target a chain
         lik_const = 0.05 if name == "het_abs" else 0.0
-        llw = (Y[None, :] - (Y.mean() + 0.1 * chain_shift)) ** 2
-        s_hat = np.abs(Y - Y.mean()) / 0.7978845608
+        mu0 = Y.mean() + 0.1 * chain_shift
+        llw = (Y[None, :] - mu0) ** 2
+        s_hat = (np.abs(Y[None, :] - mu0) if name == "het_abs"
+                 else np.abs(Y - Y.mean())) / 0.7978845608
         Y = (s_hat - lik_const if name == "het_abs"
              else np.log(np.maximum(s_hat, 1e-3))).astype(np.float32)
     elif name == "cat_logit":
@@ -722,7 +806,7 @@ def bign_case(dev, name, n=None, seed=0):
     return dict(cfg=BartConfig(m=m, max_depth=LN["DEPTH"]),
                 pg=PgbartConfig(num_particles=particles,
                                 num_refinements=refinements),
-                X=t(X), Y=t(Y)[:, None], lik=lik, lik_const=lik_const,
+                X=t(X), Y=t(Y)[..., None], lik=lik, lik_const=lik_const,
                 chains=chains, w_chain=t(w_chain), llw=t(llw),
                 rules=torch.zeros(X.shape[1], dtype=torch.int32, device=dev),
                 row=(t(np.broadcast_to(w_chain[:, None, None], (chains, n, 1)))
@@ -757,7 +841,7 @@ def bign_grown_state(case, gen, dev, steps=11):
     kernel on generated Gumbels."""
     from pymc_bart_tpu_torch.sampler import pgbart
 
-    state = pgbart.init_state(case["X"], case["Y"], case["cfg"],
+    state = pgbart.init_state(case["X"], initial_target(case), case["cfg"],
                               chains=case["chains"], device=dev)
     for _ in range(steps):
         state, _ = bign_step(case, state,
@@ -1238,6 +1322,20 @@ def linear_steps(dev):
                 whole_step_refuses=why["fused"], large_n_refuses=why["bign"])
 
 
+def kernel_wrappers():
+    """The five kernels' wrappers by name (each counts its launches)."""
+    from pymc_bart_tpu_torch.ops.bign import pgbart_step_bign
+    from pymc_bart_tpu_torch.ops.draw import pgbart_step_fused
+    from pymc_bart_tpu_torch.ops.grow import grow_round
+    from pymc_bart_tpu_torch.ops.select import select_refine
+    from pymc_bart_tpu_torch.ops.smc import smc_resample
+
+    return {"grow_round": grow_round, "smc_resample": smc_resample,
+            "select_refine": select_refine,
+            "pgbart_step_fused": pgbart_step_fused,
+            "pgbart_step_bign": pgbart_step_bign}
+
+
 def sample_run(model, route, tune, draws, shape=None, choose=False,
                gaussian=True):
     """One ``sample()`` run on the card with every launch count set to 0
@@ -1261,19 +1359,11 @@ def sample_run(model, route, tune, draws, shape=None, choose=False,
     from pymc_bart_tpu_torch.ops.trees import Forest
     import pymc_bart_tpu_torch as pmb
     from pymc_bart_tpu_torch.ops import select as select_mod
-    from pymc_bart_tpu_torch.ops.bign import pgbart_step_bign
-    from pymc_bart_tpu_torch.ops.draw import pgbart_step_fused
-    from pymc_bart_tpu_torch.ops.grow import grow_round
-    from pymc_bart_tpu_torch.ops.select import select_refine
-    from pymc_bart_tpu_torch.ops.smc import smc_resample
 
     sh = dict(C=C, P=P, N=N, PCOLS=PCOLS, M=M, DEPTH=DEPTH, refinements=R,
               store_trees=True)
     sh.update(shape or {})
-    wrappers = {"grow_round": grow_round, "smc_resample": smc_resample,
-                "select_refine": select_refine,
-                "pgbart_step_fused": pgbart_step_fused,
-                "pgbart_step_bign": pgbart_step_bign}
+    wrappers = kernel_wrappers()
     from pymc_bart_tpu_torch.sampler import pgbart
 
     timings = {}
@@ -1549,6 +1639,408 @@ def phase_sample(dev, tune, draws, large_tune, large_draws):
                                   "large_n_classifier"))):
         launches[name] = sum(runs[r]["launches"][name] for r in used_by)
     return launches, runs
+
+
+def het_data(n=500, seed=3):
+    """The heteroscedastic model's data of ``bench.py:304-337``."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-1, 1, size=(n, 2)).astype(np.float32)
+    mu_true = 3 * np.sin(2 * X[:, 0])
+    sd_true = 0.2 + 1.5 * (X[:, 1] > 0)
+    return X, rng.normal(mu_true, sd_true).astype(np.float32), mu_true
+
+
+def categorical_data(n=500, p=4, k=3, seed=8):
+    """Three classes whose log-odds are smooth functions of two columns."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n, p)).astype(np.float32)
+    logits = np.stack([4 * X[:, 0], 4 * X[:, 1], 4 * (1 - X[:, 0])], 1)[:, :k]
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob /= prob.sum(1, keepdims=True)
+    labels = (prob.cumsum(1) > rng.uniform(size=(n, 1))).argmax(1)
+    return X, labels.astype(np.float32), prob
+
+
+def counted_sample(build, **kw):
+    """``sample(**kw)`` of the model ``build(pmb)`` makes, on the card, with
+    every launch count set to 0 just before and read just after.  Returns
+    ``(model, rv, idata, launches, routes, seconds, timings)``: ``routes``
+    the ``(likelihood code, route)`` of each sampler entry (the first step's
+    ``pgbart_step`` calls, in entry order)."""
+    import pymc_bart_tpu_torch as pmb
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    wrappers = kernel_wrappers()
+    calls = []
+    real_step = pgbart.pgbart_step
+
+    def spy(*a, **k):
+        calls.append((k.get("lik"), k.get("route")))
+        return real_step(*a, **k)
+
+    timings = {}
+    model = pmb.Model()
+    with model:
+        rv = build(pmb)
+        for w in wrappers.values():
+            w.launches = 0
+        pgbart.pgbart_step = spy
+        try:
+            t0 = time.perf_counter()
+            idata = pmb.sample(timings=timings, convergence_checks=False,
+                               **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            pgbart.pgbart_step = real_step
+    launches = {k: int(w.launches) for k, w in wrappers.items()}
+    entries = len(rv.all_trees) if isinstance(rv.all_trees, list) else 1
+    if not kw.get("store_trees", True):
+        entries = len(calls) // (kw["tune"] + kw["draws"])
+    return (model, rv, idata, launches, calls[:entries], seconds, timings)
+
+
+def expect_launches(tag, launches, want):
+    """Fail unless every kernel was launched exactly as often as ``want``
+    says (0 for a kernel it does not name)."""
+    for k, v in launches.items():
+        if want.get(k, 0) and v == 0:
+            raise AssertionError(f"{tag}: {k} was never launched")
+        if v != want.get(k, 0):
+            raise AssertionError(f"{tag}: {k} launched {v} times, expected "
+                                 f"{want.get(k, 0)}")
+
+
+def rejuvenation_on_card_vs_cpu(dev, steps=10, reps=5):
+    """``rejuvenate_forest`` at the large-n shapes (C=4, m=20, n=50,000,
+    p=10, depth 6) on the card and on the CPU from the same state (grown by
+    ``steps`` large-n steps on the card) and the same explicit randoms:
+    equal trees, leaves within rtol 1e-6 / atol 1e-6.  Then the host time
+    and CUDA kernels (``torch.profiler``) of one sweep, and a step's time on
+    the large-n route with and without it (host clock around a
+    synchronisation, the step's random numbers drawn inside)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+    from pymc_bart_tpu_torch.sampler import pgbart, rejuvenate
+
+    cfg = BartConfig(m=LN["M"], max_depth=LN["DEPTH"])
+    pg_on = PgbartConfig(num_particles=LN["P"], num_refinements=0,
+                         ancestor_sampling=True)
+    pg_off = PgbartConfig(num_particles=LN["P"], num_refinements=0)
+    n, p, Cn = LN["N"], LN["PCOLS"], LN["C"]
+    X_np, Y_np, _ = friedman(n, p, seed=5)
+    X = torch.from_numpy(X_np).to(dev)
+    Y = torch.from_numpy(Y_np).to(dev)[:, None]
+    rules = torch.zeros(p, dtype=torch.int32, device=dev)
+    gw = torch.ones((Cn, n, 1), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    state = pgbart.init_state(X, Y, cfg, chains=Cn, device=dev)
+
+    def step(pgc, st):
+        rands = pgbart.draw_rands(
+            gen, B=pgc.batch_size(cfg.m, False), C=Cn, P=LN["P"],
+            D=cfg.max_depth, n=n, k=1, S=cfg.n_nodes, num_refinements=0,
+            device=dev, row_gumbels=dev.type != "cuda")
+        rejuv = (rejuvenate.draw_rejuv_rands(
+            gen, moves=cfg.m, C=Cn, S=cfg.n_nodes, n=n, k=1, device=dev)
+            if pgc.ancestor_sampling else None)
+        return pgbart.pgbart_step(st, rands, X, Y, rules, cfg, pgc, False, gw,
+                                  route="bign", w_scalar=True, all_cont=True,
+                                  x_nan=False, rejuv=rejuv)[0]
+
+    for _ in range(steps):
+        state = step(pg_off, state)
+    # the large-n kernel works in node space: its cached per-tree predictions
+    # and their sum must be the forest's, which the moves read
+    fresh = pgbart.refresh_tree_pred(state.clone(), X, rules, cfg)
+    check_close("large-n tree_pred", state.tree_pred, fresh.tree_pred, 0.0,
+                1e-5)
+    check_close("large-n sum_trees", state.sum_trees,
+                state.tree_pred.sum(dim=1), 0.0, 1e-4)
+    moves = rejuvenate.draw_rejuv_rands(gen, moves=cfg.m, C=Cn,
+                                        S=cfg.n_nodes, n=n, k=1, device=dev)
+    ll_dev = pgbart.make_ll_of("gauss", 0.0, gw, Y[None])
+    cpu = torch.device("cpu")
+
+    def moved_to(obj, device):
+        """A dataclass of tensors (and nested ones) on ``device``."""
+        return type(obj)(**{
+            g.name: (getattr(obj, g.name).to(device)
+                     if isinstance(getattr(obj, g.name), torch.Tensor)
+                     else moved_to(getattr(obj, g.name), device))
+            for g in dataclasses.fields(obj)})
+
+    state_cpu, moves_cpu = moved_to(state, cpu), moved_to(moves, cpu)
+    ll_cpu = pgbart.make_ll_of("gauss", 0.0, gw.cpu(), Y.cpu()[None])
+    before = state.forest.clone()
+    got = rejuvenate.rejuvenate_forest(state.clone(), moves, X, Y, rules, cfg,
+                                       pg_on, ll_dev, all_cont=True)
+    want = rejuvenate.rejuvenate_forest(state_cpu, moves_cpu, X.cpu(),
+                                        Y.cpu(), rules.cpu(), cfg, pg_on,
+                                        ll_cpu, all_cont=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for g in dataclasses.fields(got.forest):
+        a = getattr(got.forest, g.name).cpu()
+        b = getattr(want.forest, g.name)
+        if g.name in ("leaf", "slope"):
+            check_close(f"rejuvenate {g.name}", a, b, 1e-6, 1e-6)
+        elif not torch.equal(a, b):
+            raise AssertionError(f"rejuvenate on the card: {g.name} differs "
+                                 f"from the CPU's ({max_err(a, b)})")
+        errs[g.name] = max_err(a, b)
+    for name in ("tree_pred", "sum_trees"):
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        check_close(f"rejuvenate {name}", a, b, 1e-5, 1e-5)
+        errs[name] = max_err(a, b)
+    moved = int(((got.forest.split_var != before.split_var).any(-1)
+                 | (got.forest.leaf != before.leaf).flatten(2).any(-1)
+                 ).sum())
+    structure = int((got.forest.split_var != before.split_var).any(-1).sum())
+
+    def sweep(st):
+        rejuvenate.rejuvenate_forest(st, moves, X, Y, rules, cfg, pg_on,
+                                     ll_dev, all_cont=True)
+
+    sweep_ms = []
+    for _ in range(reps):
+        st = state.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep(st)
+        torch.cuda.synchronize()
+        sweep_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = {}
+    for name, pgc in (("without", pg_off), ("with", pg_on),
+                      ("with_2", pg_on), ("without_2", pg_off)):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = step(pgc, state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[name] = float(np.median(times))
+    st = state.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sweep(st)
+        torch.cuda.synchronize()
+    kernels = device_ms = 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and e.device_type == DeviceType.CUDA:
+            kernels += e.count
+            device_ms += dev_us / 1e3
+    return dict(shapes=dict(C=Cn, m=cfg.m, n=n, p=p, depth=cfg.max_depth),
+                max_abs_err=errs, trees_moved=moved,
+                trees_restructured=structure,
+                sweep_ms=float(np.median(sweep_ms)),
+                sweep_device_ms=device_ms, sweep_cuda_kernels=int(kernels),
+                cuda_kernels_per_move=kernels / cfg.m,
+                host_ms_per_move=float(np.median(sweep_ms)) / cfg.m,
+                bign_step_ms=step_ms)
+
+
+def het_step_times(dev, reps=7):
+    """The heteroscedastic model's PGBART work a step at its shapes (two
+    forests of m=30, n=500, 4 chains, fused route), host clock around a
+    synchronisation, with and without rejuvenation, in turns."""
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+    from pymc_bart_tpu_torch.sampler import pgbart, rejuvenate
+
+    X_np, Y_np, _ = het_data()
+    n = X_np.shape[0]
+    cfg = BartConfig(m=30, max_depth=DEPTH)
+    X = torch.from_numpy(X_np).to(dev)
+    Y = torch.from_numpy(Y_np).to(dev)[:, None]
+    rules = torch.zeros(2, dtype=torch.int32, device=dev)
+    row = torch.ones((C, n, 1), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    states = [pgbart.init_state(X, Y, cfg, chains=C, device=dev)
+              for _ in range(2)]
+
+    def step(pgc):
+        for i, lik in enumerate(("gauss", "het_abs")):
+            rands = pgbart.draw_rands(
+                gen, B=pgc.batch_size(cfg.m, False), C=C, P=10,
+                D=cfg.max_depth, n=n, k=1, S=cfg.n_nodes, num_refinements=5,
+                device=dev, row_gumbels=False)
+            rejuv = (rejuvenate.draw_rejuv_rands(
+                gen, moves=cfg.m, C=C, S=cfg.n_nodes, n=n, k=1, device=dev)
+                if pgc.ancestor_sampling else None)
+            states[i] = pgbart.pgbart_step(
+                states[i], rands, X, Y, rules, cfg, pgc, False, row, lik=lik,
+                lik_const=0.05, route="fused", all_cont=True, rejuv=rejuv)[0]
+
+    out = {}
+    for name, flag in (("without", False), ("with", True), ("with_2", True),
+                       ("without_2", False)):
+        pgc = PgbartConfig(num_particles=10, ancestor_sampling=flag)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(pgc)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(times[1:]))
+    return out
+
+
+def phase_models(dev, tune, draws, large_tune, large_draws):
+    """The models this slice brings to the card, through ``sample()``: the
+    heteroscedastic model (separate trees, rejuvenation), a separate-trees
+    Categorical model, the large-n regression with and without
+    rejuvenation, posterior prediction on new X; rejuvenation on the card
+    against the CPU and its cost.  Each run's launch counts stand in this
+    phase's line."""
+    import pymc_bart_tpu_torch as pmb
+
+    runs = {}
+    # -- the heteroscedastic model of bench.py (config_heteroscedastic) ----
+    Xh, Yh, mu_h = het_data()
+    nh = Xh.shape[0]
+
+    def het_model(pmb):
+        Xd = pmb.Data("X", Xh)
+        w = pmb.BART("w", Xd, Yh, m=30, shape=(2, nh), separate_trees=True)
+        pmb.Normal("y", w[0], pmb.math.abs(w[1]) + 0.05, observed=Yh)
+        return w
+
+    model, rv, idata, launches, routes, seconds, timings = counted_sample(
+        het_model, tune=tune, draws=draws, chains=C, random_seed=0,
+        ancestor_sampling=True)
+    if routes != [("gauss", "fused"), ("het_abs", "fused")]:
+        raise AssertionError(f"heteroscedastic entries' routes: {routes}")
+    expect_launches("heteroscedastic", launches,
+                    {"pgbart_step_fused": 2 * (tune + draws)})
+    w_post = np.asarray(idata.posterior["w"].values)
+    if w_post.shape != (C, draws, 2, nh) or not np.isfinite(w_post).all():
+        raise AssertionError(f"heteroscedastic posterior {w_post.shape}")
+    if not (isinstance(rv.all_trees, list) and len(rv.all_trees) == 2):
+        raise AssertionError("separate trees: all_trees is not a list of 2")
+    # bench.py's quality function
+    corr = float(np.corrcoef(w_post.mean(axis=(0, 1))[0], mu_h)[0, 1])
+    s_hat = np.abs(w_post[:, :, 1, :]).mean(axis=(0, 1)) + 0.05
+    ratio = float(s_hat[Xh[:, 1] > 0].mean() / s_hat[Xh[:, 1] <= 0].mean())
+    if not corr >= 0.8:
+        raise AssertionError(f"heteroscedastic corr_mean_output {corr} < 0.8")
+    runs["heteroscedastic"] = dict(
+        model="heteroscedastic (bench.py:304-337), separate_trees, "
+              "ancestor_sampling", n=nh, m=30, chains=C, tune=tune,
+        draws=draws, routes=routes, launches=launches, seconds=seconds,
+        tune_seconds=timings["tune_seconds"],
+        draw_seconds_total=timings["draw_seconds_total"],
+        chain_draws_per_s=C * draws / timings["draw_seconds_total"],
+        corr_mean_output=corr, scale_hi_over_lo=ratio, true_ratio=8.5)
+
+    # -- posterior prediction of that model on new X, on the card ----------
+    rng = np.random.default_rng(13)
+    X_new = rng.uniform(-1, 1, size=(200, 2)).astype(np.float32)
+    pmb.set_data({"X": X_new}, model=model)
+    t0 = time.perf_counter()
+    pmb.sample_posterior_predictive(idata, model=model, predictions=True,
+                                    sample_vars=["y", "w"], random_seed=1)
+    predict_s = time.perf_counter() - t0
+    y_new = np.asarray(idata.predictions["y"].values)
+    w_new = np.asarray(idata.predictions["w"].values)
+    if (y_new.shape != (C, draws, 200) or w_new.shape != (C, draws, 2, 200)
+            or not np.isfinite(y_new).all()):
+        raise AssertionError(f"predictions y {y_new.shape} w {w_new.shape}")
+    y_mean = y_new.mean(axis=(0, 1))
+    w0_mean = w_new[:, :, 0].mean(axis=(0, 1))
+    corr_y_w0 = float(np.corrcoef(y_mean, w0_mean)[0, 1])
+    corr_w0_true = float(np.corrcoef(w0_mean, 3 * np.sin(2 * X_new[:, 0]))[0,
+                                                                          1])
+    if not (corr_y_w0 > 0.95 and corr_w0_true > 0.8):
+        raise AssertionError(f"predictions: corr(y, w0) {corr_y_w0}, "
+                             f"corr(w0, true mu) {corr_w0_true}")
+    runs["posterior_predictive"] = dict(
+        model="heteroscedastic after set_data to 200 new rows",
+        y_shape=list(y_new.shape), w_shape=list(w_new.shape),
+        seconds=predict_s, mean_y=float(y_new.mean()),
+        mean_w0=float(w_new[:, :, 0].mean()), corr_mean_y_mean_w0=corr_y_w0,
+        corr_mean_w0_true_mu=corr_w0_true)
+    del idata
+
+    # -- a separate-trees Categorical model, k=3 ---------------------------
+    Xk, Yk, prob = categorical_data()
+
+    def categorical_model(pmb):
+        lo = pmb.BART("lo", Xk, Yk, m=30, shape=(3, Xk.shape[0]),
+                      separate_trees=True)
+        pmb.Categorical("y", p=pmb.math.softmax(lo.T, axis=-1), observed=Yk)
+        return lo
+
+    _m, _rv, idata, launches, routes, seconds, timings = counted_sample(
+        categorical_model, tune=tune, draws=draws, chains=C, random_seed=0)
+    if routes != [("cat_logit", "fused")] * 3:
+        raise AssertionError(f"categorical entries' routes: {routes}")
+    expect_launches("categorical", launches,
+                    {"pgbart_step_fused": 3 * (tune + draws)})
+    lo_hat = np.asarray(idata.posterior["lo"].values).mean(axis=(0, 1))
+    acc = float((lo_hat.argmax(axis=0) == Yk).mean())
+    majority = float(np.bincount(Yk.astype(int)).max() / len(Yk))
+    bayes = float((prob.argmax(1) == Yk).mean())
+    if not acc > majority:
+        raise AssertionError(f"categorical accuracy {acc} <= majority "
+                             f"{majority}")
+    runs["categorical"] = dict(
+        model="Categorical(softmax(lo.T)), k=3, separate_trees", n=len(Yk),
+        m=30, chains=C, tune=tune, draws=draws, routes=routes,
+        launches=launches, seconds=seconds,
+        chain_draws_per_s=C * draws / timings["draw_seconds_total"],
+        train_accuracy=acc, majority_rate=majority,
+        bayes_rule_accuracy=bayes)
+    del idata
+
+    # -- large_n_50k (bench.py:369-395), without and with rejuvenation -----
+    Xb, Yb, fb = friedman(LN["N"], LN["PCOLS"], seed=5)
+
+    def large_regression(pmb):
+        mu = pmb.BART("mu", Xb, Yb, m=LN["M"])
+        sigma = pmb.HalfNormal("sigma", 1.0)
+        pmb.Normal("y", mu, sigma, observed=Yb)
+        return mu
+
+    for label, flag in (("large_n_without_rejuvenation", False),
+                        ("large_n_with_rejuvenation", True)):
+        _m, _rv, idata, launches, routes, seconds, timings = counted_sample(
+            large_regression, tune=large_tune, draws=large_draws,
+            chains=LN["C"], random_seed=0, num_particles=LN["P"],
+            num_refinements=0, store_trees=False, ancestor_sampling=flag)
+        # (pgbart_route=None: sample() chooses the route itself)
+        if routes != [("gauss", "bign")]:
+            raise AssertionError(f"{label}: routes {routes}")
+        expect_launches(label, launches,
+                        {"pgbart_step_bign": large_tune + large_draws})
+        post = np.asarray(idata.posterior["mu"].values)
+        sig = np.asarray(idata.posterior["sigma"].values)
+        if not (np.isfinite(post).all() and np.isfinite(sig).all()):
+            raise AssertionError(f"{label}: non-finite draws")
+        rmse = float(np.sqrt(np.mean((post.mean(axis=(0, 1)) - fb) ** 2)))
+        if not rmse < 0.5 * float(np.std(fb)):
+            raise AssertionError(f"{label}: rmse {rmse} >= half of std(f)")
+        runs[label] = dict(
+            model="friedman n=50,000 (bench.py:369-395)",
+            ancestor_sampling=flag, tune=large_tune, draws=large_draws,
+            chains=LN["C"], routes=routes, launches=launches,
+            seconds=seconds, tune_seconds=timings["tune_seconds"],
+            draw_seconds_total=timings["draw_seconds_total"],
+            draw_step_ms=1e3 * timings["draw_seconds_total"] / large_draws,
+            chain_draws_per_s=LN["C"] * large_draws
+            / timings["draw_seconds_total"],
+            rmse_vs_true_f=rmse, sigma_mean=float(sig.mean()), true_sigma=1.0)
+        del idata
+
+    runs["rejuvenation_card_vs_cpu"] = rejuvenation_on_card_vs_cpu(dev)
+    runs["het_step_ms"] = het_step_times(dev)
+    emit("models", runs=runs)
 
 
 def phase_timing(dev, calls, cfg, smi, runs=None):
@@ -2023,6 +2515,10 @@ def main(argv=None):
     ap.add_argument("--large-tune", type=int, default=100,
                     help="tuning steps of the n=50,000 models")
     ap.add_argument("--large-draws", type=int, default=100)
+    ap.add_argument("--model-tune", type=int, default=200,
+                    help="tuning steps of the heteroscedastic and "
+                         "Categorical models (phase models)")
+    ap.add_argument("--model-draws", type=int, default=200)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES) - set(EXTRA_PHASES)
@@ -2064,6 +2560,9 @@ def main(argv=None):
     if "sample" in phases:
         launches, runs = phase_sample(dev, args.tune, args.draws,
                                       args.large_tune, args.large_draws)
+    if "models" in phases:
+        phase_models(dev, args.model_tune, args.model_draws, args.large_tune,
+                     args.large_draws)
     if "timing" in phases:
         times = phase_timing(dev, calls, cfg, smi, runs)
     if "profile" in phases:

@@ -52,6 +52,8 @@ from .models import (
     Uniform,
     math,
     preprocess_xy,
+    sample_posterior_predictive,
+    sample_prior_predictive,
     set_data,
 )
 from .sampler import PGBART, sample
@@ -64,5 +66,6 @@ __all__ = [
     "Normal", "OneHotSplitRule", "PGBART", "PgbartConfig", "Poisson",
     "PosteriorForests", "SplitRule", "StudentT", "SubsetSplitRule", "Uniform",
     "check_convergence", "ess_bulk", "math", "preprocess_xy", "rhat",
-    "sample", "set_data", "summary",
+    "sample", "sample_posterior_predictive", "sample_prior_predictive",
+    "set_data", "summary",
 ]

@@ -112,6 +112,7 @@ struct BignArgs {
   // output
   float* vi;
   int C, P, S, n, p, m, B, D, R, lik, tuning, tile, ntiles;
+  int y_stride;  // y is one row vector for every chain (0) or one a chain (n)
   float lik_const, decay;
   float p_grow[kMaxDepth];
 };
@@ -264,7 +265,7 @@ __global__ void __launch_bounds__(kThreads) k_resid(const BignArgs a, int b) {
   double sr = 0.0, sq = 0.0;
   for (int i = r0 + threadIdx.x; i < r1; i += kThreads) {
     const float ni = a.sum_trees[(size_t)c * n + i] - tp[i];
-    const float r = a.y[i] - ni;
+    const float r = a.y[(size_t)c * a.y_stride + i] - ni;
     a.noi[(size_t)c * n + i] = ni;
     a.resid[(size_t)c * n + i] = r;
     sr += (double)r;
@@ -351,11 +352,12 @@ __global__ void __launch_bounds__(kThreads) k_rows_init(const BignArgs a) {
   const float pred0 = node_buf(a, 0, q).lf[0];
   const float* noi = a.noi + (size_t)c * n;
   const float* llw = a.llw ? a.llw + (size_t)c * n : nullptr;
+  const float* yc = a.y + (size_t)c * a.y_stride;
   double acc = 0.0;
   for (int i = r0 + threadIdx.x; i < r1; i += kThreads) {
     li[i] = 0;
     pred[i] = pred0;
-    acc += (double)row_ll(a.lik, a.lik_const, a.y[i], noi[i] + pred0,
+    acc += (double)row_ll(a.lik, a.lik_const, yc[i], noi[i] + pred0,
                           llw ? llw[i] : 0.f);
   }
   acc = block_sum_d(acc, s_red);
@@ -574,6 +576,7 @@ __global__ void __launch_bounds__(kThreads) k_route(const BignArgs a, int b,
   float* pred = a.pred + ro;
   const float* noi = a.noi + (size_t)c * n;
   const float* llw = a.llw ? a.llw + (size_t)c * n : nullptr;
+  const float* yc = a.y + (size_t)c * a.y_stride;
   const int r0 = blockIdx.x * a.tile, r1 = min(n, r0 + a.tile);
   double acc = 0.0;
   for (int i = r0 + threadIdx.x; (any || rowll) && i < r1; i += kThreads) {
@@ -590,7 +593,7 @@ __global__ void __launch_bounds__(kThreads) k_route(const BignArgs a, int b,
       }
     }
     if (rowll)
-      acc += (double)row_ll(a.lik, a.lik_const, a.y[i], noi[i] + v,
+      acc += (double)row_ll(a.lik, a.lik_const, yc[i], noi[i] + v,
                             llw ? llw[i] : 0.f);
   }
   if (rowll) {

@@ -136,6 +136,8 @@ struct DrawArgs {
   // the launch plan of ops/draw.py: cluster size, particle slots of a block,
   // warps of a particle's team, the form, whether X and the CDF are staged
   int CS, PB, WP, shared_form, x_staged, cdf_staged;
+  // y is one row vector for every chain (0) or one a chain (n)
+  int y_stride;
   float lik_const, decay;
   float p_grow[kMaxDepth];
 };
@@ -374,7 +376,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
   auto fresh = [](const auto* ptr) { return kSh ? *ptr : __ldcg(ptr); };
 
   // rows of the chain: y, the row data, the residual base of the tree
-  const float* yv = kSh ? s.y : a.y;
+  const float* yc = a.y + (size_t)c * a.y_stride;
+  const float* yv = kSh ? s.y : yc;
   const float* wv = kSh ? s.w : (a.lik_row ? a.lik_row + (size_t)c * n : nullptr);
   float* noiv = kSh ? s.noi : a.noi + (size_t)c * n;
   const float* Xv = a.x_staged ? s.X : a.X;
@@ -383,7 +386,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
   if (kSh) {
     const float* wrow = a.lik_row ? a.lik_row + (size_t)c * n : nullptr;
     for (int i = t; i < n; i += T) {
-      s.y[i] = a.y[i];
+      s.y[i] = yc[i];
       s.w[i] = wrow ? wrow[i] : 0.f;
     }
   }
@@ -507,7 +510,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
       float amax = 0.f;
       for (int i = p0 + t; i < p1; i += T) {
         const float ni = (kSh ? s.st[i] : a.sum_trees[(size_t)c * n + i]) - tp[i];
-        const float r = (kSh ? s.y[i] : a.y[i]) - ni;
+        const float r = yv[i] - ni;
         acc += (double)r;
         amax = fmaxf(amax, fabsf(r));
         noiv[i] = ni;

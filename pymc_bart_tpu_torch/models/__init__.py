@@ -22,11 +22,13 @@ from .model import (
     preprocess_xy,
     set_data,
 )
+from .predictive import sample_posterior_predictive, sample_prior_predictive
 
 __all__ = [
     "BART", "BARTRV", "Bernoulli", "Categorical", "Const", "Coord", "Data",
     "DataArray", "Dataset", "Deterministic", "Exponential", "Expr", "FreeRV",
     "Gamma", "HalfNormal", "InferenceData", "LogNormal", "Model",
     "NegativeBinomial", "Normal", "ObservedRV", "Op", "Poisson", "StudentT",
-    "Uniform", "evaluate", "math", "preprocess_xy", "set_data",
+    "Uniform", "evaluate", "math", "preprocess_xy",
+    "sample_posterior_predictive", "sample_prior_predictive", "set_data",
 ]

@@ -52,7 +52,7 @@ import torch
 
 from ..config import BartConfig, PgbartConfig
 from . import _build
-from .draw import LIK_CODES
+from .draw import LIK_CODES, target_rows
 from .smc import smc_resample_plain
 from .sums import seq_cumsum, sum64 as _sum64, true_div
 
@@ -168,7 +168,7 @@ def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
     rowll = lik != "gauss"
     dev = X.device
     f32, f64, i64 = torch.float32, torch.float64, torch.int64
-    y = Y_target.reshape(n)
+    y = Y_target.reshape(-1, n)           # (1, n), or (C, n): one a chain
     ar = torch.arange(C, device=dev)
     q_ar = torch.arange(CP, device=dev)
     chain_of = q_ar // P
@@ -179,6 +179,7 @@ def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
     w_c = w_chain.reshape(C).to(f32)
     w_q = w_c[chain_of]
     row_q = None if llw is None else llw.reshape(C, n)[chain_of]
+    y_q = y[chain_of] if y.shape[0] > 1 else y                   # (CP|1, n)
     mf = float(m)
 
     def stats_ll(lf, ct, rs, rq, lm):
@@ -189,7 +190,7 @@ def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
     for b in range(B):
         jt = (off0 + b) % m
         noi = state.sum_trees[:, :, 0] - state.tree_pred[ar, jt, :, 0]
-        resid = y[None, :] - noi                                 # (C, n)
+        resid = y - noi                                          # (C, n)
         root_r = _sum64(resid)
         root_q = _sum64(resid * resid)
         root_mu = true_div(true_div(root_r, n), mf)
@@ -217,8 +218,7 @@ def pgbart_step_bign_plain(state, rands, X, Y_target, cfg: BartConfig,
         li = torch.zeros((CP, n), dtype=i64, device=dev)
 
         def rows_ll(pred):
-            terms = closed_form_ll(lik, lik_const, noi_q + pred, y[None, :],
-                                   row_q)
+            terms = closed_form_ll(lik, lik_const, noi_q + pred, y_q, row_q)
             return _sum64(terms)
 
         pred = lf[:, 0:1].expand(CP, n).contiguous() if rowll else None
@@ -399,7 +399,7 @@ _POINTERS = (
     "cdf", "root", "ll", "ll_prev", "log_w", "cdfp", "prob", "w_lf", "take",
     "widx", "vi_cnt", "tickets", "vi")
 _INTS = ("C", "P", "S", "n", "p", "m", "B", "D", "R", "lik", "tuning", "tile",
-         "ntiles")
+         "ntiles", "y_stride")
 
 
 class _BignArgs(ctypes.Structure):
@@ -541,7 +541,7 @@ def pgbart_step_bign_kernel(state, rands, X, Y_target, cfg: BartConfig,
         raise ValueError("pgbart_step_bign: rands holds neither the row "
                          "Gumbels (rg) nor a seed to generate them from")
     f32, i32 = torch.float32, torch.int32
-    Y = Y_target.reshape(n) if isinstance(Y_target, torch.Tensor) else Y_target
+    Y, y_stride = target_rows(Y_target, C, n)
     checks = [
         (f.split_var, "forest.split_var", i32, (C, m, S)),
         (f.split_val, "forest.split_val", f32, (C, m, S)),
@@ -556,7 +556,8 @@ def pgbart_step_bign_kernel(state, rands, X, Y_target, cfg: BartConfig,
         (state.wf_m2, "wf_m2", f32, (C, n, 1)),
         (state.batch_offset, "batch_offset", i32, (C,)),
         (state.iteration, "iteration", i32, (C,)),
-        (X, "X", f32, (n, p)), (Y, "Y_target", f32, (n,)),
+        (X, "X", f32, (n, p)),
+        (Y, "Y_target", f32, (C, n) if y_stride else (n,)),
         (rands.ug, "rands.ug", f32, (B, C, P, Gtot)),
         (rands.uv, "rands.uv", f32, (B, C, P, Gtot)),
         (rands.eps, "rands.eps", f32, (B, C, P, 1, 2 * Gtot)),
@@ -633,7 +634,7 @@ def pgbart_step_bign_kernel(state, rands, X, Y_target, cfg: BartConfig,
     a.seed = _check_seed(rands.seed, dev) if rands.rg is None else None
     a.C, a.P, a.S, a.n, a.p, a.m, a.B, a.D, a.R = C, P, S, n, p, m, B, D, R
     a.lik, a.tuning = LIK_CODES[lik], int(bool(tuning))
-    a.tile, a.ntiles = tile, ntiles
+    a.tile, a.ntiles, a.y_stride = tile, ntiles, y_stride
     a.lik_const, a.decay = float(lik_const), float(pg.split_prior_decay)
     for d in range(D):
         a.p_grow[d] = float(cfg.alpha * (1.0 + d) ** (-cfg.beta))
@@ -653,8 +654,9 @@ def pgbart_step_bign(state, rands, X, Y_target, cfg: BartConfig,
 
     ``state``: ``PgbartState`` with a leading chain axis, updated in place;
     ``rands``: ``StepRands`` (``rg`` may be None on the kernel: the row
-    Gumbels are then generated from ``rands.seed``); ``X`` (n, p) and
-    ``Y_target`` (n, 1) are shared by the chains; ``w_chain`` (C,) is each
+    Gumbels are then generated from ``rands.seed``); ``X`` (n, p) is shared
+    by the chains, ``Y_target`` (n, 1) too or is (C, n, 1), one target a
+    chain; ``w_chain`` (C,) is each
     chain's Gaussian precision (``"gauss"`` only); ``llw`` (C, n) the row data
     of ``"het_abs"`` / ``"het_exp"`` / ``"cat_logit"``.  Returns
     ``(state, variable_inclusion (C, p))``.  Runs the CUDA kernels for a

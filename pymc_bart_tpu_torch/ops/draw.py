@@ -264,7 +264,7 @@ _POINTERS = (
     "ps_lf", "ps_ct", "ps_li", "noi", "g_acc", "g_cnt", "g_leaf", "cdf",
     "vi_cnt", "vi")
 _INTS = ("C", "P", "S", "n", "p", "m", "B", "D", "R", "lik", "tuning", "CS",
-         "PB", "WP", "shared_form", "x_staged", "cdf_staged")
+         "PB", "WP", "shared_form", "x_staged", "cdf_staged", "y_stride")
 
 
 class _DrawArgs(ctypes.Structure):
@@ -274,6 +274,17 @@ class _DrawArgs(ctypes.Structure):
                 + [(name, _I) for name in _INTS]
                 + [("lik_const", _F), ("decay", _F),
                    ("p_grow", _F * _MAX_DEPTH)])
+
+
+def target_rows(Y_target, C: int, n: int):
+    """``(y, stride)`` of a growth target for the kernels: ``(n,)`` and 0
+    for one target shared by the chains (``Y_target`` (n, 1)), ``(C, n)`` and
+    ``n`` for one a chain (``Y_target`` (C, n, 1): a heteroscedastic model's
+    scale forest, whose target follows each chain's mean forest)."""
+    if isinstance(Y_target, torch.Tensor) and Y_target.dim() == 3:
+        return Y_target.reshape(C, n), n
+    return (Y_target.reshape(n) if isinstance(Y_target, torch.Tensor)
+            else Y_target), 0
 
 
 def _lib():
@@ -348,7 +359,7 @@ def pgbart_step_fused_kernel(state, rands, X, Y_target, rules,
                          "Gumbels (rg) nor a seed to generate them from")
     plan = launch_plan(C, P, D, S, n, p, R)
     f32, i32 = torch.float32, torch.int32
-    Y = Y_target.reshape(n) if isinstance(Y_target, torch.Tensor) else Y_target
+    Y, y_stride = target_rows(Y_target, C, n)
     checks = [
         (f.split_var, "forest.split_var", i32, (C, m, S)),
         (f.split_val, "forest.split_val", f32, (C, m, S)),
@@ -365,7 +376,8 @@ def pgbart_step_fused_kernel(state, rands, X, Y_target, rules,
         (state.wf_m2, "wf_m2", f32, (C, n, 1)),
         (state.batch_offset, "batch_offset", i32, (C,)),
         (state.iteration, "iteration", i32, (C,)),
-        (X, "X", f32, (n, p)), (Y, "Y_target", f32, (n,)),
+        (X, "X", f32, (n, p)),
+        (Y, "Y_target", f32, (C, n) if y_stride else (n,)),
         (rules, "rules", i32, (p,)),
         (rands.ug, "rands.ug", f32, (B, C, P, Gtot)),
         (rands.uv, "rands.uv", f32, (B, C, P, Gtot)),
@@ -433,6 +445,7 @@ def pgbart_step_fused_kernel(state, rands, X, Y_target, rules,
         off += size
     a.C, a.P, a.S, a.n, a.p, a.m, a.B, a.D, a.R = C, P, S, n, p, m, B, D, R
     a.lik, a.tuning = LIK_CODES[lik], int(bool(tuning))
+    a.y_stride = y_stride
     a.CS, a.PB, a.WP = plan.cluster, plan.per_block, plan.warps
     a.shared_form = int(shared)
     a.x_staged, a.cdf_staged = int(plan.x_staged), int(plan.cdf_staged)
@@ -467,8 +480,9 @@ def pgbart_step_fused(state, rands, X, Y_target, rules, cfg: BartConfig,
 
     ``state``: ``PgbartState`` with a leading chain axis, updated in place;
     ``rands``: ``StepRands`` (``rg`` may be None: the row Gumbels are then
-    generated from ``rands.seed``); ``X`` (n, p), ``Y_target`` (n, 1) and
-    ``rules`` (p,) are shared by the chains; ``lik_row`` is the (C, n, 1) row
+    generated from ``rands.seed``); ``X`` (n, p) and ``rules`` (p,) are
+    shared by the chains, ``Y_target`` (n, 1) too or is (C, n, 1), one
+    target a chain (``target_rows``); ``lik_row`` is the (C, n, 1) row
     data of the likelihood code or ``None`` for ``"bernoulli"``.  Returns
     ``(state, variable_inclusion (C, p))``.  Runs the CUDA kernel for a state
     on a CUDA device and the plain version for one on the CPU; ``impl``

@@ -1,10 +1,12 @@
 """Branchless sum-of-trees prediction (PyTorch).
 
-Counterpart of ``pymc_bart_tpu/ops/predict.py`` (fast path only; the
-``*_excluded`` interpretability traversals are not ported yet).  Every
-function takes any leading batch axes on the tree tensors (chains, trees,
-draws) where the JAX package uses ``vmap``: ``D`` rounds of
-``node = 2*node + 1 + go_right`` with gathers.
+Counterpart of ``pymc_bart_tpu/ops/predict.py``.  Every function takes any
+leading batch axes on the tree tensors (chains, trees, draws) where the JAX
+package uses ``vmap``.  The fast path: ``D`` rounds of
+``node = 2*node + 1 + go_right`` with gathers.  The excluded path
+(``*_excluded``): level by level, a row's mass flows down the tree, and at a
+node that splits on an excluded covariate to both children in proportion to
+their training row counts (the reference's fast-PDP semantics).
 
 A leaf predicts ``leaf + slope * x[:, parent_split_var]``; slope is zero
 for the constant response, so both responses share these functions.
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .trees import Forest, decide_left
+from .trees import Forest, decide_left, level_slots
 
 
 def _x_at(X: torch.Tensor, var_c: torch.Tensor) -> torch.Tensor:
@@ -79,6 +81,67 @@ def forest_predict(forest: Forest, X, rules, depth: int | None = None):
     per_tree = tree_predict(forest.split_var, forest.split_val,
                             forest.split_set, forest.leaf, forest.slope,
                             X, rules, depth)
+    return per_tree.sum(dim=-3)
+
+
+def _x_cols(XT: torch.Tensor, var_c: torch.Tensor) -> torch.Tensor:
+    """X[:, var_c[..., g]] -> [..., n, G] for ``XT`` = X transposed (p, n)."""
+    return XT[var_c].transpose(-1, -2)
+
+
+def tree_predict_excluded(split_var, split_val, split_set, leaf, count, slope,
+                          X, rules, excluded_mask, depth: int):
+    """Per-tree prediction with the covariates marked in ``excluded_mask``
+    (bool[p]) integrated out by row-count-weighted mass propagation:
+    float32[..., n, k].  A leaf's linear term still reads the covariate:
+    exclusion integrates out routing, not leaf functions."""
+    n, p = X.shape
+    batch = split_var.shape[:-1]
+    dev = X.device
+    XT = X.t()
+    out = torch.zeros(batch + (n, leaf.shape[-1]), dtype=torch.float32,
+                      device=dev)
+    mass = torch.ones(batch + (n, 1), dtype=torch.float32, device=dev)
+    for d in range(depth + 1):
+        lo, hi = level_slots(d)
+        var = split_var[..., lo:hi]                                  # (..., G)
+        var_c = var.clamp(0, p - 1).to(torch.int64)
+        internal = (var >= 0) & (d < depth)
+        slots = torch.arange(lo, hi, device=dev)
+        parent = torch.div(slots - 1, 2, rounding_mode="floor").clamp_min(0)
+        pvar = split_var[..., parent]
+        xp = _x_cols(XT, pvar.clamp(0, p - 1).to(torch.int64))     # (...,n,G)
+        xp = torch.where(((slots > 0) & (pvar >= 0)).unsqueeze(-2),
+                         torch.nan_to_num(xp, nan=0.0), torch.zeros_like(xp))
+        level_vals = (leaf[..., lo:hi, :].unsqueeze(-3)
+                      + slope[..., lo:hi, :].unsqueeze(-3) * xp.unsqueeze(-1))
+        on_leaf = mass * (~internal).to(torch.float32).unsqueeze(-2)
+        out = out + (on_leaf.unsqueeze(-1) * level_vals).sum(-2)
+        if d == depth:
+            break
+        left = decide_left(_x_cols(XT, var_c), split_val[..., lo:hi].unsqueeze(-2),
+                           split_set[..., lo:hi].unsqueeze(-2),
+                           rules[var_c].unsqueeze(-2))
+        cl = count[..., 2 * slots + 1]
+        cr = count[..., 2 * slots + 2]
+        frac_l = cl / (cl + cr).clamp_min(1e-12)
+        excl = excluded_mask[var_c] & (var >= 0)
+        p_left = torch.where(excl.unsqueeze(-2), frac_l.unsqueeze(-2),
+                             left.to(torch.float32))
+        m_int = mass * internal.to(torch.float32).unsqueeze(-2)
+        mass = torch.stack([m_int * p_left, m_int * (1.0 - p_left)],
+                           dim=-1).reshape(batch + (n, 2 * (hi - lo)))
+    return out
+
+
+def forest_predict_excluded(forest: Forest, X, rules, excluded_mask,
+                            depth: int | None = None):
+    """Sum-of-trees prediction with exclusion: float32[..., n, k]."""
+    if depth is None:
+        depth = _max_depth_of(forest.split_var.shape[-1])
+    per_tree = tree_predict_excluded(
+        forest.split_var, forest.split_val, forest.split_set, forest.leaf,
+        forest.count, forest.slope, X, rules, excluded_mask, depth)
     return per_tree.sum(dim=-3)
 
 

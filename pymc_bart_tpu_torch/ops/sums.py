@@ -61,6 +61,15 @@ def true_div(x: torch.Tensor, count: float) -> torch.Tensor:
     return x / torch.full((), float(count), dtype=x.dtype, device=x.device)
 
 
+def alpha_cdf_of(alpha_vec: torch.Tensor) -> torch.Tensor:
+    """CDF of the split weights (C, p): prefix sums accumulated in float64
+    in index order and rounded to float32 once per entry, the order the
+    whole-step kernel uses (a float32 scan would round differently from one
+    device to the next; integer-valued weights give the same bits anyway)."""
+    return torch.cumsum(alpha_vec.clamp_min(1e-12).to(torch.float64),
+                        dim=1).to(torch.float32)
+
+
 def fixed_exponent(top: torch.Tensor) -> torch.Tensor:
     """int32 exponents ``e`` with ``|v| < 2^e`` for the float64 maxima
     ``top`` (``frexp``'s; 0 where ``top`` is 0 or not finite)."""

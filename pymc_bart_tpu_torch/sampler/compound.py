@@ -9,7 +9,13 @@ per-chain model expressions are batched with ``torch.func.vmap``.
 Ported: the fused likelihood patterns ``y ~ Normal(BART, sigma)`` (code
 ``gauss``; constant, linear and mix responses) and
 ``y ~ Bernoulli(sigmoid(BART))`` (code ``bernoulli``; constant response),
-with one output, on the large-n route of
+with one output, and the ``separate_trees`` models with one forest per
+output: the heteroscedastic ``y ~ Normal(w[0], |w[1]| + c)`` or
+``Normal(w[0], exp(w[1]))`` (codes ``gauss`` with per-row precision for the
+mean forest, ``het_abs`` / ``het_exp`` for the scale forest) and the
+softmax classifier ``y ~ Categorical(softmax(w.T))`` (code ``cat_logit`` for
+every class forest); ``ancestor_sampling`` (retained-path rejuvenation after
+every PGBART step, ``sampler/rejuvenate.py``).  Each forest runs on the large-n route of
 ``pgbart.pgbart_step`` where a chain's rows do not fit the whole-step
 kernel's shared memory (``pgbart.resolve_route``), on the whole-step route
 where its gate admits the configuration and on the per-round route
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import operator
 import time
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
@@ -35,12 +42,13 @@ import numpy as np
 import torch
 
 from ..config import PgbartConfig
-from ..models.distributions import BernoulliDist, NormalDist
+from ..models import expr as expr_mod
+from ..models.distributions import BernoulliDist, CategoricalDist, NormalDist
 from ..models.expr import Expr, Op, evaluate
 from ..models.inference_data import DataArray, Dataset, InferenceData
 from ..models.model import BARTRV, Deterministic, Model
 from ..utils.posterior import PosteriorForests
-from . import hmc, nuts, pgbart
+from . import hmc, nuts, pgbart, rejuvenate
 
 
 def resolve_device(device) -> torch.device:
@@ -59,17 +67,48 @@ def resolve_device(device) -> torch.device:
 
 
 def _expr_leaf_names(x, acc=None):
-    """Names of named leaves referenced by an expression."""
+    """Names of named leaves referenced by an expression, through
+    ``Deterministic`` nodes (the JAX package stops at them, so a
+    Deterministic-wrapped softmax misses the Categorical growth target)."""
     if acc is None:
         acc = set()
     if isinstance(x, Op):
         for a in x.args:
             _expr_leaf_names(a, acc)
+    elif isinstance(x, Deterministic):
+        acc.add(x.name)
+        _expr_leaf_names(x.expr, acc)
     elif isinstance(x, Expr):
         name = getattr(x, "name", None)
         if name is not None:
             acc.add(name)
     return acc
+
+
+def _match_getitem(expr, brv):
+    """If ``expr`` is ``brv[i]`` (tagged getitem), return the int index."""
+    if isinstance(expr, Op) and getattr(expr, "tag", None) is not None:
+        tag = expr.tag
+        if (len(tag) == 2 and tag[0] == "getitem" and len(expr.args) == 1
+                and expr.args[0] is brv and isinstance(tag[1], int)):
+            return tag[1]
+    return None
+
+
+def _depends_on_output(expr, brv, out):
+    """Does ``expr`` reference ``brv`` other than via ``brv[i]`` with
+    ``i != out``?  (Conservative: any non-getitem reference counts.)"""
+    if expr is brv:
+        return True
+    if isinstance(expr, Op):
+        gi = _match_getitem(expr, brv)
+        if gi is not None:
+            return gi == out
+        return any(_depends_on_output(a, brv, out)
+                   for a in expr.args if isinstance(a, Expr))
+    if isinstance(expr, Expr):
+        return getattr(expr, "name", None) == brv.name
+    return False
 
 
 def _unwrap_det(e):
@@ -80,14 +119,69 @@ def _unwrap_det(e):
     return e
 
 
-def _fused_likelihood(model: Model, brv: BARTRV):
-    """Detect a closed-form SMC likelihood code.
+def _match_scale_pattern(expr, brv, out):
+    """Match the scale-forest link: ``exp(brv[out])`` -> ("het_exp", 0) or
+    ``abs(brv[out]) (+ c)`` -> ("het_abs", c)."""
+    if (isinstance(expr, Op) and expr.fn is torch.exp and len(expr.args) == 1
+            and _match_getitem(expr.args[0], brv) == out):
+        return ("het_exp", 0.0)
 
-    Returns ``{"kind": "gauss", "sigma_expr": e}`` for
-    ``y ~ Normal(BART, sigma(env))`` with ``sigma`` not depending on the
-    BART variable (per-step row data = 1/sigma^2),
-    ``{"kind": "bernoulli"}`` for ``y ~ Bernoulli(sigmoid(BART))`` (the
-    labels ride the growth target; no row data), else ``None``.
+    def match_abs(e):
+        return (isinstance(e, Op) and e.fn is torch.abs and len(e.args) == 1
+                and _match_getitem(e.args[0], brv) == out)
+
+    if match_abs(expr):
+        return ("het_abs", 0.0)
+    if (isinstance(expr, Op) and expr.fn is operator.add
+            and len(expr.args) == 2):
+        a, b = expr.args
+        for x, y in ((a, b), (b, a)):
+            if match_abs(x) and isinstance(y, (int, float)) and y >= 0:
+                return ("het_abs", float(y))
+    return None
+
+
+def _softmax_axis(e):
+    """The axis of ``e`` if it is a softmax (the port's ``math.softmax`` or
+    ``torch.softmax``) of one argument, else None."""
+    if not (isinstance(e, Op) and len(e.args) == 1
+            and e.fn in (expr_mod._softmax, torch.softmax)):
+        return None
+    return e.kwargs.get("axis", e.kwargs.get("dim", -1))
+
+
+def _is_softmax_of_transpose(e, brv):
+    """``softmax(brv.T)`` over the last axis, or ``softmax(brv, axis=0).T``:
+    class probabilities with the classes of ``brv`` (k, n) on the last axis."""
+    if _softmax_axis(e) in (-1, 1):
+        inner = _unwrap_det(e.args[0])
+        return (isinstance(inner, Op)
+                and getattr(inner, "tag", None) == ("transpose",)
+                and inner.args[0] is brv)
+    if (isinstance(e, Op) and getattr(e, "tag", None) == ("transpose",)
+            and len(e.args) == 1):
+        inner = _unwrap_det(e.args[0])
+        return (_softmax_axis(inner) == 0
+                and _unwrap_det(inner.args[0]) is brv)
+    return False
+
+
+def _fused_likelihood(model: Model, brv: BARTRV, out=None):
+    """Detect a closed-form SMC likelihood code for one sampler entry: the
+    whole BART variable (``out=None``) or its output ``out`` under
+    ``separate_trees``.
+
+    Returns ``None`` (no closed form) or a dict:
+
+    * ``{"kind": "gauss", "sigma_expr": e}``: ``y ~ Normal(F, sigma(env))``,
+      per-step row data 1/sigma^2; also the mean forest of a separate-trees
+      heteroscedastic model, whose sigma reads the other outputs;
+    * ``{"kind": "bernoulli"}``: ``y ~ Bernoulli(sigmoid(F))``;
+    * ``{"kind": "het_abs" | "het_exp", "mu_expr": e, "const": c}``: the
+      scale forest of ``y ~ Normal(mu0(env), |F| + c)`` or
+      ``Normal(mu0, exp(F))``;
+    * ``{"kind": "cat_logit"}``: a class forest of
+      ``y ~ Categorical(softmax(w.T))``.
     """
     if len(model.bart_rvs) != 1 or len(model.observed_rvs) != 1:
         return None
@@ -97,21 +191,40 @@ def _fused_likelihood(model: Model, brv: BARTRV):
     if obs.shape[0] != n or not np.allclose(
             obs, np.asarray(brv.Y, np.float64).reshape(-1)):
         return None
-    if orv.dist is BernoulliDist and brv.config.n_outputs == 1:
+    k = brv.config.n_outputs
+    if orv.dist is BernoulliDist and k == 1 and out is None:
         p_expr = _unwrap_det(orv.params[0]) if orv.params else None
         if (isinstance(p_expr, Op) and p_expr.fn is torch.sigmoid
                 and len(p_expr.args) == 1
                 and _unwrap_det(p_expr.args[0]) is brv):
             return {"kind": "bernoulli"}
         return None
+    if orv.dist is CategoricalDist and out is not None and k > 1:
+        p_expr = _unwrap_det(orv.params[0]) if orv.params else None
+        if _is_softmax_of_transpose(p_expr, brv):
+            return {"kind": "cat_logit"}
+        return None
     if orv.dist is not NormalDist or len(orv.params) < 2:
         return None
     mu_expr, sigma_expr = _unwrap_det(orv.params[0]), orv.params[1]
-    if brv.config.n_outputs != 1 or mu_expr is not brv:
+    if out is None:
+        if k != 1 or mu_expr is not brv:
+            return None
+        if brv.name in _expr_leaf_names(sigma_expr):
+            return None
+        return {"kind": "gauss", "sigma_expr": sigma_expr}
+    mu_idx = _match_getitem(mu_expr, brv)
+    if mu_idx is None:
         return None
-    if brv.name in _expr_leaf_names(sigma_expr):
+    if out == mu_idx:
+        if _depends_on_output(sigma_expr, brv, out):
+            return None
+        return {"kind": "gauss", "sigma_expr": sigma_expr}
+    pat = _match_scale_pattern(sigma_expr, brv, out)
+    if pat is None:
         return None
-    return {"kind": "gauss", "sigma_expr": sigma_expr}
+    kind, c = pat
+    return {"kind": kind, "mu_expr": mu_expr, "const": c}
 
 
 def _jitter_duplicate_values(X: np.ndarray, rules: np.ndarray,
@@ -141,12 +254,60 @@ def _jitter_duplicate_values(X: np.ndarray, rules: np.ndarray,
 
 
 def _bart_growth_target(model: Model, brv: BARTRV) -> np.ndarray:
-    """Per-output regression target (n, k) for leaf-value proposals: the
-    observed Y broadcast over outputs."""
+    """Per-output regression target (n, k) for leaf-value proposals.
+
+    The observed Y broadcast over outputs, except for a multi-output BART
+    feeding a Categorical likelihood: there each output's target is +-2
+    around its class indicator (softmax is shift-invariant per row, so the
+    broadcast labels would pull every class forest to the same values).
+    The SMC weights are the exact likelihood either way; the target only
+    centres the proposals."""
     n = brv.X.shape[0]
     k = brv.config.n_outputs
     Y = np.asarray(brv.Y, np.float64).reshape(n, -1)[:, :1]
+    if k > 1:
+        for orv in model.observed_rvs:
+            refs = set()
+            for p_ in orv.params:
+                _expr_leaf_names(p_, refs)
+            if brv.name not in refs:
+                continue
+            labels = np.asarray(orv.observed).astype(int)
+            if (orv.dist is CategoricalDist and labels.size == n
+                    and labels.max() < k):
+                return 4.0 * np.eye(k)[labels.reshape(-1)] - 2.0
     return np.broadcast_to(Y, (n, k)).copy()
+
+
+def _scale_target(kind: str, const: float, s_hat):
+    """Growth target of a scale forest from per-row scale evidence ``s_hat``
+    (|y - mu0| / E|N(0, 1)|): ``s_hat - c`` for ``|F| + c``, ``log s_hat``
+    for ``exp(F)``.  NumPy or torch."""
+    if kind == "het_abs":
+        return s_hat - const
+    if isinstance(s_hat, np.ndarray):
+        return np.log(np.maximum(s_hat, 1e-3))
+    return torch.log(s_hat.clamp_min(1e-3))
+
+
+_E_ABS_NORMAL = 0.7978845608     # E|N(0, 1)| = sqrt(2 / pi)
+
+
+def scale_forest_data(kind: str, const: float, y, mu0):
+    """Per-step row data and growth target of a scale forest (``het_abs`` /
+    ``het_exp``) at the mean forest's current values ``mu0`` (C, n): the
+    squared deviations ``(y - mu0)^2`` and the target from the per-row scale
+    evidence ``|y - mu0| / E|N(0, 1)|``, both (C, n, 1)."""
+    dev = y - mu0
+    target = _scale_target(kind, const, dev.abs() / _E_ABS_NORMAL)
+    return (dev * dev)[..., None], target[..., None].contiguous()
+
+
+def class_forest_data(W, j: int):
+    """Per-step row data of class forest ``j``: the logsumexp of the OTHER
+    classes' current values ``W`` (C, n, k), as (C, n, 1)."""
+    others = torch.cat([W[..., :j], W[..., j + 1:]], dim=-1)
+    return torch.logsumexp(others, dim=-1, keepdim=True).contiguous()
 
 
 class CompiledModel:
@@ -434,13 +595,23 @@ def sample(
     force one route.  On a CUDA device the large-n route generates its row
     Gumbels inside the kernel and the step draws no block that grows with n.
 
+    ``ancestor_sampling``: after each PGBART step, ``rejuvenation_sweeps``
+    grow / prune / change Metropolis sweeps over the committed trees
+    (``sampler/rejuvenate.py``); constant response only (``ValueError``
+    otherwise).  The stored forests then ship all m trees a draw.
+    ``separate_trees`` (``BART(..., shape=(k, n), separate_trees=True)``):
+    one forest per output, each updated with the others' current values, for
+    ``Normal(w[0], |w[1]| + c)``, ``Normal(w[0], exp(w[1]))`` and
+    ``Categorical(softmax(w.T))``; ``all_trees`` is then a list of k
+    ``PosteriorForests``.
+
     Not ported yet (``NotImplementedError``): ``mesh``, ``checkpoint_dir``,
-    ``resume``, ``profile_dir``, ``debug_nans``, ``posterior_dtype``,
-    ``ancestor_sampling``, ``separate_trees`` (and with it the
-    heteroscedastic and Categorical models), a likelihood that is neither
-    ``Normal(BART, sigma)`` nor ``Bernoulli(sigmoid(BART))``, ``response=
+    ``resume``, ``profile_dir``, ``debug_nans``, ``posterior_dtype``; a
+    forest without a closed-form likelihood (the generic ``loglik_fn`` path:
+    any other likelihood, or another separate-trees form); ``response=
     "linear"`` / ``"mix"`` with another likelihood than
-    ``Normal(BART, sigma)``, ``n_outputs != 1``.
+    ``Normal(BART, sigma)``; one forest with ``n_outputs != 1`` (joint
+    multi-output trees).
     """
     passed = dict(mesh=mesh, checkpoint_dir=checkpoint_dir, resume=resume,
                   profile_dir=profile_dir, debug_nans=debug_nans,
@@ -450,10 +621,6 @@ def sample(
             raise NotImplementedError(
                 f"sample({name}=...) is not ported to the PyTorch package "
                 "yet")
-    if ancestor_sampling:
-        raise NotImplementedError(
-            "sample(ancestor_sampling=True) is not ported to the PyTorch "
-            "package yet")
     if algorithm not in ("nuts", "hmc"):
         raise ValueError(f"algorithm must be 'nuts' or 'hmc', got {algorithm!r}")
     device = resolve_device(device)
@@ -469,9 +636,15 @@ def sample(
     # per-BART-variable PGBART configs (manual `step` overrides)
     pg_cfgs: Dict[str, PgbartConfig] = {}
     for brv in compiled.bart_rvs:
+        if ancestor_sampling and brv.config.response != "constant":
+            raise ValueError(
+                "ancestor_sampling (retained-path grow/prune rejuvenation) "
+                "supports response='constant' only; "
+                f"{brv.name!r} has response={brv.config.response!r}")
         pg_cfgs[brv.name] = PgbartConfig(
             num_particles=num_particles, batch=batch,
             num_refinements=num_refinements,
+            ancestor_sampling=ancestor_sampling,
             rejuvenation_sweeps=rejuvenation_sweeps,
             split_prior_decay=split_prior_decay)
     if step is not None:
@@ -480,44 +653,69 @@ def sample(
             for vname in st.var_names:
                 pg_cfgs[vname] = st.config
 
+    # one sampler entry per forest: a BART RV gives one entry, or one per
+    # output under separate_trees (each output its own forest, the other
+    # outputs' current values fixed while it is updated)
+    obs_y = (torch.as_tensor(np.asarray(model.observed_rvs[0].observed,
+                                        np.float32).reshape(-1),
+                             device=device)
+             if len(model.observed_rvs) == 1 else None)
     bart_static = []
-    for brv in compiled.bart_rvs:
+    for rv_index, brv in enumerate(compiled.bart_rvs):
         cfg = brv.config
-        if cfg.n_outputs != 1:
+        k = cfg.n_outputs
+        separate = cfg.separate_trees and k > 1
+        if k != 1 and not separate:
             raise NotImplementedError(
-                f"BART variable {brv.name!r}: n_outputs={cfg.n_outputs} is "
-                "not ported yet (n_outputs != 1; nor is separate_trees, "
-                "which the heteroscedastic and Categorical models need)")
-        if pg_cfgs[brv.name].ancestor_sampling:
-            raise NotImplementedError(
-                "PGBART(ancestor_sampling=True) is not ported yet")
-        fused = _fused_likelihood(model, brv)
-        if fused is None:
-            raise NotImplementedError(
-                f"BART variable {brv.name!r}: only the fused likelihoods "
-                "y ~ Normal(BART, sigma) and y ~ Bernoulli(sigmoid(BART)) "
-                "are ported yet")
-        if cfg.response != "constant" and fused["kind"] != "gauss":
-            raise NotImplementedError(
-                f"BART variable {brv.name!r}: response={cfg.response!r} is "
-                "ported for y ~ Normal(BART, sigma) only")
+                f"BART variable {brv.name!r}: one forest with n_outputs={k} "
+                "(joint multi-output trees) is not ported yet; "
+                "separate_trees=True gives each output its own forest")
         X_raw = np.asarray(brv.X, np.float32)
         rules_np = brv.rules_array()
         X_np = X_raw
         if jitter_duplicates:
             X_np = _jitter_duplicate_values(
                 X_np, rules_np, seed=int(random_seed) ^ 0x5EED)
-        bart_static.append(dict(
-            name=brv.name, X=torch.as_tensor(X_np, device=device),
-            X_raw=X_raw,
-            Yt=torch.as_tensor(_bart_growth_target(model, brv), dtype=f32,
-                               device=device),
+        Yt = _bart_growth_target(model, brv)
+        common = dict(
+            name=brv.name, rv_index=rv_index,
+            X=torch.as_tensor(X_np, device=device), X_raw=X_raw,
             rules=torch.as_tensor(rules_np, dtype=torch.int32, device=device),
-            rules_np=rules_np, cfg=cfg, pg=pg_cfgs[brv.name],
+            rules_np=rules_np, pg=pg_cfgs[brv.name],
             split_prior=brv.split_prior,
             all_cont=bool((rules_np == 0).all()),
-            x_nan=bool(np.isnan(X_np).any()), fused=fused))
-    n_bart = len(bart_static)
+            x_nan=bool(np.isnan(X_np).any()))
+        for out in (range(k) if separate else (None,)):
+            fused = _fused_likelihood(model, brv, out=out)
+            tag = brv.name + (f"[{out}]" if out is not None else "")
+            if fused is None:
+                raise NotImplementedError(
+                    f"BART variable {tag!r}: only the fused likelihoods "
+                    "y ~ Normal(BART, sigma), y ~ Bernoulli(sigmoid(BART)), "
+                    "and under separate_trees y ~ Normal(w[0], |w[1]| + c) "
+                    "or Normal(w[0], exp(w[1])) and y ~ Categorical("
+                    "softmax(w.T)) are ported yet")
+            if cfg.response != "constant" and fused["kind"] != "gauss":
+                raise NotImplementedError(
+                    f"BART variable {tag!r}: response={cfg.response!r} is "
+                    "ported for y ~ Normal(BART, sigma) only")
+            Yt_j = Yt if out is None else Yt[:, out:out + 1]
+            if fused["kind"] in ("het_abs", "het_exp"):
+                # the scale forest's INITIAL target: per-row scale evidence
+                # around the global mean (the per-step target in one_step)
+                y_np = np.asarray(model.observed_rvs[0].observed,
+                                  np.float64).reshape(-1)
+                Yt_j = _scale_target(
+                    fused["kind"], fused["const"],
+                    np.abs(y_np - y_np.mean()) / _E_ABS_NORMAL)[:, None]
+            bart_static.append(dict(
+                common, out=out, tag=tag, fused=fused,
+                cfg=(dataclasses.replace(cfg, n_outputs=1,
+                                         separate_trees=False)
+                     if separate else cfg),
+                Yt=torch.as_tensor(np.ascontiguousarray(Yt_j), dtype=f32,
+                                   device=device)))
+    n_bart = len(compiled.bart_rvs)
     p_max = max((bs["X"].shape[1] for bs in bart_static), default=1)
     if pgbart_route not in (None,) + pgbart.ROUTES:
         raise ValueError(f"pgbart_route must be None or one of "
@@ -533,27 +731,37 @@ def sample(
                           bs["split_prior"] if bs["split_prior"].size
                           else None, chains=C, device=device)
         for bs in bart_static]
+    names = [brv.name for brv in compiled.bart_rvs]
 
-    def bart_internal_values():
-        return {bs["name"]: st.sum_trees
-                for bs, st in zip(bart_static, bart_states)}
-
-    names = [bs["name"] for bs in bart_static]
+    def bart_values():
+        """Each BART RV's current value (C, n, k), in ``names`` order: an
+        entry's sum of trees, or its outputs' sums side by side."""
+        cols: Dict[str, Any] = {}
+        for bs, st in zip(bart_static, bart_states):
+            if bs["out"] is None:
+                cols[bs["name"]] = st.sum_trees
+            else:
+                cols.setdefault(bs["name"], []).append(st.sum_trees)
+        return tuple(v if isinstance(v, torch.Tensor) else torch.cat(v, -1)
+                     for v in (cols[nm] for nm in names))
 
     def per_chain(fn):
         """vmap ``fn(theta (d,), *bart (n, k))`` over the chain axis."""
         return torch.func.vmap(fn)
 
-    def make_sigma(sigma_expr):
-        def _sigma(theta, *bart):
+    def make_env_fn(expr):
+        def _value(theta, *bart):
             env, _ = compiled.build_env(theta, dict(zip(names, bart)))
-            return torch.as_tensor(evaluate(sigma_expr, env), dtype=f32,
+            return torch.as_tensor(evaluate(expr, env), dtype=f32,
                                    device=device)
-        return per_chain(_sigma)
+        return per_chain(_value)
 
-    sigma_fns = [make_sigma(bs["fused"]["sigma_expr"])
-                 if bs["fused"]["kind"] == "gauss" else None
-                 for bs in bart_static]
+    # sigma of a Gaussian entry; the mean of a scale forest's observations
+    env_fns = [make_env_fn(bs["fused"]["sigma_expr"])
+               if bs["fused"]["kind"] == "gauss" else
+               make_env_fn(bs["fused"]["mu_expr"])
+               if bs["fused"]["kind"] in ("het_abs", "het_exp") else None
+               for bs in bart_static]
 
     # The route of every forest is a STATIC fact of the model and the card:
     # resolve it once, say why a forest takes the per-round route instead of
@@ -565,8 +773,8 @@ def sample(
                  else torch.ones((C, n_i, 1), device=device))
         # a 0-d sigma (one value per chain) means every row of a chain
         # shares one precision: the large-n route's Gaussian regime applies
-        bs["w_scalar"] = (kind == "gauss" and sigma_fns[i](
-            h.theta, *(st.sum_trees for st in bart_states)).dim() == 1)
+        bs["w_scalar"] = (kind == "gauss" and env_fns[i](
+            h.theta, *bart_values()).dim() == 1)
         bs["route"], why = pgbart.resolve_route(
             pgbart_route, bs["cfg"], bs["pg"], bs["X"], probe, kind, chains=C,
             w_scalar=bs["w_scalar"], all_cont=bs["all_cont"],
@@ -577,7 +785,7 @@ def sample(
         bs["row_gumbels"] = device.type != "cuda"
         if pgbart_route is None and bs["route"] == "rounds":
             warnings.warn(
-                f"BART variable {bs['name']!r} takes the per-round sampler "
+                f"BART variable {bs['tag']!r} takes the per-round sampler "
                 "route (slower than the whole-step kernels): "
                 f"whole-step route: {why['fused']}; large-n route: "
                 f"{why['bign']}", stacklevel=2)
@@ -597,36 +805,51 @@ def sample(
                 out[det.name] = env[det.name]
         return out
 
+    def row_data(i, bs):
+        """``(row data (C, n, 1) | None, growth target)`` of entry ``i`` at
+        the other forests' CURRENT values."""
+        lik = bs["fused"]["kind"]
+        n_i = bs["X"].shape[0]
+        if lik == "gauss":
+            sigma = env_fns[i](h.theta, *bart_values())      # (C,) | (C, n)
+            w = 1.0 / sigma.clamp_min(1e-12) ** 2
+            return torch.broadcast_to(w.reshape(C, -1, 1),
+                                      (C, n_i, 1)).contiguous(), bs["Yt"]
+        if lik in ("het_abs", "het_exp"):
+            mu0 = env_fns[i](h.theta, *bart_values()).reshape(C, n_i)
+            return scale_forest_data(lik, bs["fused"]["const"], obs_y, mu0)
+        if lik == "cat_logit":
+            W = bart_values()[names.index(bs["name"])]       # (C, n, k)
+            return class_forest_data(W, bs["out"]), bs["Yt"]
+        return None, bs["Yt"]   # bernoulli: the labels ride Yt, no row data
+
     def one_step(tuning: bool):
         nonlocal h
         vis = []
         for i, bs in enumerate(bart_static):
             cfg, pg = bs["cfg"], bs["pg"]
             n_i, k_i = bs["X"].shape[0], cfg.n_outputs
-            lik = bs["fused"]["kind"]
-            lik_row = None      # bernoulli: the labels ride Yt, no row data
-            if lik == "gauss":
-                bart_now = tuple(st.sum_trees for st in bart_states)
-                sigma = sigma_fns[i](h.theta, *bart_now)        # (C,) | (C, n)
-                w = 1.0 / sigma.clamp_min(1e-12) ** 2
-                lik_row = torch.broadcast_to(
-                    w.reshape(C, -1, 1), (C, n_i, k_i)).contiguous()
+            lik_row, Yt_i = row_data(i, bs)
             rands = pgbart.draw_rands(
                 gen, B=pg.batch_size(cfg.m, tuning), C=C,
                 P=pg.num_particles, D=cfg.max_depth, n=n_i, k=k_i,
                 S=cfg.n_nodes, num_refinements=pg.num_refinements,
                 device=device, row_gumbels=bs["row_gumbels"],
                 response=cfg.response)
+            rejuv = (rejuvenate.draw_rejuv_rands(
+                gen, moves=cfg.m * max(pg.rejuvenation_sweeps, 1), C=C,
+                S=cfg.n_nodes, n=n_i, k=k_i, device=device)
+                if bs["pg"].ancestor_sampling else None)
             bart_states[i], vi = pgbart.pgbart_step(
-                bart_states[i], rands, bs["X"], bs["Yt"], bs["rules"], cfg,
-                pg, tuning, lik_row, lik=lik,
+                bart_states[i], rands, bs["X"], Yt_i, bs["rules"], cfg,
+                pg, tuning, lik_row, lik=bs["fused"]["kind"],
                 lik_const=bs["fused"].get("const", 0.0), route=bs["route"],
                 w_scalar=bs["w_scalar"], all_cont=bs["all_cont"],
-                x_nan=bs["x_nan"])
+                x_nan=bs["x_nan"], rejuv=rejuv)
             vis.append(vi)
 
         if compiled.theta_size > 0:
-            bart_now = tuple(st.sum_trees for st in bart_states)
+            bart_now = bart_values()
             batched = per_chain(_logp)
 
             def logp_fn(theta):
@@ -712,33 +935,37 @@ def sample(
                            for bs, st in zip(bart_static, bart_states))
                      if store_trees else None)
             values: Dict[str, torch.Tensor] = {}
-            vi_buf = torch.empty((C, c, len(compiled.bart_rvs), p_max),
+            vi_buf = torch.empty((C, c, n_bart, p_max),
                                  dtype=f32, device=device)
             stats_buf: Dict[str, torch.Tensor] = {}
             deltas: Optional[List[Dict[str, torch.Tensor]]] = (
                 [dict() for _ in bart_static] if store_trees else None)
             for j in range(c):
                 vis, stats = one_step(False)
-                bart_now = tuple(st.sum_trees for st in bart_states)
-                vals = per_chain(_collect)(h.theta, *bart_now)
+                vals = per_chain(_collect)(h.theta, *bart_values())
                 for nm, v in vals.items():
                     if nm not in values:
                         values[nm] = torch.empty(
                             (C, c) + v.shape[1:], dtype=v.dtype, device=device)
                     values[nm][:, j] = v
+                # one inclusion row per BART RV: a separate-trees group
+                # reports the sum of its forests' split counts
                 vi_buf[:, j].zero_()
-                for bi, (bs, v) in enumerate(zip(bart_static, vis)):
-                    vi_buf[:, j, bi, : v.shape[1]] += v
+                for bs, v in zip(bart_static, vis):
+                    vi_buf[:, j, bs["rv_index"], : v.shape[1]] += v
                 for nm, v in stats.items():
                     if nm not in stats_buf:
                         stats_buf[nm] = torch.empty((C, c), dtype=v.dtype,
                                                     device=device)
                     stats_buf[nm][:, j] = v
                 if store_trees:
-                    # only the draw's updated tree batch ships per draw
+                    # only the draw's updated trees ship per draw: the tree
+                    # batch, or every tree where rejuvenation moved them all
                     for bi, (bs, st) in enumerate(zip(bart_static,
                                                       bart_states)):
-                        B_i = bs["pg"].batch_size(bs["cfg"].m, False)
+                        cfg_i, pg_i = bs["cfg"], bs["pg"]
+                        B_i = (cfg_i.m if pg_i.ancestor_sampling else
+                               pg_i.batch_size(cfg_i.m, False))
                         jt = (st.batch_offset.to(torch.int64)[:, None] - B_i
                               + torch.arange(B_i, device=device)) % bs["cfg"].m
                         packed = _pack_forest_slice(bs, st.forest, jt)
@@ -830,16 +1057,21 @@ def sample(
         }),
     )
 
-    # attach posterior forests to each BART RV (the all_trees equivalent)
+    # attach posterior forests to each BART RV (the all_trees equivalent); a
+    # separate-trees RV gets a LIST of per-output stores, as in JAX
     if store_trees and deltas_accs and deltas_accs[0] is not None:
-        for i, (bs, brv) in enumerate(zip(bart_static, compiled.bart_rvs)):
+        by_name: Dict[str, List[PosteriorForests]] = {}
+        for i, bs in enumerate(bart_static):
             sv, sl, ss, lf, ct, sp = _unpack_forest_deltas(
                 bs, [d[i] for d in deltas_accs],
                 [s0[i] for s0 in snap0_accs])
-            brv.all_trees = PosteriorForests(
+            by_name.setdefault(bs["name"], []).append(PosteriorForests(
                 split_var=sv, split_val=sl, split_set=ss, leaf=lf, count=ct,
                 slope=sp, config=bs["cfg"], rules=bs["rules_np"],
-                X_train=bs["X_raw"])
+                X_train=bs["X_raw"]))
+        for brv in compiled.bart_rvs:
+            stores = by_name[brv.name]
+            brv.all_trees = stores[0] if len(stores) == 1 else stores
     idata._model = model  # convenience backref
     if convergence_checks and C >= 2 and draws >= 4:
         from ..utils.diagnostics import maybe_warn_convergence

@@ -30,9 +30,13 @@ layout of ``pymc_bart_tpu/ops/draw_pallas.py::_rands_reference`` with the
 tree axis first and the chain axis second; ``draw_rands`` makes one step's
 blocks from a ``torch.Generator``.  Tests feed the JAX package's own blocks.
 
+With ``PgbartConfig(ancestor_sampling=True)`` and the constant response,
+every route is followed by the retained-path rejuvenation sweeps of
+``sampler/rejuvenate.py`` (plain PyTorch on the returned state; their random
+numbers are ``pgbart_step``'s argument ``rejuv``).
+
 Not ported yet: the generic ``loglik_fn`` path and the XLA-only
-sufficient-statistics mode, multi-output in the step, rejuvenation and row
-sharding.
+sufficient-statistics mode, multi-output in the step, and row sharding.
 """
 
 from __future__ import annotations
@@ -49,8 +53,9 @@ from ..ops.grow import grow_round
 from ..ops.predict import tree_predict
 from ..ops.select import select_refine, select_refine_plain
 from ..ops.smc import smc_resample
-from ..ops.sums import sum64, true_div
+from ..ops.sums import alpha_cdf_of, sum64, true_div
 from ..ops.trees import Forest, init_forest
+from .rejuvenate import RejuvRands, gumbel, rejuvenate_forest
 
 
 @dataclasses.dataclass
@@ -172,13 +177,9 @@ def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
     def norm(*shape):
         return torch.randn(shape, generator=gen, device=device, dtype=f32)
 
-    def gumbel(*shape):  # -log(-log(u)) with u clamped away from 0 and 1
-        u = unif(*shape).clamp_(torch.finfo(f32).tiny, 1.0 - 2.0**-24)
-        return u.log_().neg_().log_().neg_()
-
     rg = seed = None
     if row_gumbels:
-        rg = gumbel(B, D, C, P, n)
+        rg = gumbel(gen, (B, D, C, P, n), device)
     else:
         seed = torch.randint(-2**31, 2**31, (2,), generator=gen, device=device,
                              dtype=torch.int64).to(torch.int32)
@@ -195,17 +196,9 @@ def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
                     ures=unif(B, D, C), usel=unif(B, C), epsr=epsr,
                     uacc=uacc, seed=seed)
     if response != "constant":
-        out.umix, out.gsel = unif(B, C, P, 2 * Gtot), gumbel(B, C, P)
+        out.umix, out.gsel = (unif(B, C, P, 2 * Gtot),
+                              gumbel(gen, (B, C, P), device))
     return out
-
-
-def alpha_cdf_of(alpha_vec: torch.Tensor) -> torch.Tensor:
-    """CDF of the split weights (C, p): prefix sums accumulated in float64
-    in index order and rounded to float32 once per entry, the order the
-    whole-step kernel uses (a float32 scan would round differently from one
-    device to the next; integer-valued weights give the same bits anyway)."""
-    return torch.cumsum(alpha_vec.clamp_min(1e-12).to(torch.float64),
-                        dim=1).to(torch.float32)
 
 
 def closed_form_ll(lik: str, lik_const: float, F, y, row):
@@ -225,6 +218,23 @@ def closed_form_ll(lik: str, lik_const: float, F, y, row):
     raise ValueError(f"no closed form for likelihood code {lik!r}")
 
 
+def make_ll_of(lik: str, lik_const: float, row, Y):
+    """The model log-likelihood ``ll_of(sum_noi, pred) -> (C,)`` of one
+    tree's prediction ``pred`` (C, n, k) beside the other trees' sum
+    ``sum_noi``, in the closed form of the SMC weights (JAX's
+    ``_make_ll_of``): ``row`` is the code's row data (C, n, k) (the Gaussian
+    precision, ``None`` for ``"bernoulli"``), ``Y`` the target (C|1, n, k)."""
+    if lik == "gauss":
+        def ll_of(sum_noi, pred):
+            diff = (Y - sum_noi) - pred
+            return -0.5 * sum64((row * diff * diff).flatten(1))
+    else:
+        def ll_of(sum_noi, pred):
+            return sum64(closed_form_ll(lik, lik_const, sum_noi + pred, Y,
+                                        row).flatten(1))
+    return ll_of
+
+
 def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
                      leaf_sd, X, rules, cfg: BartConfig, pg: PgbartConfig,
                      gauss_w, impl: Optional[str], lik: str = "gauss",
@@ -234,7 +244,7 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     ``tree`` holds (C, S[, k]) tensors; ``resid``/``gauss_w`` (C, n, k).
     For a non-Gaussian code the particle log-likelihood after each round is
     the closed form on ``sum_noi (C, n, k) + pred`` with the labels ``Y``
-    (n, k) (the growth round's Gaussian value is ignored), and the winner is
+    (C|1, n, k) (the growth round's Gaussian value is ignored), and the winner is
     refined under the same closed form, in plain PyTorch.  For the linear
     and mix responses (Gaussian only) the rounds draw slopes and the winner
     is selected among the particles by its Gumbels ``rands.gsel``.
@@ -287,7 +297,7 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     else:
         llwT = torch.zeros((C, k, n), dtype=f32, device=dev)
         noiT = sum_noi.transpose(1, 2)                            # (C, k, n)
-        yT = Y.reshape(n, k).transpose(0, 1)                      # (k, n)
+        yT = Y.transpose(1, 2)                                    # (C|1,k,n)
         rowT = (gauss_w.transpose(1, 2) if gauss_w is not None else None)
 
     def eval_ll(pred_all):
@@ -298,9 +308,9 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
                                                                     llwT)
             diff = r_ - pred_all
             return -0.5 * sum64((w_ * diff * diff).flatten(-2))
-        noi_ = noiT[:, None] if lead else noiT
+        noi_, y_ = (noiT[:, None], yT[:, None]) if lead else (noiT, yT)
         row_ = None if rowT is None else (rowT[:, None] if lead else rowT)
-        return sum64(closed_form_ll(lik, lik_const, noi_ + pred_all, yT,
+        return sum64(closed_form_ll(lik, lik_const, noi_ + pred_all, y_,
                                     row_).flatten(-2))
 
     # all rows sit at the root: prediction = root leaf value
@@ -422,10 +432,12 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
                 impl: Optional[str] = None, *, lik: str = "gauss",
                 lik_const: float = 0.0, route: Optional[str] = None,
                 w_scalar: bool = False, all_cont: Optional[bool] = None,
-                x_nan: Optional[bool] = None):
+                x_nan: Optional[bool] = None,
+                rejuv: Optional[RejuvRands] = None):
     """One PGBART MCMC step for all chains: update a rotating batch of trees.
 
-    ``X`` (n, p) and ``Y_target`` (n, k) are shared by the chains;
+    ``X`` (n, p) is shared by the chains, ``Y_target`` (n, k) too or is
+    (C, n, k), one target a chain (a heteroscedastic scale forest's);
     ``gauss_w`` (C, n, k) is the row data of the likelihood code ``lik``
     (the per-observation Gaussian precision for ``"gauss"``; ``None`` for
     ``"bernoulli"``; see ``ops/draw.py``).  ``route``: see ``resolve_route``;
@@ -436,7 +448,11 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     None).  ``impl`` forces the kernels or the plain versions on any route.
     ``cfg.response`` ``"linear"`` / ``"mix"`` take the Gaussian code and the
     per-round route (``rands`` from ``draw_rands(response=...)``);
-    ``n_outputs != 1`` is not ported.
+    ``n_outputs != 1`` is not ported (``separate_trees`` gives each output a
+    forest of its own).  With ``pg.ancestor_sampling`` (constant response
+    only: a ValueError otherwise) the rejuvenation sweeps follow the route's
+    step, with the moves' numbers ``rejuv`` (``rejuvenate.draw_rejuv_rands``),
+    and the inclusion counts are taken afterwards.
     The state's tensors are UPDATED IN PLACE (forest, tree_pred and the
     Welford buffers are large and the step is the hot loop); clone the state
     first to keep the old one.  Returns ``(state, variable_inclusion (C, p))``.
@@ -449,8 +465,34 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
         raise NotImplementedError(
             f"n_outputs={cfg.n_outputs}: the select-refine round supports "
             "one output only")
-    if pg.ancestor_sampling:
-        raise NotImplementedError("ancestor_sampling is not ported yet")
+    if pg.ancestor_sampling and cfg.response != "constant":
+        raise ValueError(
+            "ancestor_sampling (retained-path grow/prune rejuvenation) "
+            f"supports response='constant' only, not {cfg.response!r}")
+    if pg.ancestor_sampling and rejuv is None:
+        raise ValueError("ancestor_sampling: pgbart_step needs the moves' "
+                         "numbers rejuv (rejuvenate.draw_rejuv_rands)")
+    out = _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning,
+                      gauss_w, impl, lik=lik, lik_const=lik_const, route=route,
+                      w_scalar=w_scalar, all_cont=all_cont, x_nan=x_nan)
+    if not pg.ancestor_sampling:
+        return out
+    # every route leaves tree_pred and sum_trees equal to the forest's
+    # predictions on X, which the moves read
+    state = out[0]
+    n, p = X.shape
+    Y = Y_target.reshape(-1, n, cfg.n_outputs)
+    if all_cont is None:
+        all_cont = bool((rules == 0).all())
+    rejuvenate_forest(state, rejuv, X, Y, rules, cfg, pg,
+                      make_ll_of(lik, lik_const, gauss_w, Y), all_cont)
+    return state, split_var_counts(state.forest, p)
+
+
+def _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning, gauss_w,
+                impl, *, lik, lik_const, route, w_scalar, all_cont, x_nan):
+    """The step of the route ``resolve_route`` takes (``pgbart_step``
+    without the rejuvenation sweeps)."""
     C = state.sum_trees.shape[0]
     bign_possible = route == "bign" or (
         route is None and not fused_rows_on_chip(cfg, pg, X, C))
@@ -509,7 +551,7 @@ def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
     n, p = X.shape
     C = state.sum_trees.shape[0]
     dev = state.sum_trees.device
-    Y = Y_target.reshape(n, cfg.n_outputs)
+    Y = Y_target.reshape(-1, n, cfg.n_outputs)        # (1|C, n, k)
     forest = state.forest
     ar = torch.arange(C, device=dev)
     offset0 = state.batch_offset.to(torch.int64)

@@ -1,17 +1,28 @@
-"""Posterior tree storage.
+"""Posterior tree storage and the sum-of-trees prediction of stored draws.
 
 Counterpart of ``pymc_bart_tpu/utils/posterior.py``: the ``PosteriorForests``
-container that ``sample()`` attaches to a fitted BART RV.  The prediction
-functions (``predict_draw_indices``, ``sample_posterior``) are not ported yet.
+container that ``sample()`` attaches to a fitted BART RV (a list of them, one
+per output, for a ``separate_trees`` variable), and the prediction of chosen
+draws on any X (``predict_draw_indices``, ``sample_posterior``) with
+``ops/predict.py`` on the card.  Draw indices come from the caller's NumPy
+``Generator``, as in the JAX package, so one seed picks the same draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..config import BartConfig
+from ..ops.predict import forest_predict, forest_predict_excluded
+from ..ops.trees import Forest
+
+# rows x trees x draws of one prediction pass: bounds the (draws, m, n)
+# index tensors of the traversal (the excluded path also times the slots)
+_PASS_ELEMENTS = 2**24
 
 
 @dataclasses.dataclass
@@ -57,3 +68,84 @@ class PosteriorForests:
             split_set=f(self.split_set), leaf=f(self.leaf), count=f(self.count),
             slope=f(self.slope),
         )
+
+    def select(self, idx: np.ndarray, device="cpu") -> Forest:
+        """Gather draws by flat index into a stacked Forest (len(idx), m, S)
+        on ``device`` (``split_set`` as its int32 bit pattern)."""
+        src = self.flat() if self.split_var.ndim == 4 else self
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a[idx])).to(device)
+
+        return Forest(t(src.split_var), t(src.split_val),
+                      t(src.split_set.view(np.int32)), t(src.leaf),
+                      t(src.count), t(src.slope))
+
+
+def predict_draw_indices(all_trees: PosteriorForests, X, idx,
+                         excluded: Optional[Sequence[int]] = None,
+                         device=None) -> np.ndarray:
+    """Predictions of specific flat draw indices: (len(idx), n, k).
+
+    ``excluded``: covariates integrated out of the routing
+    (``ops.predict.forest_predict_excluded``).  ``device=None`` runs on the
+    GPU (and raises where there is none); ``"cpu"`` on the CPU."""
+    from ..sampler.compound import resolve_device
+
+    device = resolve_device(device)
+    X = torch.as_tensor(np.ascontiguousarray(np.asarray(X, np.float32)),
+                        device=device)
+    rules = torch.as_tensor(np.asarray(all_trees.rules, np.int32),
+                            device=device)
+    idx = np.asarray(idx)
+    depth = all_trees.config.max_depth
+    n, p = X.shape
+    mask = None
+    per_draw = all_trees.split_var.shape[-2] * n
+    if excluded is not None and len(excluded) > 0:
+        keep = np.zeros(p, bool)
+        keep[np.asarray(excluded, int)] = True
+        mask = torch.as_tensor(keep, device=device)
+        per_draw *= 2**depth
+    chunk = max(1, _PASS_ELEMENTS // max(per_draw, 1))
+    outs = []
+    for lo in range(0, len(idx), chunk):
+        sel = all_trees.select(idx[lo:lo + chunk], device)
+        outs.append(forest_predict(sel, X, rules, depth) if mask is None
+                    else forest_predict_excluded(sel, X, rules, mask, depth))
+    k = all_trees.n_outputs
+    if not outs:
+        return np.zeros((0, n, k), np.float32)
+    return torch.cat(outs).cpu().numpy()
+
+
+def sample_posterior(all_trees, X, rng=None, size=None,
+                     excluded: Optional[Sequence[int]] = None,
+                     device=None) -> np.ndarray:
+    """Samples from the BART posterior: draw indices chosen uniformly at
+    random from the stored draws by ``rng`` (a NumPy ``Generator``), the
+    result shaped ``(*size, n_obs, n_outputs)``.  ``all_trees`` is one
+    ``PosteriorForests`` or a list of them, one per output (an output's
+    draws are chosen independently, in list order)."""
+    if rng is None:
+        rng = np.random.default_rng()
+    if size is None:
+        size_iter = ()
+    elif isinstance(size, int):
+        size_iter = (size,)
+    else:
+        size_iter = tuple(size)
+    flatten_size = int(np.prod(size_iter)) if size_iter else 1
+
+    if isinstance(all_trees, (list, tuple)):
+        parts = []
+        for pf in all_trees:
+            idx = rng.integers(0, pf.n_total, size=flatten_size)
+            pred = predict_draw_indices(pf, X, idx, excluded, device)
+            parts.append(pred[..., 0])
+        stacked = np.stack(parts, axis=-1)             # (fs, n, n_out)
+        return stacked.reshape((*size_iter, -1, len(all_trees)))
+
+    idx = rng.integers(0, all_trees.n_total, size=flatten_size)
+    pred = predict_draw_indices(all_trees, X, idx, excluded, device)
+    return pred.reshape((*size_iter, -1, all_trees.n_outputs))

@@ -137,9 +137,10 @@ def test_posterior_summaries_within_monte_carlo_band_of_jax(port_fit):
     (dict(mesh=object()), "mesh"),
     (dict(checkpoint_dir="somewhere"), "checkpoint_dir"),
     (dict(resume=True), "resume"),
-    (dict(ancestor_sampling=True), "ancestor_sampling"),
+    (dict(profile_dir="somewhere"), "profile_dir"),
+    (dict(debug_nans=True), "debug_nans"),
     (dict(posterior_dtype="float16"), "posterior_dtype"),
-], ids=["mesh", "checkpoint_dir", "resume", "ancestor_sampling",
+], ids=["mesh", "checkpoint_dir", "resume", "profile_dir", "debug_nans",
         "posterior_dtype"])
 def test_sample_refuses_arguments_that_wait(kwargs, word):
     X, Y, _ = _toy(30, 3)
@@ -207,13 +208,16 @@ def test_sample_route_keyword(port_fit):
 
 
 def _het_model(X, Y):
+    # a scale link without a closed form (|w1| + c and exp(w1) are ported)
     w = tpmb.BART("w", X, Y, m=4, shape=(2, 30), separate_trees=True)
-    return tpmb.Normal("y", w[0], tpmb.math.abs(w[1]) + 0.05, observed=Y)
+    return tpmb.Normal("y", w[0], 2.0 * tpmb.math.abs(w[1]), observed=Y)
 
 
 def _categorical_model(X, Y):
+    # one forest with two leaf values a node (joint trees; separate_trees
+    # is ported)
     labels = (Y > Y.mean()) * 1.0
-    lo = tpmb.BART("lo", X, labels, m=4, shape=(2, 30), separate_trees=True)
+    lo = tpmb.BART("lo", X, labels, m=4, shape=(2, 30))
     return tpmb.Categorical("y", p=tpmb.math.softmax(lo.T, axis=-1),
                             observed=labels)
 
@@ -223,8 +227,8 @@ def _categorical_model(X, Y):
         "y", tpmb.math.sigmoid(
             2.0 * tpmb.BART("mu", X, (Y > Y.mean()) * 1.0, m=4)),
         observed=(Y > Y.mean()) * 1.0), "fused likelihoods"),
-    (_het_model, "separate_trees"),
-    (_categorical_model, "separate_trees"),
+    (_het_model, "fused likelihoods"),
+    (_categorical_model, "n_outputs"),
     (lambda X, Y: tpmb.Bernoulli(
         "y", tpmb.math.sigmoid(tpmb.BART(
             "mu", X, (Y > Y.mean()) * 1.0, m=4, response="linear")),

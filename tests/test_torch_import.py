@@ -20,10 +20,12 @@ MODULES = [
     "pymc_bart_tpu_torch.ops.sums",
     "pymc_bart_tpu_torch.sampler.pgbart", "pymc_bart_tpu_torch.sampler.hmc",
     "pymc_bart_tpu_torch.sampler.nuts", "pymc_bart_tpu_torch.sampler.compound",
+    "pymc_bart_tpu_torch.sampler.rejuvenate",
     "pymc_bart_tpu_torch.models.expr",
     "pymc_bart_tpu_torch.models.distributions",
     "pymc_bart_tpu_torch.models.model",
     "pymc_bart_tpu_torch.models.inference_data",
+    "pymc_bart_tpu_torch.models.predictive",
     "pymc_bart_tpu_torch.utils.posterior",
     "pymc_bart_tpu_torch.utils.diagnostics",
 ]
@@ -100,9 +102,8 @@ def test_chip_smoke_fails_without_a_gpu():
 
 
 # the JAX package's public names that the port does not export yet: the
-# predictive and interpretability functions (ROADMAP.md, queue 1)
+# interpretability functions (ROADMAP.md, queue 1)
 NOT_PORTED = {
-    "sample_prior_predictive", "sample_posterior_predictive",
     "compute_variable_importance", "get_variable_inclusion",
     "export_variable_inclusion", "plot_variable_inclusion",
     "plot_variable_importance", "plot_scatter_submodels", "plot_pdp",
