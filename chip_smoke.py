@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,step,sample,models,timing]
+    python3 chip_smoke.py [--phases device,build,kernels,step,sample,models,
+                                    generic,interpret,timing]
                           [--ptxas] [--tune N] [--draws N]
                           [--large-tune N] [--large-draws N]
                           [--model-tune N] [--model-draws N]
@@ -19,7 +20,15 @@ line:
    linear and mix responses from three seeds each, every float output's
    error reported) and one small mixed growth case (NaNs, one-hot and subset
    columns, linear response, k=2) with its rows in shared memory (n=200) and
-   in global memory (n=120,000).  The selection kernel ``select_refine``
+   in global memory (n=120,000), and the growth rounds and resampling steps
+   of one tree update of each model of phase ``generic`` on its own inputs
+   from three seeds: the joint heteroscedastic model (constant response,
+   k=2, n=500, p=2, m=30, 10 particles, the generic likelihood's zero row
+   weights) and the coal model (k=1, n=56, p=1, m=20, 10 particles, Poisson
+   log-likelihoods), every output bit for bit, where at least one resampling
+   call of each model must resample.  The resampling steps of the main
+   path's tree update bit for bit.
+   The selection kernel ``select_refine``
    against its plain version with every output equal bit for bit: the
    selection of one tree update for the constant, linear and mix responses
    from three seeds each (the constant ones with accepted and rejected
@@ -112,7 +121,28 @@ line:
    step's time with and without it on the large-n route and at the
    heteroscedastic shapes.  The phase prints the launch counts of each run
    in its own line; the kernels line counts phase ``sample``'s.
-7. ``timing``  CUDA-event times of each kernel and its plain version at the
+7. ``generic`` the generic model likelihood through ``sample()`` with
+   ``pgbart_route=None``: the joint heteroscedastic model of ``bench.py``
+   (``config_het_joint``: ONE forest of m=30 with two leaf values a node,
+   ``Normal(w[0], |w[1]| + 0.05)``, n=500, 4 chains, 10 particles; 200/200
+   steps) and the coal-mining model of
+   ``examples/coal_disasters.py`` (``Poisson(exp(BART) x exposure)``, 56
+   bins, m=20, 4 chains; 300/300): both on the per-round route with its
+   warning, ``grow.cu`` D and ``smc.cu`` D-1 launches a tree and no other
+   kernel, finite draws, ``corr_mean_output`` at least 0.8 with
+   ``scale_hi_over_lo`` printed, the coal rate before 1890 over the rate
+   after 1900 above 2; chain-draws/s, and each model's device busy share
+   of a draw step (``torch.profiler``).  Its launch counts stand in its own
+   line.
+8. ``interpret`` the interpretability suite on phase ``sample``'s Friedman
+   forests (m=50, 4 chains): partial dependence of all ten covariates, ICE
+   of all ten and ``compute_variable_importance(method="VI")`` timed on the
+   card, equal to the CPU port's on the same forests and seeds (rtol 1e-5;
+   on both sides the ICE of the first two covariates with 10 instances and
+   20 draws and a VI run on 200 rows with 10 draws), the five active covariates ranked first, the full
+   submodel's mean R^2 at least 0.9 and within the band of the full model's
+   R^2 against itself; no matplotlib imported.
+9. ``timing``  CUDA-event times of each kernel and its plain version at the
    main-path shapes (the growth round and the selection for the constant and
    the linear response): ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
@@ -150,7 +180,7 @@ import numpy as np
 import torch
 
 ALL_PHASES = ("device", "build", "kernels", "step", "sample", "models",
-              "timing")
+              "generic", "interpret", "timing")
 EXTRA_PHASES = ("profile",)    # only when asked for with --phases
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
@@ -309,9 +339,6 @@ def main_path_inputs(dev, seed=0, response="constant", warm_impl="plain",
     frozen particle is a grown tree: 12 steps first, with ``warm_impl``.
     ``n`` rows of the Friedman data (default the main shapes')."""
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
-    from pymc_bart_tpu_torch.ops.grow import grow_round_plain
-    from pymc_bart_tpu_torch.ops.select import select_refine_plain
-    from pymc_bart_tpu_torch.ops.smc import smc_resample_plain
     from pymc_bart_tpu_torch.sampler import pgbart
 
     cfg = BartConfig(m=M, max_depth=DEPTH, response=response)
@@ -332,6 +359,22 @@ def main_path_inputs(dev, seed=0, response="constant", warm_impl="plain",
                                       True, gauss_w, impl=warm_impl)
     rands = pgbart.draw_rands(gen, B=1, C=C, P=P, D=DEPTH, n=n, k=1, S=S,
                               num_refinements=R, device=dev, response=response)
+    return record_tree_update(state, rands, X, Y, rules, cfg, pg, gauss_w), cfg
+
+
+def record_tree_update(state, rands, X, Y, rules, cfg, pg, gauss_w,
+                       **update_kw):
+    """Run the SMC of the first tree of ``state``'s batch with the PLAIN
+    versions and record the arguments of every grow / smc / select call
+    (level by level); ``update_kw`` goes to ``pgbart._update_one_tree``
+    (the likelihood)."""
+    from pymc_bart_tpu_torch.ops.grow import grow_round_plain
+    from pymc_bart_tpu_torch.ops.select import select_refine_plain
+    from pymc_bart_tpu_torch.ops.smc import smc_resample_plain
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    dev = X.device
+    Cc = state.sum_trees.shape[0]
     calls = {"grow": [], "smc": [], "select": []}
 
     def rec_grow(*a, impl=None, **kw):
@@ -351,22 +394,108 @@ def main_path_inputs(dev, seed=0, response="constant", warm_impl="plain",
         rec_grow, rec_smc, rec_select)
     try:
         jt = state.batch_offset.to(torch.int64)
-        ar = torch.arange(C, device=dev)
+        ar = torch.arange(Cc, device=dev)
         f = state.forest
         tree = type(f)(f.split_var[ar, jt], f.split_val[ar, jt],
                        f.split_set[ar, jt], f.leaf[ar, jt], f.count[ar, jt],
                        f.slope[ar, jt])
-        resid = Y - (state.sum_trees - state.tree_pred[ar, jt])
-        pgbart._update_one_tree(0, rands, tree, resid, state.alpha_vec,
+        sum_noi = state.sum_trees - state.tree_pred[ar, jt]
+        Y = Y.reshape(-1, X.shape[0], cfg.n_outputs)          # (1, n, k)
+        pgbart._update_one_tree(0, rands, tree, Y - sum_noi, state.alpha_vec,
                                 state.leaf_sd, X, rules, cfg, pg, gauss_w,
-                                None)
+                                None, sum_noi=sum_noi, Y=Y, **update_kw)
     finally:
         pgbart.grow_round, pgbart.smc_resample, pgbart.select_refine = saved
-    if (len(calls["grow"]) != DEPTH or len(calls["smc"]) != DEPTH - 1
-            or len(calls["select"]) != 1):
+    # a Gaussian forest selects through the kernel's wrapper, the others in
+    # plain PyTorch
+    selects = 1 if update_kw.get("lik", "gauss") == "gauss" else 0
+    D = cfg.max_depth
+    if (len(calls["grow"]) != D or len(calls["smc"]) != D - 1
+            or len(calls["select"]) != selects):
         raise AssertionError("one tree update did not make D growth rounds, "
-                             "D-1 resampling steps and one selection")
-    return calls, cfg
+                             f"D-1 resampling steps and {selects} selection")
+    return calls
+
+
+# the joint heteroscedastic model of bench.py (config_het_joint): one forest,
+# two leaf values a node, the generic likelihood Normal(w[0], |w[1]| + 0.05)
+HJ = dict(N=500, M=30, P=10, K=2, TUNE=200, DRAWS=200)
+# the coal-mining model of examples/coal_disasters.py: Poisson(exp(BART) x
+# exposure) over 56 bins, the sampler's default particles and refinements
+COAL = dict(M=20, P=10, TUNE=300, DRAWS=300)
+GENERIC_SHAPES = {"het_joint": dict(C=C, P=HJ["P"], n=HJ["N"], p=2, k=HJ["K"],
+                                    m=HJ["M"]),
+                  "coal": dict(C=C, P=COAL["P"], n=56, p=1, k=1, m=COAL["M"])}
+GENERIC_MODELS = tuple(GENERIC_SHAPES)
+
+
+def het_joint_model(X, Y):
+    """The model builder of ``config_het_joint`` (``bench.py:453``)."""
+    def build(pmb):
+        w = pmb.BART("w", X, Y, m=HJ["M"], shape=(2, len(Y)))
+        pmb.Normal("y", w[0], pmb.math.abs(w[1]) + 0.05, observed=Y)
+        return w
+    return build
+
+
+def coal_model(pmb):
+    """The model builder of ``examples/coal_disasters.py``."""
+    centers, counts, exposure = coal_data()
+    mu = pmb.BART("mu", centers[:, None], np.log1p(counts), m=COAL["M"])
+    pmb.Poisson("y", mu=pmb.math.exp(mu) * exposure / exposure.mean(),
+                observed=counts)
+    return mu
+
+
+def generic_inputs(dev, seed, name):
+    """The growth rounds and resampling steps of one tree update of a
+    generic-likelihood model as ``sample()`` gives them to ``grow.cu`` and
+    ``smc.cu``, after 12 steps on the plain versions from seed ``seed``:
+    ``het_joint`` (constant response, k=2, n=500, p=2, m=30, 10 particles,
+    the likelihood's zero row weights) or ``coal`` (k=1, n=56, p=1, m=20,
+    10 particles, Poisson log-likelihoods).  Both models have no free
+    parameter besides the forest, so theta is empty."""
+    import pymc_bart_tpu_torch as pmb
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+    from pymc_bart_tpu_torch.sampler import compound, pgbart
+
+    if name == "het_joint":
+        X_np, Y_np, _ = het_data(HJ["N"])
+        build, m, k, parts = het_joint_model(X_np, Y_np), HJ["M"], HJ["K"], HJ
+    else:
+        centers, counts, _ = coal_data()
+        X_np, Y_np = centers[:, None], np.log1p(counts)
+        build, m, k, parts = coal_model, COAL["M"], 1, COAL
+    with pmb.Model() as model:
+        vname = build(pmb).name
+    loglik = compound.make_loglik(compound.CompiledModel(model, dev), vname)
+    cfg = BartConfig(m=m, max_depth=DEPTH, n_outputs=k)
+    pg = PgbartConfig(num_particles=parts["P"], num_refinements=R)
+    X = torch.from_numpy(np.asarray(X_np, np.float32)).to(dev)
+    Y = torch.from_numpy(np.repeat(np.asarray(Y_np, np.float32)[:, None], k,
+                                   1)).to(dev)
+    n = X.shape[0]
+    rules = torch.zeros(X.shape[1], dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
+
+    def params():
+        return (torch.zeros((C, 0), device=dev),
+                {vname: state.sum_trees.clone()})
+
+    def rands(B):
+        return pgbart.draw_rands(gen, B=B, C=C, P=parts["P"], D=DEPTH, n=n,
+                                 k=k, S=cfg.n_nodes, num_refinements=R,
+                                 device=dev)
+
+    for _ in range(12):
+        state, _ = pgbart.pgbart_step(
+            state, rands(3), X, Y, rules, cfg, pg, True, None, impl="plain",
+            lik="generic", route="rounds", loglik_fn=loglik,
+            lik_params=params())
+    return record_tree_update(
+        state, rands(1), X, Y, rules, cfg, pg, None, lik="generic",
+        loglik=pgbart.batched_loglik(loglik, params()))
 
 
 def mixed_grow_case(dev, seed=3, n=200):
@@ -1059,10 +1188,26 @@ def compare_select(dev, trajs):
     return out
 
 
+def compare_smc(tag, calls):
+    """``csrc/smc.cu`` against its plain version on each recorded call,
+    every output equal bit for bit.  Returns the max abs error (0) and the
+    number of calls that resampled."""
+    from pymc_bart_tpu_torch.ops.smc import smc_resample
+
+    err, resampled = 0.0, 0
+    for a in calls:
+        got = smc_resample(*a, impl="kernel")
+        torch.cuda.synchronize()
+        want = smc_resample(*a, impl="plain")
+        for name, g, w in zip(("log_w", "take", "ll_prev"), got, want):
+            err = max(err, check_same(f"smc_resample {tag} {name}", g, w))
+        ident = torch.arange(g.shape[1], device=g.device, dtype=torch.int32)
+        resampled += int((got[1] != ident).any())
+    return err, resampled
+
+
 def phase_kernels(dev, calls, cfg):
     from pymc_bart_tpu_torch.ops.grow import grow_round
-    from pymc_bart_tpu_torch.ops.select import select_refine
-    from pymc_bart_tpu_torch.ops.smc import smc_resample
 
     errs = {"grow_round": 0.0, "smc_resample": 0.0, "select_refine": 0.0}
     grow_cases = {}
@@ -1107,17 +1252,41 @@ def phase_kernels(dev, calls, cfg):
         if not bool(((got[0] >= 1) & (a[2] < 0)).any()):
             raise AssertionError("mixed case: no categorical split was drawn")
 
-    resampled = 0
-    for a in calls["smc"]:
-        got = smc_resample(*a, impl="kernel")
-        torch.cuda.synchronize()
-        want = smc_resample(*a, impl="plain")
-        for name, g, w in zip(("log_w", "take", "ll_prev"), got, want):
-            errs["smc_resample"] = max(
-                errs["smc_resample"],
-                check_close(f"smc_resample {name}", g, w, 1e-4, 1e-5))
-        ident = torch.arange(P, device=dev, dtype=torch.int32)
-        resampled += int((got[1] != ident).any())
+    # grow.cu and smc.cu on the generic-likelihood models' own inputs (the
+    # joint heteroscedastic model: k=2, the constant response, zero row
+    # weights; coal: Poisson log-likelihoods), bit for bit
+    generic_smc = {}
+    for name in GENERIC_MODELS:
+        g_errs, g_grown, s_err, s_calls, s_resampled = {}, 0, 0.0, 0, 0
+        for seed in GROW_SEEDS:
+            traj = generic_inputs(dev, seed, name)
+            for a, kw in traj["grow"]:
+                got = grow_round(*a, impl="kernel", **kw)
+                torch.cuda.synchronize()
+                want = grow_round(*a, impl="plain", **kw)
+                torch.cuda.synchronize()
+                compare_grow(f"{name} seed {seed} d={kw['d']}", got, want,
+                             g_errs)
+                g_grown += int(((got[0] >= 0) & (a[2] < 0)).sum())
+            e, r = compare_smc(f"{name} seed {seed}", traj["smc"])
+            s_err, s_calls = max(s_err, e), s_calls + len(traj["smc"])
+            s_resampled += r
+        if any(g_errs.values()) or g_grown == 0:
+            raise AssertionError(f"grow_round {name}: errors {g_errs}, "
+                                 f"{g_grown} nodes grown")
+        if s_resampled == 0:
+            raise AssertionError(f"smc_resample {name}: no call resampled")
+        grow_cases[name] = dict(
+            max_abs_err=g_errs, grown_nodes=g_grown, seeds=list(GROW_SEEDS),
+            levels=list(range(DEPTH)), shapes=GENERIC_SHAPES[name])
+        generic_smc[name] = dict(max_abs_err=s_err, calls=s_calls,
+                                 calls_that_resampled=s_resampled,
+                                 seeds=list(GROW_SEEDS))
+        errs["grow_round"] = max([errs["grow_round"], *g_errs.values()])
+        errs["smc_resample"] = max(errs["smc_resample"], s_err)
+
+    main_smc_err, resampled = compare_smc("main path", calls["smc"])
+    errs["smc_resample"] = max(errs["smc_resample"], main_smc_err)
     select_cases = compare_select(dev, trajs)
     errs["select_refine"] = max(v["max_abs_err"]
                                 for v in select_cases.values())
@@ -1148,6 +1317,7 @@ def phase_kernels(dev, calls, cfg):
     emit("kernels", max_abs_err=errs, grow_round_cases=grow_cases,
          grow_mixed_max_abs_err=mixed_err,
          smc_calls_that_resampled=resampled,
+         smc_resample_generic_cases=generic_smc,
          select_refine_cases=select_cases,
          pgbart_step_fused_cases=fused,
          pgbart_step_fused_generated=fused_generated,
@@ -1157,6 +1327,7 @@ def phase_kernels(dev, calls, cfg):
          tolerance={"integers": "equal", "split_val": "rtol 1e-5 atol 1e-6",
                     "other floats": "rtol 1e-4 atol 1e-5",
                     "select_refine": "every output equal, bit for bit",
+                    "smc_resample": "every output equal, bit for bit",
                     "state of a whole step": {
                         k: "equal" if v is None else f"rtol {v[0]} atol {v[1]}"
                         for k, v in STATE_TOL.items()}},
@@ -1536,8 +1707,11 @@ def phase_sample(dev, tune, draws, large_tune, large_draws):
                     sigma_mean=float(sig.mean()))
 
     runs = {}
-    runs["friedman_fused"] = friedman_quality(
-        *sample_run(friedman_model, "fused", tune, draws))
+    fused_fit = sample_run(friedman_model, "fused", tune, draws)
+    runs["friedman_fused"] = friedman_quality(*fused_fit)
+    # phase interpret reads these forests
+    friedman_fit = (fused_fit[0], X, f_true)
+    del fused_fit
 
     Xl, Yl = logistic(N, PCOLS)
 
@@ -1638,7 +1812,7 @@ def phase_sample(dev, tune, draws, large_tune, large_draws):
             ("pgbart_step_bign", ("large_n_regression",
                                   "large_n_classifier"))):
         launches[name] = sum(runs[r]["launches"][name] for r in used_by)
-    return launches, runs
+    return launches, runs, friedman_fit
 
 
 def het_data(n=500, seed=3):
@@ -1719,7 +1893,6 @@ def rejuvenation_on_card_vs_cpu(dev, steps=10, reps=5):
     and CUDA kernels (``torch.profiler``) of one sweep, and a step's time on
     the large-n route with and without it (host clock around a
     synchronisation, the step's random numbers drawn inside)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
@@ -1829,13 +2002,9 @@ def rejuvenation_on_card_vs_cpu(dev, steps=10, reps=5):
                              ProfilerActivity.CUDA]) as prof:
         sweep(st)
         torch.cuda.synchronize()
-    kernels = device_ms = 0.0
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and e.device_type == DeviceType.CUDA:
-            kernels += e.count
-            device_ms += dev_us / 1e3
+    rows = device_rows(prof)
+    kernels = sum(r[1] for r in rows)
+    device_ms = sum(r[0] for r in rows)
     return dict(shapes=dict(C=Cn, m=cfg.m, n=n, p=p, depth=cfg.max_depth),
                 max_abs_err=errs, trees_moved=moved,
                 trees_restructured=structure,
@@ -2043,6 +2212,271 @@ def phase_models(dev, tune, draws, large_tune, large_draws):
     emit("models", runs=runs)
 
 
+def coal_data():
+    """``examples/coal_disasters.py``: UK coal-mining disasters 1851-1962
+    in 56 bins (bin centres, counts, exposure in years)."""
+    disasters = np.array([
+        4, 5, 4, 0, 1, 4, 3, 4, 0, 6, 3, 3, 4, 0, 2, 6, 3, 3, 5, 4, 5, 3, 1,
+        4, 4, 1, 5, 5, 3, 4, 2, 5, 2, 2, 3, 4, 2, 1, 3, 2, 2, 1, 1, 1, 1, 3,
+        0, 0, 1, 0, 1, 1, 0, 0, 3, 1, 0, 3, 2, 2, 0, 1, 1, 1, 0, 1, 0, 1, 0,
+        0, 0, 2, 1, 0, 0, 0, 1, 1, 0, 2, 3, 3, 1, 1, 2, 1, 1, 1, 1, 2, 4, 2,
+        0, 0, 0, 1, 4, 0, 0, 0, 1, 0, 0, 0, 0, 0, 1, 0, 0, 1, 0, 1])
+    years = np.arange(1851, 1963)
+    edges = np.linspace(years[0], years[-1] + 1, 57)
+    counts, _ = np.histogram(np.repeat(years, disasters), bins=edges)
+    return 0.5 * (edges[:-1] + edges[1:]), counts.astype(float), np.diff(
+        edges)
+
+
+def per_round_launches(m, depth, tune, draws):
+    """Launches of the per-round route for a forest of ``m`` trees that
+    selects in plain PyTorch: D growth rounds and D-1 resampling steps a
+    tree, a batch of trees a step (``PgbartConfig.batch_size``)."""
+    from pymc_bart_tpu_torch.config import PgbartConfig
+
+    pg = PgbartConfig()
+    trees = (tune * pg.batch_size(m, True) + draws * pg.batch_size(m, False))
+    return {"grow_round": trees * depth, "smc_resample": trees * (depth - 1)}
+
+
+def device_rows(prof):
+    """``(ms, count, name)`` of every CUDA kernel and copy ``prof`` saw,
+    the longest first (kernels and copies only: an operator's row would
+    repeat its kernels')."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and e.device_type == DeviceType.CUDA:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def busy_share(build, steps, warmup=2, top=8, **kw):
+    """Device busy share of ``steps`` draw steps of the model ``build``
+    makes: ``sample(tune=0, draws=steps)`` under ``torch.profiler`` after a
+    warm-up run of ``warmup`` tuning and draw steps; device time of kernels
+    and copies over the host's wall time, and the ``top`` longest rows."""
+    import warnings
+
+    import pymc_bart_tpu_torch as pmb
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(tune, draws):
+        with pmb.Model(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")       # the per-round route's
+            build(pmb)
+            pmb.sample(tune=tune, draws=draws, random_seed=1,
+                       convergence_checks=False, store_trees=False, **kw)
+        torch.cuda.synchronize()
+
+    run(warmup, warmup)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(0, steps)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    return dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms,
+                device_events_per_step=sum(r[1] for r in rows) / steps,
+                top=[dict(ms=r[0], count=r[1], name=r[2][:80])
+                     for r in rows[:top]])
+
+
+def phase_generic(dev):
+    """The generic model likelihood with a joint two-output forest and with
+    Poisson, through ``sample()`` with ``pgbart_route=None``: the joint
+    heteroscedastic model of ``bench.py`` (``config_het_joint``: n=500,
+    m=30, shape=(2, n), 4 chains) and the coal-mining model of
+    ``examples/coal_disasters.py`` (Poisson(exp(BART) x exposure), 56 bins,
+    m=20, 4 chains).  Both must take the per-round route and say so, launch
+    ``grow.cu`` D times and ``smc.cu`` D-1 times a tree and no other kernel;
+    ``corr_mean_output`` at least 0.8 (``scale_hi_over_lo`` printed) and the
+    coal rate before 1890 over the rate after 1900 above 2.  Then each
+    model's device busy share of a draw step (``torch.profiler``)."""
+    import warnings
+
+    runs = {}
+    X, Y, mu_true = het_data(HJ["N"])
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        _m, rv, idata, launches, routes, seconds, timings = counted_sample(
+            het_joint_model(X, Y), tune=HJ["TUNE"], draws=HJ["DRAWS"],
+            chains=C, random_seed=0, num_particles=HJ["P"], num_refinements=R)
+    warned = any("per-round sampler route" in str(w.message) for w in said)
+    if routes != [("generic", "rounds")] or not warned:
+        raise AssertionError(f"het_joint: entries {routes}, per-round "
+                             f"warning given: {warned}")
+    expect_launches("het_joint", launches,
+                    per_round_launches(HJ["M"], DEPTH, HJ["TUNE"],
+                                       HJ["DRAWS"]))
+    w_post = np.asarray(idata.posterior["w"].values)
+    if w_post.shape != (C, HJ["DRAWS"], 2, HJ["N"]) or not np.isfinite(
+            w_post).all():
+        raise AssertionError(f"het_joint posterior {w_post.shape}")
+    if not (rv.all_trees.n_outputs == 2 and rv.all_trees.leaf.shape[:3]
+            == (C, HJ["DRAWS"], HJ["M"])):
+        raise AssertionError("het_joint: all_trees is not one store of two "
+                             "outputs")
+    # bench.py's quality function of config_het_joint
+    corr = float(np.corrcoef(w_post.mean(axis=(0, 1))[0], mu_true)[0, 1])
+    s_hat = np.abs(w_post[:, :, 1, :]).mean(axis=(0, 1)) + 0.05
+    ratio = float(s_hat[X[:, 1] > 0].mean() / s_hat[X[:, 1] <= 0].mean())
+    if not corr >= 0.8:
+        raise AssertionError(f"het_joint corr_mean_output {corr} < 0.8")
+    runs["het_joint"] = dict(
+        model="config_het_joint (bench.py:453): one forest, shape=(2, n), "
+              "Normal(w[0], |w[1]| + 0.05)", n=HJ["N"], m=HJ["M"],
+        particles=HJ["P"], chains=C, tune=HJ["TUNE"], draws=HJ["DRAWS"],
+        routes=routes,
+        launches=launches, seconds=seconds,
+        tune_seconds=timings["tune_seconds"],
+        draw_seconds_total=timings["draw_seconds_total"],
+        draw_step_ms=1e3 * timings["draw_seconds_total"] / HJ["DRAWS"],
+        chain_draws_per_s=C * HJ["DRAWS"] / timings["draw_seconds_total"],
+        corr_mean_output=corr, scale_hi_over_lo=ratio, true_ratio=8.5)
+    del idata
+
+    centers, counts, _ = coal_data()
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        _m, rv, idata, launches, routes, seconds, timings = counted_sample(
+            coal_model, tune=COAL["TUNE"], draws=COAL["DRAWS"], chains=C,
+            random_seed=0)
+    warned = any("per-round sampler route" in str(w.message) for w in said)
+    if routes != [("generic", "rounds")] or not warned:
+        raise AssertionError(f"coal: entries {routes}, per-round warning "
+                             f"given: {warned}")
+    expect_launches("coal", launches,
+                    per_round_launches(COAL["M"], DEPTH, COAL["TUNE"],
+                                       COAL["DRAWS"]))
+    post = np.asarray(idata.posterior["mu"].values)
+    if post.shape != (C, COAL["DRAWS"], len(counts)) or not np.isfinite(
+            post).all():
+        raise AssertionError(f"coal posterior {post.shape}")
+    rate = np.exp(post).mean(axis=(0, 1))
+    early, late = (float(rate[centers < 1890].mean()),
+                   float(rate[centers > 1900].mean()))
+    if not early / late > 2.0:
+        raise AssertionError(f"coal: rate before 1890 {early}, after 1900 "
+                             f"{late}: no drop")
+    runs["coal"] = dict(
+        model="examples/coal_disasters.py: Poisson(exp(BART) x exposure)",
+        n=len(counts), m=COAL["M"], particles=COAL["P"], chains=C,
+        tune=COAL["TUNE"], draws=COAL["DRAWS"], routes=routes,
+        launches=launches, seconds=seconds,
+        draw_step_ms=1e3 * timings["draw_seconds_total"] / COAL["DRAWS"],
+        chain_draws_per_s=(C * COAL["DRAWS"]
+                           / timings["draw_seconds_total"]),
+        rate_before_1890=early, rate_after_1900=late,
+        rate_ratio=early / late)
+    del idata
+    runs["het_joint"]["profile"] = busy_share(
+        het_joint_model(X, Y), 10, chains=C, num_particles=HJ["P"],
+        num_refinements=R)
+    runs["coal"]["profile"] = busy_share(coal_model, 10, chains=C)
+    emit("generic", runs=runs)
+
+
+def phase_interpret(dev, fit):
+    """The interpretability suite on the Friedman forests of phase
+    ``sample`` (n=1000, p=10, m=50, 4 chains): partial dependence of all ten
+    covariates (200 draws, quantile grid), ICE of all ten (30 instances,
+    100 draws) and variable importance (``method="VI"``, 50 draws), timed
+    on the card.  The card's results must equal the CPU port's on the same
+    forests and seeds (rtol 1e-5): the PDP of all ten, and on both sides
+    the ICE of the first two covariates with 10 instances and 20 draws and
+    a VI run on the first 200 rows with 10 draws.
+    The five active covariates must rank first, and the full submodel's
+    mean R^2 (one posterior draw of the submodel against an independent
+    draw of the full model) must be at least 0.9 and within the 94 % band
+    of the full model's R^2 against itself.  No matplotlib is needed."""
+    import pymc_bart_tpu_torch as pmb
+    from pymc_bart_tpu_torch.utils import interpret
+    from pymc_bart_tpu_torch.utils.stats import hdi
+
+    idata, X32, _f = fit
+    rv = idata._model.bart_rvs[0]
+    trees = rv.all_trees
+    X = X32.astype(np.float64)
+    p = X.shape[1]
+    out = dict(n=X.shape[0], p=p, m=trees.config.m, draws_stored=trees.n_total)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def pdp(device):
+        return interpret.partial_dependence(
+            trees, X, range(p), samples=200, rng=np.random.default_rng(0),
+            device=device)
+
+    def ice(device, var_idx, instances=30, samples=100):
+        return interpret.ice(trees, X, var_idx, instances=instances,
+                             samples=samples, rng=np.random.default_rng(1),
+                             device=device)
+
+    def vi(device, rows=None, samples=50):
+        return pmb.compute_variable_importance(
+            idata, rv, X[:rows], method="VI", samples=samples,
+            random_seed=2, device=device)
+
+    pdp(None)                                    # warm-up
+    card_pdp, out["pdp_seconds"] = timed(lambda: pdp(None))
+    card_ice, out["ice_seconds"] = timed(lambda: ice(None, range(p)))
+    card_vi, out["vi_seconds"] = timed(lambda: vi(None))
+    errs = {}
+
+    def same(name, got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        if got.shape != want.shape or not np.allclose(got, want, rtol=1e-5,
+                                                      atol=1e-5):
+            raise AssertionError(f"interpret {name}: card and CPU differ "
+                                 f"({got.shape} vs {want.shape})")
+        errs[name] = max(errs.get(name, 0.0),
+                         float(np.abs(got - want).max()))
+
+    t0 = time.perf_counter()
+    for g, w in zip(card_pdp, pdp("cpu")):
+        same("pdp", g.curves, w.curves)
+    for g, w in zip(ice(None, [0, 1], 10, 20), ice("cpu", [0, 1], 10, 20)):
+        same("ice", g.curves, w.curves)
+    small_card, small_cpu = vi(None, 200, 10), vi("cpu", 200, 10)
+    for key in ("indices", "r2_mean", "preds"):
+        same("vi_" + key, small_card[key], small_cpu[key])
+    out["card_vs_cpu_seconds"] = time.perf_counter() - t0
+    top5 = sorted(int(i) for i in card_vi["indices"][:5])
+    full_r2 = float(card_vi["r2_mean"][-1])
+    # the most a submodel can score: the R^2 of one posterior draw of the
+    # full model against the next (the band plot_variable_importance draws)
+    ceiling = interpret.paired_r2(card_vi["preds_all"][:-1],
+                                  card_vi["preds_all"][1:])
+    band = hdi(ceiling)
+    pdp_ranges = [float(np.ptp(b.curves.mean(0))) for b in card_pdp]
+    emit("interpret", **out, max_abs_err_card_vs_cpu=errs,
+         vi_indices=[int(i) for i in card_vi["indices"]],
+         vi_r2_mean=[float(v) for v in card_vi["r2_mean"]],
+         full_submodel_r2=full_r2, full_model_self_r2_mean=float(
+             ceiling.mean()), full_model_self_r2_hdi=band.tolist(),
+         pdp_mean_curve_range=pdp_ranges)
+    if top5 != [0, 1, 2, 3, 4]:
+        raise AssertionError(f"VI ranks {card_vi['indices']} first")
+    if not (full_r2 >= 0.9 and band[0] <= full_r2 <= band[1]):
+        raise AssertionError(
+            f"VI: the full submodel's mean R^2 {full_r2} is below 0.9 or "
+            f"outside the full model's own band {band.tolist()}")
+    if "matplotlib" in sys.modules:
+        raise AssertionError("the interpretability run imported matplotlib")
+
+
 def phase_timing(dev, calls, cfg, smi, runs=None):
     from pymc_bart_tpu_torch.config import PgbartConfig
     from pymc_bart_tpu_torch.ops.grow import grow_round
@@ -2229,7 +2663,6 @@ def linear_step_times(dev, reps=12, profiled=5):
     the step enqueued, host clock around a synchronisation), and the device
     busy time of a step (``torch.profiler``, kernels and copies), so that
     the host's share is what is left."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
@@ -2266,14 +2699,8 @@ def linear_step_times(dev, reps=12, profiled=5):
         for _ in range(profiled):
             step()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and e.device_type == DeviceType.CUDA:
-            rows.append((dev_us / 1e3 / profiled, e.count // profiled,
-                         e.key[:60]))
-    rows.sort(reverse=True)
+    rows = [(ms / profiled, count // profiled, key[:60])
+            for ms, count, key in device_rows(prof)]
     step_ms = float(np.median(times[2:]))
     device_ms = sum(r[0] for r in rows)
     return dict(step_ms=step_ms, device_ms=device_ms,
@@ -2434,75 +2861,36 @@ def phase_profile(dev, steps=20):
     (after a warm-up run), for the Friedman model (PGBART + NUTS) and the
     logistic model (PGBART alone) at n=1000 on the fused route and at
     n=50,000 on the large-n route."""
-    import pymc_bart_tpu_torch as pmb
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     X, Y, _ = friedman(N, PCOLS)
     Xl, Yl = logistic(N, PCOLS)
-
-    def friedman_model():
-        mu = pmb.BART("mu", X, Y, m=M, max_depth=DEPTH)
-        sigma = pmb.HalfNormal("sigma", 1.0)
-        pmb.Normal("y", mu, sigma, observed=Y)
-
-    def logistic_model():
-        lo = pmb.BART("lo", Xl, Yl, m=M, max_depth=DEPTH)
-        pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Yl)
-
-    def run(model, tune, draws, large):
-        with pmb.Model():
-            model()
-            if large:    # sample() takes the large-n route by itself
-                pmb.sample(tune=tune, draws=draws, chains=LN["C"],
-                           random_seed=1, num_particles=LN["P"],
-                           num_refinements=0, store_trees=False,
-                           convergence_checks=False)
-            else:
-                pmb.sample(tune=tune, draws=draws, chains=C, random_seed=1,
-                           num_particles=P, num_refinements=R,
-                           convergence_checks=False, pgbart_route="fused")
-        torch.cuda.synchronize()
-
     Xb, Yb, _ = friedman(LN["N"], LN["PCOLS"], seed=5)
     Xc, Yc = logistic(LN["N"], LN["PCOLS"], seed=7)
 
-    def large_regression():
-        mu = pmb.BART("mu", Xb, Yb, m=LN["M"])
-        sigma = pmb.HalfNormal("sigma", 1.0)
-        pmb.Normal("y", mu, sigma, observed=Yb)
+    def regression(X, Y, **bart):
+        def build(pmb):
+            mu = pmb.BART("mu", X, Y, **bart)
+            sigma = pmb.HalfNormal("sigma", 1.0)
+            pmb.Normal("y", mu, sigma, observed=Y)
+        return build
 
-    def large_classifier():
-        lo = pmb.BART("lo", Xc, Yc, m=LN["M"])
-        pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Yc)
+    def classifier(X, Y, **bart):
+        def build(pmb):
+            lo = pmb.BART("lo", X, Y, **bart)
+            pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Y)
+        return build
 
-    for name, model in (("friedman", friedman_model),
-                        ("logistic", logistic_model),
-                        ("large_n_regression", large_regression),
-                        ("large_n_classifier", large_classifier)):
-        large = name.startswith("large")
-        run(model, 5, 5, large)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(model, 0, steps, large)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for e in prof.key_averages():
-            dev_us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-            # kernels and copies only: an operator's row repeats its kernels'
-            if dev_us > 0 and e.device_type == DeviceType.CUDA:
-                rows.append((dev_us / 1e3, e.count, e.key))
-        rows.sort(reverse=True)
-        busy_ms = sum(r[0] for r in rows)
-        emit("profile", model=name, route="bign" if large else "fused",
-             steps=steps,
-             wall_ms=wall_ms, device_busy_ms=busy_ms,
-             device_idle_share=1.0 - busy_ms / wall_ms,
-             device_events=sum(r[1] for r in rows),
-             top=[dict(ms=r[0], count=r[1], name=r[2][:80])
-                  for r in rows[:12]])
+    small = dict(chains=C, num_particles=P, num_refinements=R,
+                 pgbart_route="fused")
+    # sample() takes the large-n route by itself
+    large = dict(chains=LN["C"], num_particles=LN["P"], num_refinements=0)
+    for name, build, kw in (
+            ("friedman", regression(X, Y, m=M, max_depth=DEPTH), small),
+            ("logistic", classifier(Xl, Yl, m=M, max_depth=DEPTH), small),
+            ("large_n_regression", regression(Xb, Yb, m=LN["M"]), large),
+            ("large_n_classifier", classifier(Xc, Yc, m=LN["M"]), large)):
+        out = busy_share(build, steps, warmup=5, top=12, **kw)
+        emit("profile", model=name, route="bign" if kw is large else "fused",
+             device_idle_share=1.0 - out["device_busy_share"], **out)
 
 
 def main(argv=None):
@@ -2552,17 +2940,32 @@ def main(argv=None):
     calls = cfg = None
     if need_calls:
         calls, cfg = main_path_inputs(dev)
-    errs = launches = times = runs = None
+    errs = launches = times = runs = fit = None
     if "kernels" in phases:
         errs = phase_kernels(dev, calls, cfg)
     if "step" in phases:
         phase_step(dev)
     if "sample" in phases:
-        launches, runs = phase_sample(dev, args.tune, args.draws,
-                                      args.large_tune, args.large_draws)
+        launches, runs, fit = phase_sample(dev, args.tune, args.draws,
+                                           args.large_tune, args.large_draws)
     if "models" in phases:
         phase_models(dev, args.model_tune, args.model_draws, args.large_tune,
                      args.large_draws)
+    if "generic" in phases:
+        phase_generic(dev)
+    if "interpret" in phases:
+        if fit is None:     # without phase sample: its Friedman run alone
+            X, Y, f_true = friedman(N, PCOLS)
+
+            def friedman_model(pmb):
+                mu = pmb.BART("mu", X, Y, m=M, max_depth=DEPTH)
+                sigma = pmb.HalfNormal("sigma", 1.0)
+                pmb.Normal("y", mu, sigma, observed=Y)
+                return mu
+
+            fit = (sample_run(friedman_model, "fused", args.tune,
+                              args.draws)[0], X, f_true)
+        phase_interpret(dev, fit)
     if "timing" in phases:
         times = phase_timing(dev, calls, cfg, smi, runs)
     if "profile" in phases:

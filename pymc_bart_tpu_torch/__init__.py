@@ -19,7 +19,9 @@ Usage (PyMC-shaped)::
 tensors a PGBART step is one launch of the large-n or the whole-step kernel
 where a gate admits the configuration, else one launch per growth,
 SMC-resampling and select-refine round; all five are hand-written CUDA
-kernels built from ``csrc/`` at first use.
+kernels built from ``csrc/`` at first use.  The interpretability suite
+(``plot_pdp``, ``plot_ice``, ``compute_variable_importance``, ...) predicts
+the stored draws on the card too.
 """
 
 __version__ = "0.1.0"
@@ -57,7 +59,23 @@ from .models import (
     set_data,
 )
 from .sampler import PGBART, sample
-from .utils import PosteriorForests, check_convergence, ess_bulk, rhat, summary
+from .utils import (
+    PosteriorForests,
+    check_convergence,
+    compute_variable_importance,
+    ess_bulk,
+    export_variable_inclusion,
+    get_variable_inclusion,
+    plot_convergence,
+    plot_ice,
+    plot_pdp,
+    plot_scatter_submodels,
+    plot_variable_importance,
+    plot_variable_inclusion,
+    rhat,
+    summary,
+    vi_to_kulprit,
+)
 
 __all__ = [
     "BART", "BARTRV", "BartConfig", "Bernoulli", "Categorical",
@@ -65,7 +83,10 @@ __all__ = [
     "HalfNormal", "InferenceData", "LogNormal", "Model", "NegativeBinomial",
     "Normal", "OneHotSplitRule", "PGBART", "PgbartConfig", "Poisson",
     "PosteriorForests", "SplitRule", "StudentT", "SubsetSplitRule", "Uniform",
-    "check_convergence", "ess_bulk", "math", "preprocess_xy", "rhat",
-    "sample", "sample_posterior_predictive", "sample_prior_predictive",
-    "set_data", "summary",
+    "check_convergence", "compute_variable_importance", "ess_bulk",
+    "export_variable_inclusion", "get_variable_inclusion", "math",
+    "plot_convergence", "plot_ice", "plot_pdp", "plot_scatter_submodels",
+    "plot_variable_importance", "plot_variable_inclusion", "preprocess_xy",
+    "rhat", "sample", "sample_posterior_predictive",
+    "sample_prior_predictive", "set_data", "summary", "vi_to_kulprit",
 ]

@@ -28,6 +28,10 @@ K-major like the Pallas functions): ``take``/``frozen`` (C, P); ``sv``,
 ``row_gum`` (C, P, n); ``eps`` (C, P, k, 2G); ``u_mix`` (C, P, 2G).
 ``st`` and ``set_bits`` are ``int32`` bit patterns of the JAX ``uint32``.
 
+The generic likelihood (and every joint forest of k >= 2 outputs) passes
+zero row weights and does not read ``ll``: its particles are weighted by the
+model's own log-likelihood of ``pred`` (``sampler/pgbart.py``).
+
 Dispatch: the kernel runs when the tensors are on a CUDA device, the plain
 version when they are on the CPU; ``impl="kernel"|"plain"`` forces one.
 Nothing falls back: a kernel that fails to build or launch raises.

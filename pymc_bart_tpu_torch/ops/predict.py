@@ -89,12 +89,24 @@ def _x_cols(XT: torch.Tensor, var_c: torch.Tensor) -> torch.Tensor:
     return XT[var_c].transpose(-1, -2)
 
 
+def _excluded_at(excluded_mask, var_c):
+    """``excluded_mask[var_c]``; a (M, p) mask gives leading index ``i`` of
+    ``var_c`` (M, ..., G) the covariates of mask ``i``."""
+    if excluded_mask.dim() == 1:
+        return excluded_mask[var_c]
+    M, p = excluded_mask.shape
+    view = excluded_mask.reshape((M,) + (1,) * (var_c.dim() - 2) + (p,))
+    return torch.gather(view.expand(var_c.shape[:-1] + (p,)), -1, var_c)
+
+
 def tree_predict_excluded(split_var, split_val, split_set, leaf, count, slope,
                           X, rules, excluded_mask, depth: int):
     """Per-tree prediction with the covariates marked in ``excluded_mask``
     (bool[p]) integrated out by row-count-weighted mass propagation:
     float32[..., n, k].  A leaf's linear term still reads the covariate:
-    exclusion integrates out routing, not leaf functions."""
+    exclusion integrates out routing, not leaf functions.  A (M, p) mask
+    holds one exclusion set for each index of the tree tensors' first axis
+    (M): every mask in one pass."""
     n, p = X.shape
     batch = split_var.shape[:-1]
     dev = X.device
@@ -125,7 +137,7 @@ def tree_predict_excluded(split_var, split_val, split_set, leaf, count, slope,
         cl = count[..., 2 * slots + 1]
         cr = count[..., 2 * slots + 2]
         frac_l = cl / (cl + cr).clamp_min(1e-12)
-        excl = excluded_mask[var_c] & (var >= 0)
+        excl = _excluded_at(excluded_mask, var_c) & (var >= 0)
         p_left = torch.where(excl.unsqueeze(-2), frac_l.unsqueeze(-2),
                              left.to(torch.float32))
         m_int = mass * internal.to(torch.float32).unsqueeze(-2)

@@ -5,8 +5,10 @@ Counterpart of ``pymc_bart_tpu/ops/select_pallas.py``
 the kernel is ``csrc/select.cu``.  The winner's arrays are extracted;
 per-leaf residual sums give the prior centres; ``R`` Metropolis sweeps with
 pre-drawn noise refine the leaf values under likelihood x
-``N(leaf residual mean / m, leaf_sd)`` prior.  ``n_outputs == 1``; the kernel
-is Gaussian.  Two responses:
+``N(leaf residual mean / m, leaf_sd)`` prior.  The kernel is Gaussian with
+one output; the plain version also takes ``k`` outputs and any likelihood
+(``ll_fn``): the winner and refinement of a joint forest and of the generic
+model likelihood, as the JAX package runs them in XLA.  Two responses:
 
 * ``"constant"``, as the TPU kernel: the winner by inverse CDF on ``u_sel``
   over ``exp(log_w - max)``, the prediction the leaf value;
@@ -21,13 +23,14 @@ is Gaussian.  Two responses:
 with ``k`` outputs, written as the XLA code is (the prediction recomputed
 every sweep); the tests hold the plain version's linear form to it.
 
-Shapes (leading chain axis ``C``, K-major with ``k == 1``): ``sv``, ``sl``,
-``st``, ``ct`` (C, P, S); ``lf`` and ``sp`` (C, P, 1, S); ``leaf_idx``
-(C, P, n) int32; ``pred`` (C, P, 1, n); ``log_w`` (C, P); ``resid``/
-``ll_weight`` (C, 1, n); ``eps`` (C, R, 1, S) already scaled; ``u_acc``
-(C, R); ``u_sel`` (C,); ``g_sel`` (C, P); ``half_inv_var`` (C,); ``X``
-(n, p).  Returns ``sv, sl, st (C, S)``, ``lf (C, 1, S)``, ``ct (C, S)``,
-[``sp (C, 1, S)`` for linear / mix,] ``leaf_idx (C, n)``, ``pred (C, 1, n)``.
+Shapes (leading chain axis ``C``, K-major; ``k == 1`` for the kernel):
+``sv``, ``sl``, ``st``, ``ct`` (C, P, S); ``lf`` and ``sp`` (C, P, k, S);
+``leaf_idx`` (C, P, n) int32; ``pred`` (C, P, k, n); ``log_w`` (C, P);
+``resid``/``ll_weight`` (C, k, n); ``eps`` (C, R, k, S) already scaled;
+``u_acc`` (C, R); ``u_sel`` (C,); ``g_sel`` (C, P); ``half_inv_var`` (C,)
+or (C, k); ``X`` (n, p).  Returns ``sv, sl, st (C, S)``, ``lf (C, k, S)``,
+``ct (C, S)``, [``sp (C, k, S)`` for linear / mix,] ``leaf_idx (C, n)``,
+``pred (C, k, n)``.
 """
 
 from __future__ import annotations
@@ -50,17 +53,21 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
                         num_refinements: int, m: int = 1, ll_fn=None,
                         response: str = "constant", sp=None, X=None,
                         g_sel=None):
-    """Plain PyTorch version (same signature and outputs as the kernel).
+    """Plain PyTorch version (same signature and outputs as the kernel), for
+    ``k >= 1`` outputs (``lf``/``sp`` (C, P, k, S), ``pred`` (C, P, k, n),
+    ``resid``/``ll_weight`` (C, k, n), ``eps`` (C, R, k, S)).
 
-    ``ll_fn(pred (C, n)) -> (C,)`` replaces the Gaussian log-likelihood for
-    the other closed-form codes (constant response; the kernel is Gaussian
-    only).  For ``response`` ``"linear"`` / ``"mix"`` the slope term
-    ``sp[leaf] * x`` of every row is taken once (the sweeps move intercepts
-    only) and added to each proposal's leaf value, as the kernel does."""
+    ``ll_fn(pred (C, k, n)) -> (C,)`` replaces the Gaussian log-likelihood
+    for the other likelihoods (constant response; the kernel is Gaussian and
+    one-output only): the closed-form codes and the generic model
+    likelihood.  ``half_inv_var`` is (C,) (one output) or (C, k) (a value
+    per output, the prior term of JAX's XLA refinement).  For ``response``
+    ``"linear"`` / ``"mix"`` the slope term ``sp[leaf] * x`` of every row is
+    taken once (the sweeps move intercepts only) and added to each
+    proposal's leaf value, as the kernel does."""
     C, P, S = sv.shape
+    k = lf.shape[2]
     n = leaf_idx.shape[2]
-    if lf.shape[2] != 1:
-        raise ValueError("select_refine supports n_outputs == 1 only")
     lin = _is_linear(response)
     if lin and ll_fn is not None:
         raise ValueError("the linear and mix responses are Gaussian only")
@@ -80,11 +87,12 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
 
     sv_w, sl_w, st_w, ct_w = pick(sv), pick(sl), pick(st), pick(ct)
     li_w = pick(leaf_idx)
-    lf_w = pick(lf)[:, 0]                                        # (C, S)
-    pred_w = pick(pred)[:, 0]                                    # (C, n)
+    lf_w = pick(lf)                                              # (C, k, S)
+    pred_w = pick(pred)                                          # (C, k, n)
     li64 = li_w.to(torch.int64)
+    li_k = li64[:, None, :].expand(C, k, n)
     if lin:
-        sp_w = pick(sp)[:, 0]                                    # (C, S)
+        sp_w = pick(sp)                                          # (C, k, S)
         p = X.shape[1]
         pvar = torch.gather(sv_w.to(torch.int64), 1,
                             ((li64 - 1) // 2).clamp_min(0))
@@ -92,47 +100,47 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
                pvar.clamp(0, p - 1)]
         xp = torch.where((li64 > 0) & (pvar >= 0),
                          torch.nan_to_num(xp, nan=0.0), torch.zeros_like(xp))
-        sx = torch.gather(sp_w, 1, li64) * xp                    # (C, n)
+        sx = torch.gather(sp_w, 2, li_k) * xp[:, None, :]        # (C, k, n)
 
-    r = resid[:, 0]
-    llw = ll_weight[:, 0]
-    leaf_mask = ((sv_w < 0) & (ct_w > 0)).to(torch.float32)
+    leaf_mask = ((sv_w < 0) & (ct_w > 0)).to(torch.float32)[:, None, :]
     # per-leaf residual sums in fixed point, the other sums in float64
     # rounded once: what the kernels compute (ops/sums.py)
     leaf_rsum = keyed_sum_fixed(resid, li64[:, None, :], S,
-                                *fixed_scale(resid))[:, 0, 0]    # (C, S)
-    center = true_div(leaf_rsum / ct_w.clamp_min(1.0), m)
+                                *fixed_scale(resid))[:, 0]       # (C, k, S)
+    center = true_div(leaf_rsum / ct_w.clamp_min(1.0)[:, None, :], m)
     hiv = half_inv_var
+    per_output = hiv.dim() == 2
 
     def ll_of(pred_x):
         if ll_fn is not None:
             return ll_fn(pred_x)
-        diff = r - pred_x
-        return -0.5 * sum64(llw * diff * diff)
+        diff = resid - pred_x
+        return -0.5 * sum64((ll_weight * diff * diff).flatten(1))
 
     def lp_of(lf_x):
         # the order of products of the JAX package's constant kernel and of
-        # its XLA linear refinement (select_refine_linear)
+        # its XLA refinement (select_refine_linear, the generic route)
         dev = lf_x - center
-        if lin:
-            return -sum64(hiv[:, None] * leaf_mask * dev * dev)
-        return -hiv * sum64(leaf_mask * dev * dev)
+        if lin or per_output:
+            hv = hiv if per_output else hiv[:, None]
+            return -sum64((hv[:, :, None] * leaf_mask * dev * dev).flatten(1))
+        return -hiv * sum64((leaf_mask * dev * dev).flatten(1))
 
     ll_c = ll_of(pred_w) + lp_of(lf_w)
     for i in range(R):
-        lf_p = lf_w + eps[:, i, 0, :] * leaf_mask
-        pred_p = torch.gather(lf_p, 1, li64)
+        lf_p = lf_w + eps[:, i] * leaf_mask
+        pred_p = torch.gather(lf_p, 2, li_k)
         if lin:
             pred_p = pred_p + sx
         ll_p = ll_of(pred_p) + lp_of(lf_p)
-        acc = (torch.log(u_acc[:, i]) < (ll_p - ll_c))[:, None]
+        acc = (torch.log(u_acc[:, i]) < (ll_p - ll_c))[:, None, None]
         lf_w = torch.where(acc, lf_p, lf_w)
         pred_w = torch.where(acc, pred_p, pred_w)
-        ll_c = torch.where(acc[:, 0], ll_p, ll_c)
-    head = (sv_w, sl_w, st_w, lf_w[:, None, :], ct_w)
+        ll_c = torch.where(acc[:, 0, 0], ll_p, ll_c)
+    head = (sv_w, sl_w, st_w, lf_w, ct_w)
     if lin:
-        head = head + (sp_w[:, None, :],)
-    return head + (li_w, pred_w[:, None, :])
+        head = head + (sp_w,)
+    return head + (li_w, pred_w)
 
 
 def _is_linear(response: str) -> bool:
@@ -261,7 +269,8 @@ def select_refine_kernel(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     R = num_refinements
     lin = _is_linear(response)
     if lf.dim() != 4 or lf.shape[2] != 1:
-        raise ValueError("select_refine supports n_outputs == 1 only")
+        raise ValueError("the select_refine kernel takes one output "
+                         "(select_refine_plain takes k)")
     if R < 0 or n >= 2**24 or S >= 2**16:
         raise ValueError(f"select_refine kernel: R={R} sweeps, n={n} rows and "
                          f"S={S} slots (it takes R >= 0, n < 2^24, S < 2^16)")

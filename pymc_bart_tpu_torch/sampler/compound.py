@@ -14,8 +14,13 @@ output: the heteroscedastic ``y ~ Normal(w[0], |w[1]| + c)`` or
 ``Normal(w[0], exp(w[1]))`` (codes ``gauss`` with per-row precision for the
 mean forest, ``het_abs`` / ``het_exp`` for the scale forest) and the
 softmax classifier ``y ~ Categorical(softmax(w.T))`` (code ``cat_logit`` for
-every class forest); ``ancestor_sampling`` (retained-path rejuvenation after
-every PGBART step, ``sampler/rejuvenate.py``).  Each forest runs on the large-n route of
+every class forest); any other likelihood through the generic model
+log-likelihood (``make_loglik``: the model's own ``observed_logp`` with the
+candidate sum of trees in place of the BART value, e.g. ``Poisson(exp(BART))``
+or ``Normal(w[0], |w[1]| + c)`` of ONE joint forest with two leaf values a
+node), on the per-round route; ``ancestor_sampling`` (retained-path
+rejuvenation after every PGBART step, ``sampler/rejuvenate.py``).  Each
+forest runs on the large-n route of
 ``pgbart.pgbart_step`` where a chain's rows do not fit the whole-step
 kernel's shared memory (``pgbart.resolve_route``), on the whole-step route
 where its gate admits the configuration and on the per-round route
@@ -402,6 +407,32 @@ class CompiledModel:
         return np.concatenate(pieces).astype(np.float32)
 
 
+def make_loglik(compiled: CompiledModel, vname: str,
+                out: Optional[int] = None):
+    """Particle-weight log-likelihood of one BART variable (JAX's
+    ``_make_loglik``): ``loglik(f (n, k), lik_params) -> scalar`` for one
+    chain, with ``lik_params = (theta, {name: current internal value})``;
+    the candidate ``f`` replaces this variable's value.  With ``out`` the
+    candidate ``f`` (n, 1) replaces only that output column
+    (``separate_trees``: each output's forest has its own conditional SMC
+    while the other outputs stay fixed; JAX's ``_make_loglik_output``).  Terms shared by all
+    particles cancel in the weight normalisation.  ``pgbart.batched_loglik``
+    evaluates it over chains and particles at once."""
+
+    def loglik(f, lik_params):
+        theta, internal = lik_params
+        bart_internal = dict(internal)
+        if out is not None:
+            W = internal[vname]
+            f = torch.cat([W[:, :out], f, W[:, out + 1:]], dim=1)
+        bart_internal[vname] = f
+        env, _ = compiled.build_env(theta, bart_internal)
+        return compiled.observed_logp(env)
+
+    loglik.__name__ = f"loglik_{vname}" + ("" if out is None else f"_out{out}")
+    return loglik
+
+
 class PGBART:
     """Manual step-method handle: ``PGBART([mu], num_particles=5)`` passed
     via ``sample(step=[...])`` overrides the sampler settings for those
@@ -605,13 +636,17 @@ def sample(
     ``Categorical(softmax(w.T))``; ``all_trees`` is then a list of k
     ``PosteriorForests``.
 
+    A forest without a closed-form code (any other likelihood, another
+    separate-trees form, or one joint forest of ``shape=(k, n)`` with k leaf
+    values a node) is weighted by the model's own log-likelihood
+    (``make_loglik``, evaluated batched over chains
+    and particles) and takes the per-round route; a joint forest's
+    ``all_trees`` is one ``PosteriorForests`` with ``n_outputs == k``.
+
     Not ported yet (``NotImplementedError``): ``mesh``, ``checkpoint_dir``,
-    ``resume``, ``profile_dir``, ``debug_nans``, ``posterior_dtype``; a
-    forest without a closed-form likelihood (the generic ``loglik_fn`` path:
-    any other likelihood, or another separate-trees form); ``response=
-    "linear"`` / ``"mix"`` with another likelihood than
-    ``Normal(BART, sigma)``; one forest with ``n_outputs != 1`` (joint
-    multi-output trees).
+    ``resume``, ``profile_dir``, ``debug_nans``, ``posterior_dtype``;
+    ``response="linear"`` / ``"mix"`` with another likelihood than
+    ``Normal(BART, sigma)``.
     """
     passed = dict(mesh=mesh, checkpoint_dir=checkpoint_dir, resume=resume,
                   profile_dir=profile_dir, debug_nans=debug_nans,
@@ -665,11 +700,6 @@ def sample(
         cfg = brv.config
         k = cfg.n_outputs
         separate = cfg.separate_trees and k > 1
-        if k != 1 and not separate:
-            raise NotImplementedError(
-                f"BART variable {brv.name!r}: one forest with n_outputs={k} "
-                "(joint multi-output trees) is not ported yet; "
-                "separate_trees=True gives each output its own forest")
         X_raw = np.asarray(brv.X, np.float32)
         rules_np = brv.rules_array()
         X_np = X_raw
@@ -689,12 +719,9 @@ def sample(
             fused = _fused_likelihood(model, brv, out=out)
             tag = brv.name + (f"[{out}]" if out is not None else "")
             if fused is None:
-                raise NotImplementedError(
-                    f"BART variable {tag!r}: only the fused likelihoods "
-                    "y ~ Normal(BART, sigma), y ~ Bernoulli(sigmoid(BART)), "
-                    "and under separate_trees y ~ Normal(w[0], |w[1]| + c) "
-                    "or Normal(w[0], exp(w[1])) and y ~ Categorical("
-                    "softmax(w.T)) are ported yet")
+                # no closed form: the model's own log-likelihood
+                fused = {"kind": pgbart.GENERIC,
+                         "loglik": make_loglik(compiled, brv.name, out)}
             if cfg.response != "constant" and fused["kind"] != "gauss":
                 raise NotImplementedError(
                     f"BART variable {tag!r}: response={cfg.response!r} is "
@@ -821,7 +848,9 @@ def sample(
         if lik == "cat_logit":
             W = bart_values()[names.index(bs["name"])]       # (C, n, k)
             return class_forest_data(W, bs["out"]), bs["Yt"]
-        return None, bs["Yt"]   # bernoulli: the labels ride Yt, no row data
+        # bernoulli: the labels ride Yt; generic: the model closure reads
+        # the current values itself (lik_params); no row data
+        return None, bs["Yt"]
 
     def one_step(tuning: bool):
         nonlocal h
@@ -840,12 +869,16 @@ def sample(
                 gen, moves=cfg.m * max(pg.rejuvenation_sweeps, 1), C=C,
                 S=cfg.n_nodes, n=n_i, k=k_i, device=device)
                 if bs["pg"].ancestor_sampling else None)
+            generic = bs["fused"]["kind"] == pgbart.GENERIC
             bart_states[i], vi = pgbart.pgbart_step(
                 bart_states[i], rands, bs["X"], Yt_i, bs["rules"], cfg,
                 pg, tuning, lik_row, lik=bs["fused"]["kind"],
                 lik_const=bs["fused"].get("const", 0.0), route=bs["route"],
                 w_scalar=bs["w_scalar"], all_cont=bs["all_cont"],
-                x_nan=bs["x_nan"], rejuv=rejuv)
+                x_nan=bs["x_nan"], rejuv=rejuv,
+                loglik_fn=bs["fused"].get("loglik"),
+                lik_params=((h.theta, dict(zip(names, bart_values())))
+                            if generic else None))
             vis.append(vi)
 
         if compiled.theta_size > 0:

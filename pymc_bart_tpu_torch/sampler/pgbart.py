@@ -2,9 +2,11 @@
 
 Counterpart of ``pymc_bart_tpu/sampler/pgbart.py`` for the closed-form
 likelihood codes (gauss, bernoulli, het_abs, het_exp, cat_logit) with the
-constant response, the Gaussian code with the linear and mix responses, and
-one output.  ``pgbart_step`` is the counterpart of
-``_pgbart_step_dispatch``; it has three routes:
+constant response and one output, the Gaussian code with the linear and mix
+responses, and the generic model likelihood (``lik="generic"``: a
+``loglik_fn`` closure over the model, any number of outputs, constant
+response).  ``pgbart_step`` is the counterpart of ``_pgbart_step_dispatch``;
+it has three routes:
 
 * ``"bign"``: the whole step in the large-n formulation (``ops/bign.py``:
   rows spread over the card, node-space sufficient statistics for the
@@ -22,7 +24,10 @@ one output.  ``pgbart_step`` is the counterpart of
   plain version of the fused one.  The selection kernel is Gaussian, for the
   constant, linear and mix responses; the other codes select and refine in
   plain PyTorch on every device, as the JAX package does in XLA.  The linear
-  and mix responses run here alone (both whole-step gates refuse them).
+  and mix responses, the generic likelihood and joint forests of ``k >= 2``
+  outputs run here alone (both whole-step gates refuse them); for the
+  generic likelihood each round's particle log-likelihood is the model's,
+  evaluated batched over chains and particles (``batched_loglik``).
 
 Chains are a leading tensor axis ``C`` where the JAX package uses ``vmap``.
 The step TAKES its random numbers (``StepRands``) as an argument, in the
@@ -35,8 +40,7 @@ every route is followed by the retained-path rejuvenation sweeps of
 ``sampler/rejuvenate.py`` (plain PyTorch on the returned state; their random
 numbers are ``pgbart_step``'s argument ``rejuv``).
 
-Not ported yet: the generic ``loglik_fn`` path and the XLA-only
-sufficient-statistics mode, multi-output in the step, and row sharding.
+Not ported yet: the XLA-only sufficient-statistics mode and row sharding.
 """
 
 from __future__ import annotations
@@ -218,13 +222,39 @@ def closed_form_ll(lik: str, lik_const: float, F, y, row):
     raise ValueError(f"no closed form for likelihood code {lik!r}")
 
 
-def make_ll_of(lik: str, lik_const: float, row, Y):
+GENERIC = "generic"
+
+
+def batched_loglik(loglik_fn, lik_params):
+    """The model log-likelihood of ``Q`` candidate values a chain:
+    ``ll(F (C, Q, n, k)) -> (C, Q)``.
+
+    ``loglik_fn(f (n, k), lik_params) -> scalar`` is one chain's closure
+    (``sampler.compound.make_loglik``, the counterpart of JAX's
+    ``_make_loglik``); ``lik_params`` holds every chain's values on a leading
+    axis ``C`` (``(theta (C, d), {name: (C, n, k)})``).  One ``vmap`` over
+    the candidates inside one over the chains: the whole batch is one
+    evaluation of the model's expressions, with no host synchronisation."""
+    inner = torch.func.vmap(loglik_fn, in_dims=(0, None))
+    outer = torch.func.vmap(inner, in_dims=(0, 0))
+    return lambda F: outer(F, lik_params)
+
+
+def make_ll_of(lik: str, lik_const: float, row, Y, loglik_fn=None,
+               lik_params=None):
     """The model log-likelihood ``ll_of(sum_noi, pred) -> (C,)`` of one
     tree's prediction ``pred`` (C, n, k) beside the other trees' sum
     ``sum_noi``, in the closed form of the SMC weights (JAX's
     ``_make_ll_of``): ``row`` is the code's row data (C, n, k) (the Gaussian
-    precision, ``None`` for ``"bernoulli"``), ``Y`` the target (C|1, n, k)."""
-    if lik == "gauss":
+    precision, ``None`` for ``"bernoulli"``), ``Y`` the target (C|1, n, k).
+    ``lik="generic"``: the model's own, ``loglik_fn`` at ``lik_params``
+    (``batched_loglik``)."""
+    if lik == GENERIC:
+        ll = batched_loglik(loglik_fn, lik_params)
+
+        def ll_of(sum_noi, pred):
+            return ll((sum_noi + pred)[:, None])[:, 0]
+    elif lik == "gauss":
         def ll_of(sum_noi, pred):
             diff = (Y - sum_noi) - pred
             return -0.5 * sum64((row * diff * diff).flatten(1))
@@ -238,16 +268,20 @@ def make_ll_of(lik: str, lik_const: float, row, Y):
 def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
                      leaf_sd, X, rules, cfg: BartConfig, pg: PgbartConfig,
                      gauss_w, impl: Optional[str], lik: str = "gauss",
-                     lik_const: float = 0.0, sum_noi=None, Y=None):
+                     lik_const: float = 0.0, sum_noi=None, Y=None,
+                     loglik=None):
     """Conditional SMC for tree ``b`` of the batch, all chains.
 
     ``tree`` holds (C, S[, k]) tensors; ``resid``/``gauss_w`` (C, n, k).
     For a non-Gaussian code the particle log-likelihood after each round is
     the closed form on ``sum_noi (C, n, k) + pred`` with the labels ``Y``
-    (C|1, n, k) (the growth round's Gaussian value is ignored), and the winner is
-    refined under the same closed form, in plain PyTorch.  For the linear
-    and mix responses (Gaussian only) the rounds draw slopes and the winner
-    is selected among the particles by its Gumbels ``rands.gsel``.
+    (C|1, n, k), for ``lik="generic"`` the model's own ``loglik`` (the
+    ``batched_loglik`` of the model closure) on the same sum (the growth
+    round's Gaussian value is ignored: it is given zero row weights), and the
+    winner is refined under the same likelihood, in plain PyTorch, for every
+    output.  For the linear and mix responses (Gaussian only) the rounds draw
+    slopes and the winner is selected among the particles by its Gumbels
+    ``rands.gsel``.
     Returns ``(sv, sl, st (C, S), leaf (C, S, k), ct (C, S), slope (C, S, k),
     pred (C, n, k))``.
     """
@@ -288,6 +322,7 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     alpha_cdf = alpha_cdf_of(alpha_vec)
     residT = resid.transpose(1, 2).contiguous()                   # (C, k, n)
     gauss = lik == "gauss"
+    generic = lik == GENERIC
     lin = cfg.response != "constant"
     if lin and (rands.umix is None or rands.gsel is None):
         raise ValueError(f"response={cfg.response!r}: rands lacks umix and "
@@ -303,6 +338,11 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     def eval_ll(pred_all):
         """(C, P, k, n) or (C, k, n) predictions -> log-likelihood."""
         lead = pred_all.dim() == 4
+        if generic:
+            F = (noiT[:, None] if lead else noiT) + pred_all
+            if lead:
+                return loglik(F.transpose(-1, -2))
+            return loglik(F.transpose(-1, -2)[:, None])[:, 0]
         if gauss:
             r_, w_ = (residT[:, None], llwT[:, None]) if lead else (residT,
                                                                     llwT)
@@ -346,9 +386,12 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     eps_r = rands.epsr[b]                                         # (C,R,k,S)
     if pg.num_refinements > 0:
         eps_r = eps_r * (0.3 * leaf_sd)[:, None, :, None]
+    # one prior scale a chain for one output (the kernel's), one an output
+    # for a joint forest
+    hiv = (0.5 / (leaf_sd[:, 0] * leaf_sd[:, 0]) if k == 1
+           else 0.5 / (leaf_sd * leaf_sd))
     args = (sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
-            eps_r.contiguous(), rands.uacc[b], rands.usel[b],
-            0.5 / (leaf_sd[:, 0] * leaf_sd[:, 0]))
+            eps_r.contiguous(), rands.uacc[b], rands.usel[b], hiv)
     if lin:
         sv_w, sl_w, st_w, lf_w, ct_w, sp_w, _li_w, pred_w = select_refine(
             *args, num_refinements=R, m=cfg.m, impl=impl,
@@ -359,11 +402,13 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
             *args, num_refinements=R, m=cfg.m, impl=impl)
         sp_w = torch.zeros_like(lf_w.transpose(1, 2))
     else:
-        # the other codes' winner and refinement are plain PyTorch on every
-        # device, as the JAX package runs them in XLA (its fused_other branch)
+        # the other likelihoods' winner and refinement are plain PyTorch on
+        # every device, as the JAX package runs them in XLA (its fused_other
+        # branch and its generic one; the winner by inverse CDF on usel, the
+        # proposals from epsr / uacc: the distribution of JAX's
+        # categorical and key-drawn normals, from the step's blocks)
         sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine_plain(
-            *args, num_refinements=R, m=cfg.m,
-            ll_fn=lambda pred_x: eval_ll(pred_x[:, None, :]))
+            *args, num_refinements=R, m=cfg.m, ll_fn=eval_ll)
         sp_w = torch.zeros_like(lf_w.transpose(1, 2))
     return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w, sp_w,
             pred_w.transpose(1, 2))
@@ -433,7 +478,8 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
                 lik_const: float = 0.0, route: Optional[str] = None,
                 w_scalar: bool = False, all_cont: Optional[bool] = None,
                 x_nan: Optional[bool] = None,
-                rejuv: Optional[RejuvRands] = None):
+                rejuv: Optional[RejuvRands] = None, loglik_fn=None,
+                lik_params=None):
     """One PGBART MCMC step for all chains: update a rotating batch of trees.
 
     ``X`` (n, p) is shared by the chains, ``Y_target`` (n, k) too or is
@@ -447,12 +493,18 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     ``rules`` when None) and ``x_nan`` (X holds a NaN; read from ``X`` when
     None).  ``impl`` forces the kernels or the plain versions on any route.
     ``cfg.response`` ``"linear"`` / ``"mix"`` take the Gaussian code and the
-    per-round route (``rands`` from ``draw_rands(response=...)``);
-    ``n_outputs != 1`` is not ported (``separate_trees`` gives each output a
-    forest of its own).  With ``pg.ancestor_sampling`` (constant response
-    only: a ValueError otherwise) the rejuvenation sweeps follow the route's
-    step, with the moves' numbers ``rejuv`` (``rejuvenate.draw_rejuv_rands``),
-    and the inclusion counts are taken afterwards.
+    per-round route (``rands`` from ``draw_rands(response=...)``).
+    ``lik="generic"``: the model's own log-likelihood, ``loglik_fn(f (n, k),
+    lik_params) -> scalar`` for one chain (``compound.make_loglik``) with
+    ``lik_params`` every chain's current ``(theta (C, d), {name: value
+    (C, n, k)})``; it takes the per-round route (the gates of the other two
+    refuse it and name why), as does a joint forest of ``cfg.n_outputs >= 2``
+    (which has no closed form: always generic; a closed-form code with
+    ``n_outputs != 1`` raises).  With ``pg.ancestor_sampling`` (constant
+    response only: a ValueError otherwise) the rejuvenation sweeps follow the
+    route's step, with the moves' numbers ``rejuv``
+    (``rejuvenate.draw_rejuv_rands``), and the inclusion counts are taken
+    afterwards.
     The state's tensors are UPDATED IN PLACE (forest, tree_pred and the
     Welford buffers are large and the step is the hot loop); clone the state
     first to keep the old one.  Returns ``(state, variable_inclusion (C, p))``.
@@ -461,10 +513,11 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
         raise NotImplementedError(
             f"response={cfg.response!r} with likelihood code {lik!r}: the "
             "linear and mix responses run with the Gaussian code only")
-    if cfg.n_outputs != 1:
+    if cfg.n_outputs != 1 and lik != GENERIC:
         raise NotImplementedError(
-            f"n_outputs={cfg.n_outputs}: the select-refine round supports "
-            "one output only")
+            f"n_outputs={cfg.n_outputs} with likelihood code {lik!r}: the "
+            "closed-form codes take one output; a joint forest takes the "
+            "model's likelihood (lik='generic')")
     if pg.ancestor_sampling and cfg.response != "constant":
         raise ValueError(
             "ancestor_sampling (retained-path grow/prune rejuvenation) "
@@ -474,7 +527,8 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
                          "numbers rejuv (rejuvenate.draw_rejuv_rands)")
     out = _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning,
                       gauss_w, impl, lik=lik, lik_const=lik_const, route=route,
-                      w_scalar=w_scalar, all_cont=all_cont, x_nan=x_nan)
+                      w_scalar=w_scalar, all_cont=all_cont, x_nan=x_nan,
+                      loglik_fn=loglik_fn, lik_params=lik_params)
     if not pg.ancestor_sampling:
         return out
     # every route leaves tree_pred and sum_trees equal to the forest's
@@ -485,12 +539,14 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     if all_cont is None:
         all_cont = bool((rules == 0).all())
     rejuvenate_forest(state, rejuv, X, Y, rules, cfg, pg,
-                      make_ll_of(lik, lik_const, gauss_w, Y), all_cont)
+                      make_ll_of(lik, lik_const, gauss_w, Y, loglik_fn,
+                                 lik_params), all_cont)
     return state, split_var_counts(state.forest, p)
 
 
 def _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning, gauss_w,
-                impl, *, lik, lik_const, route, w_scalar, all_cont, x_nan):
+                impl, *, lik, lik_const, route, w_scalar, all_cont, x_nan,
+                loglik_fn=None, lik_params=None):
     """The step of the route ``resolve_route`` takes (``pgbart_step``
     without the rejuvenation sweeps)."""
     C = state.sum_trees.shape[0]
@@ -530,21 +586,29 @@ def _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning, gauss_w,
             rands.seed, B=pg.batch_size(cfg.m, tuning), C=C,
             P=pg.num_particles, D=cfg.max_depth, n=X.shape[0]))
     return step_rounds(state, rands, X, Y_target, rules, cfg, pg, tuning,
-                       gauss_w, impl=impl, lik=lik, lik_const=lik_const)
+                       gauss_w, impl=impl, lik=lik, lik_const=lik_const,
+                       loglik_fn=loglik_fn, lik_params=lik_params)
 
 
 def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
                 cfg: BartConfig, pg: PgbartConfig, tuning: bool, gauss_w,
                 impl: Optional[str] = None, *, lik: str = "gauss",
-                lik_const: float = 0.0):
+                lik_const: float = 0.0, loglik_fn=None, lik_params=None):
     """The per-round route of ``pgbart_step`` (same arguments and outputs):
     one call per growth round, resampling step and selection, with the
     commit and the adaptation in plain PyTorch between them."""
-    if lik not in _draw.LIK_CODES:
+    if lik == GENERIC:
+        if loglik_fn is None:
+            raise ValueError("lik='generic' needs the model closure "
+                             "loglik_fn")
+        loglik = batched_loglik(loglik_fn, lik_params)
+    elif lik not in _draw.LIK_CODES:
         raise NotImplementedError(
-            f"likelihood code {lik!r}: only the closed-form codes "
-            f"{sorted(_draw.LIK_CODES)} are ported")
-    if lik not in ("gauss", "bernoulli") and gauss_w is None:
+            f"likelihood code {lik!r}: the closed-form codes "
+            f"{sorted(_draw.LIK_CODES)} and {GENERIC!r} are ported")
+    else:
+        loglik = None
+    if lik not in ("gauss", "bernoulli", GENERIC) and gauss_w is None:
         raise ValueError(f"likelihood code {lik!r} needs its row data")
     m = cfg.m
     B = pg.batch_size(m, tuning)
@@ -566,7 +630,7 @@ def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
         resid = Y - sum_noi
         sv_w, sl_w, st_w, lf_w, ct_w, sp_w, pred = _update_one_tree(
             i, rands, tree, resid, state.alpha_vec, state.leaf_sd, X, rules,
-            cfg, pg, gauss_w, impl, lik, lik_const, sum_noi, Y)
+            cfg, pg, gauss_w, impl, lik, lik_const, sum_noi, Y, loglik)
         forest.split_var[ar, jt] = sv_w
         forest.split_val[ar, jt] = sl_w
         forest.split_set[ar, jt] = st_w

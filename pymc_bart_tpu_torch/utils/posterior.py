@@ -4,8 +4,11 @@ Counterpart of ``pymc_bart_tpu/utils/posterior.py``: the ``PosteriorForests``
 container that ``sample()`` attaches to a fitted BART RV (a list of them, one
 per output, for a ``separate_trees`` variable), and the prediction of chosen
 draws on any X (``predict_draw_indices``, ``sample_posterior``) with
-``ops/predict.py`` on the card.  Draw indices come from the caller's NumPy
-``Generator``, as in the JAX package, so one seed picks the same draws.
+``ops/predict.py`` on the card, also under several exclusion masks at once
+(``predict_draw_indices(..., masks=)``, every PDP panel in one batched
+pass; JAX's ``predict_draw_indices_multimask``).
+Draw indices come from the caller's NumPy ``Generator``, as in the JAX
+package, so one seed picks the same draws.
 """
 
 from __future__ import annotations
@@ -84,12 +87,17 @@ class PosteriorForests:
 
 def predict_draw_indices(all_trees: PosteriorForests, X, idx,
                          excluded: Optional[Sequence[int]] = None,
-                         device=None) -> np.ndarray:
+                         device=None, masks=None) -> np.ndarray:
     """Predictions of specific flat draw indices: (len(idx), n, k).
 
     ``excluded``: covariates integrated out of the routing
-    (``ops.predict.forest_predict_excluded``).  ``device=None`` runs on the
-    GPU (and raises where there is none); ``"cpu"`` on the CPU."""
+    (``ops.predict.forest_predict_excluded``).  ``masks``: bool (M, p)
+    exclusion masks (True = integrated out) in place of ``excluded``; every
+    mask goes through one batched pass (the stored draws gain a mask axis)
+    and the result is (M, len(idx), n, k).  Passes are chunked over masks
+    and draws to stay under ``_PASS_ELEMENTS`` index entries.
+    ``device=None`` runs on the GPU (and raises where there is none);
+    ``"cpu"`` on the CPU."""
     from ..sampler.compound import resolve_device
 
     device = resolve_device(device)
@@ -100,23 +108,35 @@ def predict_draw_indices(all_trees: PosteriorForests, X, idx,
     idx = np.asarray(idx)
     depth = all_trees.config.max_depth
     n, p = X.shape
-    mask = None
-    per_draw = all_trees.split_var.shape[-2] * n
-    if excluded is not None and len(excluded) > 0:
-        keep = np.zeros(p, bool)
-        keep[np.asarray(excluded, int)] = True
-        mask = torch.as_tensor(keep, device=device)
-        per_draw *= 2**depth
-    chunk = max(1, _PASS_ELEMENTS // max(per_draw, 1))
-    outs = []
-    for lo in range(0, len(idx), chunk):
-        sel = all_trees.select(idx[lo:lo + chunk], device)
-        outs.append(forest_predict(sel, X, rules, depth) if mask is None
-                    else forest_predict_excluded(sel, X, rules, mask, depth))
     k = all_trees.n_outputs
-    if not outs:
-        return np.zeros((0, n, k), np.float32)
-    return torch.cat(outs).cpu().numpy()
+    many = masks is not None
+    if not many and excluded is not None and len(excluded) > 0:
+        masks = np.zeros((1, p), bool)
+        masks[0, np.asarray(excluded, int)] = True
+    per_pass = all_trees.split_var.shape[-2] * n      # one mask, one draw
+    if masks is not None:
+        masks = torch.as_tensor(np.asarray(masks, bool), device=device)
+        per_pass *= 2**depth
+    M = 1 if masks is None else masks.shape[0]
+    m_chunk = max(1, min(M, _PASS_ELEMENTS // per_pass))
+    d_chunk = max(1, _PASS_ELEMENTS // (per_pass * m_chunk))
+    out = torch.empty((M, len(idx), n, k), dtype=torch.float32,
+                      device=device)
+    for lo in range(0, len(idx), d_chunk):
+        sel = all_trees.select(idx[lo:lo + d_chunk], device)
+        if masks is None:
+            out[0, lo:lo + d_chunk] = forest_predict(sel, X, rules, depth)
+            continue
+        for mlo in range(0, M, m_chunk):
+            mk = masks[mlo:mlo + m_chunk]
+            batched = Forest(*(
+                getattr(sel, f.name)[None].expand(
+                    (mk.shape[0],) + getattr(sel, f.name).shape)
+                for f in dataclasses.fields(sel)))
+            out[mlo:mlo + m_chunk, lo:lo + d_chunk] = forest_predict_excluded(
+                batched, X, rules, mk, depth)
+    out = out.cpu().numpy()
+    return out if many else out[0]
 
 
 def sample_posterior(all_trees, X, rng=None, size=None,

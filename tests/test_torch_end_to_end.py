@@ -208,18 +208,27 @@ def test_sample_route_keyword(port_fit):
 
 
 def _het_model(X, Y):
-    # a scale link without a closed form (|w1| + c and exp(w1) are ported)
+    # a scale link without a closed form: the scale forest's entry takes the
+    # generic model likelihood, the mean forest its per-row precision
     w = tpmb.BART("w", X, Y, m=4, shape=(2, 30), separate_trees=True)
     return tpmb.Normal("y", w[0], 2.0 * tpmb.math.abs(w[1]), observed=Y)
 
 
 def _categorical_model(X, Y):
-    # one forest with two leaf values a node (joint trees; separate_trees
-    # is ported)
+    # one forest with two leaf values a node (joint trees, generic
+    # likelihood)
     labels = (Y > Y.mean()) * 1.0
     lo = tpmb.BART("lo", X, labels, m=4, shape=(2, 30))
     return tpmb.Categorical("y", p=tpmb.math.softmax(lo.T, axis=-1),
                             observed=labels)
+
+
+# each case that now runs: (BART name, value shape a draw, all_trees: the
+# outputs of one store, or a list of one-output stores); None: still refused
+_RUNS = {"bernoulli": ("mu", (30,), 1),
+         "heteroscedastic": ("w", (2, 30), [1, 1]),
+         "categorical": ("lo", (2, 30), 2), "linear": None,
+         "two_outputs": ("mu", (2, 30), 2)}
 
 
 @pytest.mark.parametrize("build, word", [
@@ -238,13 +247,32 @@ def _categorical_model(X, Y):
      "n_outputs"),
 ], ids=["bernoulli", "heteroscedastic", "categorical", "linear",
         "two_outputs"])
-def test_sample_refuses_models_that_wait(build, word):
+def test_sample_refuses_models_that_wait(request, build, word):
+    """The models that waited for the generic likelihood and joint forests
+    now sample on the CPU (finite draws of the right shape, the per-round
+    route's warning given, the stores laid out as in JAX); the linear
+    response under a non-Gaussian likelihood is still refused."""
+    case = request.node.callspec.id
     X, Y, _ = _toy(30, 3)
-    with tpmb.Model():
+    with tpmb.Model() as model:
         with pytest.warns() if word == "response" else _nullcontext():
             build(X, Y)
-        with pytest.raises(NotImplementedError, match=word):
-            tpmb.sample(tune=1, draws=1, chains=1, device="cpu")
+        if _RUNS[case] is None:
+            with pytest.raises(NotImplementedError, match=word):
+                tpmb.sample(tune=1, draws=1, chains=1, device="cpu")
+            return
+        with pytest.warns(UserWarning, match="per-round"):
+            idata = tpmb.sample(tune=3, draws=4, chains=2, random_seed=1,
+                                device="cpu", convergence_checks=False)
+    name, shape, stores = _RUNS[case]
+    post = idata.posterior[name].values
+    assert post.shape == (2, 4) + shape and np.isfinite(post).all()
+    trees = model.bart_rvs[0].all_trees
+    if isinstance(stores, list):
+        assert [t.n_outputs for t in trees] == stores
+    else:
+        assert trees.n_outputs == stores and trees.leaf.shape[:2] == (2, 4)
+    assert idata["sample_stats"]["variable_inclusion"].values.sum() > 0
 
 
 class _nullcontext:

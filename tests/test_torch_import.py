@@ -28,6 +28,10 @@ MODULES = [
     "pymc_bart_tpu_torch.models.predictive",
     "pymc_bart_tpu_torch.utils.posterior",
     "pymc_bart_tpu_torch.utils.diagnostics",
+    "pymc_bart_tpu_torch.utils.stats", "pymc_bart_tpu_torch.utils.codec",
+    "pymc_bart_tpu_torch.utils.interpret",
+    "pymc_bart_tpu_torch.utils.importance",
+    "pymc_bart_tpu_torch.utils.plots",
 ]
 
 
@@ -43,7 +47,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         for name in {MODULES!r}:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "pymc_bart_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "pymc_bart_tpu",
+                                            "matplotlib", "scipy"))
         assert not bad, bad
         assert "torch" in sys.modules
         print("clean")
@@ -101,14 +106,9 @@ def test_chip_smoke_fails_without_a_gpu():
     assert res.stdout.strip() == ""
 
 
-# the JAX package's public names that the port does not export yet: the
-# interpretability functions (ROADMAP.md, queue 1)
-NOT_PORTED = {
-    "compute_variable_importance", "get_variable_inclusion",
-    "export_variable_inclusion", "plot_variable_inclusion",
-    "plot_variable_importance", "plot_scatter_submodels", "plot_pdp",
-    "plot_ice", "plot_convergence", "vi_to_kulprit",
-}
+# the JAX package's public names that the port does not export yet: none
+# since the interpretability functions came over
+NOT_PORTED = set()
 
 
 def test_port_exports_the_public_names_of_the_jax_package():

@@ -208,7 +208,7 @@ def test_sample_linear_on_the_cpu():
 
 @pytest.mark.parametrize("kw, word", [
     (dict(response="mix", lik="bernoulli"), "response"),
-    (dict(response="linear", shape=(2, N)), "n_outputs")],
+    (dict(response="linear", shape=(2, N)), "response")],
     ids=["mix_bernoulli", "linear_two_outputs"])
 def test_sample_refuses_what_waits(kw, word):
     X, Y = _setup(2)

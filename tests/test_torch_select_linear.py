@@ -194,6 +194,19 @@ def test_wrapper_dispatch_and_refusals():
         select_refine(*args, impl="kernel", **lin)
     with pytest.raises(ValueError, match="response"):
         select_refine(*args, num_refinements=R, m=7, response="quadratic")
-    two = (args[:3] + (torch.cat([t["lf"]] * 2, dim=2),) + args[4:])
-    with pytest.raises(ValueError, match="n_outputs"):
-        select_refine(*two, num_refinements=R, m=7)
+    # two outputs: the plain version takes them (the generic route's joint
+    # forests); the winner is the one-output run's, the leaves (C, 2, S)
+    def twice(a):
+        return torch.cat([a] * 2, dim=-2).contiguous()
+
+    two = list(args)
+    for i in (3, 6, 8, 9, 10):        # lf, pred, resid, ll_weight, eps
+        two[i] = twice(args[i])
+    two[13] = torch.stack([args[13]] * 2, dim=1)                 # (C, 2)
+    one = select_refine(*args, num_refinements=R, m=7)
+    out = select_refine(*two, num_refinements=R, m=7)
+    for a, b in zip(one[:3] + one[4:6], out[:3] + out[4:6]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert out[3].shape == (C, 2, t["lf"].shape[-1])
+    assert out[6].shape == (C, 2, t["li"].shape[-1])
+    assert torch.isfinite(out[3]).all() and torch.isfinite(out[6]).all()
