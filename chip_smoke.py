@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases device,build,kernels,step,sample,models,
-                                    generic,interpret,timing]
+                                    generic,interpret,aids,linlik,timing]
                           [--ptxas] [--tune N] [--draws N]
                           [--large-tune N] [--large-draws N]
                           [--model-tune N] [--model-draws N]
@@ -26,8 +26,10 @@ line:
    k=2, n=500, p=2, m=30, 10 particles, the generic likelihood's zero row
    weights) and the coal model (k=1, n=56, p=1, m=20, 10 particles, Poisson
    log-likelihoods), every output bit for bit, where at least one resampling
-   call of each model must resample.  The resampling steps of the main
-   path's tree update bit for bit.
+   call of each model must resample; likewise one tree update of the linear
+   logistic forest of phase ``linlik`` (m=50, 20 particles, n=1000, p=10,
+   zero row weights, the linear statistics) from three seeds.  The
+   resampling steps of the main path's tree update bit for bit.
    The selection kernel ``select_refine``
    against its plain version with every output equal bit for bit: the
    selection of one tree update for the constant, linear and mix responses
@@ -142,7 +144,42 @@ line:
    20 draws and a VI run on 200 rows with 10 draws), the five active covariates ranked first, the full
    submodel's mean R^2 at least 0.9 and within the band of the full model's
    R^2 against itself; no matplotlib imported.
-9. ``timing``  CUDA-event times of each kernel and its plain version at the
+9. ``aids``    checkpoint / resume and the debug aids of ``sample()`` on the
+   Friedman main path at full width (4 chains, 20 particles, m=50, depth 6,
+   n=1000, p=10, fused route; 60 tuning and 60 draw steps in chunks of 15):
+   two runs with ``checkpoint_dir`` from one seed agree bit for bit, and
+   with a run that saves nothing; a run stopped once its checkpoint after
+   half the draws is written (step 90) and resumed equals the uninterrupted
+   run bit for bit (posterior, sample stats, stored forests); the seconds
+   and bytes of a checkpoint and the draw rate with and without
+   checkpointing.  The same resume check on the n=50,000 regression on the
+   large-n route (10/10 steps, chunks of 5).  ``posterior_dtype`` float16
+   and bfloat16 within 1e-2 of the float32 run relative to its largest
+   value, the sample stats unchanged, the bytes drained by each;
+   ``debug_nans`` gives the same bits as the run without it (its draw rate
+   beside those of two runs without an aid, before and after the aids'
+   runs), and a model whose target holds a NaN raises
+   ``FloatingPointError`` (the phase fails if it does not); ``profile_dir``
+   writes a Chrome trace that names ``draw.cu``'s kernel once a step.  The
+   launch counts of each run are checked (fused: one a step; large-n: one a
+   step; resumed: the remaining steps only) and printed in its own line.
+10. ``linlik`` the linear and mix responses under the non-Gaussian
+   likelihoods through ``sample()`` with ``pgbart_route=None``: the logistic
+   classifier of phase ``sample`` with ``response="linear"`` (75/75 steps)
+   and a ``mix`` run (25/25): the per-round route with its warning,
+   ``grow.cu`` 30 and ``smc.cu`` 25 launches a step, ``select.cu`` none and
+   nothing else, accuracy above the majority rate, mean log-likelihood above
+   the constant-rate model's, the stored slopes and forests predict the last
+   draw, and the linear classifier's device busy share of a draw step
+   (``torch.profiler``); the coal model with ``response="linear"`` (the
+   generic Poisson likelihood, 200/200): ``grow.cu`` D and ``smc.cu`` D-1
+   launches a tree,
+   the rate before 1890 over the rate after 1900 above 2; a model of
+   tests/test_categorical.py's kind at n=1000 (a Subset column of 48
+   categories, a OneHot column, a continuous column a tenth NaN; m=50,
+   100/100): ``draw.cu`` once a step, the category groups' gap above 3, the
+   Subset column first in the variable inclusion.
+11. ``timing``  CUDA-event times of each kernel and its plain version at the
    main-path shapes (the growth round and the selection for the constant and
    the linear response): ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
@@ -180,7 +217,7 @@ import numpy as np
 import torch
 
 ALL_PHASES = ("device", "build", "kernels", "step", "sample", "models",
-              "generic", "interpret", "timing")
+              "generic", "interpret", "aids", "linlik", "timing")
 EXTRA_PHASES = ("profile",)    # only when asked for with --phases
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
@@ -1285,6 +1322,37 @@ def phase_kernels(dev, calls, cfg):
         errs["grow_round"] = max([errs["grow_round"], *g_errs.values()])
         errs["smc_resample"] = max(errs["smc_resample"], s_err)
 
+    # grow.cu and smc.cu on the linear logistic forest of phase linlik (zero
+    # row weights, the linear statistics, Bernoulli log-likelihoods), bit
+    # for bit
+    g_errs, g_grown, g_slopes, s_err, s_calls, s_resampled = ({}, 0, 0, 0.0,
+                                                              0, 0)
+    for seed in GROW_SEEDS:
+        traj = linear_logistic_inputs(dev, seed)
+        for a, kw in traj["grow"]:
+            got = grow_round(*a, impl="kernel", **kw)
+            torch.cuda.synchronize()
+            want = grow_round(*a, impl="plain", **kw)
+            torch.cuda.synchronize()
+            compare_grow(f"linear logistic seed {seed} d={kw['d']}", got,
+                         want, g_errs)
+            g_grown += int(((got[0] >= 0) & (a[2] < 0)).sum())
+            g_slopes += int(((got[5] != 0) & (a[7] == 0)).sum())
+        e, r = compare_smc(f"linear logistic seed {seed}", traj["smc"])
+        s_err, s_calls = max(s_err, e), s_calls + len(traj["smc"])
+        s_resampled += r
+    if any(g_errs.values()) or g_grown == 0 or g_slopes == 0:
+        raise AssertionError(f"grow_round linear logistic: errors {g_errs}, "
+                             f"{g_grown} nodes grown, {g_slopes} slopes")
+    grow_cases["linear_logistic"] = dict(
+        max_abs_err=g_errs, grown_nodes=g_grown, slopes_drawn=g_slopes,
+        seeds=list(GROW_SEEDS), levels=list(range(DEPTH)),
+        shapes=dict(C=C, P=P, n=N, p=PCOLS, k=1, m=M))
+    generic_smc["linear_logistic"] = dict(
+        max_abs_err=s_err, calls=s_calls, calls_that_resampled=s_resampled,
+        seeds=list(GROW_SEEDS))
+    errs["smc_resample"] = max(errs["smc_resample"], s_err)
+
     main_smc_err, resampled = compare_smc("main path", calls["smc"])
     errs["smc_resample"] = max(errs["smc_resample"], main_smc_err)
     select_cases = compare_select(dev, trajs)
@@ -1526,8 +1594,6 @@ def sample_run(model, route, tune, draws, shape=None, choose=False,
     predict that draw."""
     import warnings
 
-    from pymc_bart_tpu_torch.ops.predict import forest_predict
-    from pymc_bart_tpu_torch.ops.trees import Forest
     import pymc_bart_tpu_torch as pmb
     from pymc_bart_tpu_torch.ops import select as select_mod
 
@@ -1630,21 +1696,7 @@ def sample_run(model, route, tune, draws, shape=None, choose=False,
             raise AssertionError("variable_inclusion != recount over the "
                                  "forests")
         if not constant:
-            tr = rv.all_trees
-            if not (tr.slope != 0).any():
-                raise AssertionError("the stored forests hold no slope")
-            last = Forest(*(torch.as_tensor(np.ascontiguousarray(a[:, -1]))
-                            .cuda() for a in (
-                tr.split_var, tr.split_val, tr.split_set.view(np.int32),
-                tr.leaf, tr.count, tr.slope)))
-            fp = forest_predict(
-                last, torch.as_tensor(rv.X, dtype=torch.float32).cuda(),
-                torch.as_tensor(rv.rules_array()).cuda(), sh["DEPTH"])
-            fp = fp[..., 0].cpu().numpy()
-            if not np.allclose(fp, post[:, -1], rtol=1e-4, atol=1e-3):
-                raise AssertionError(
-                    "the stored forests with their slopes do not predict the "
-                    f"last draw: max abs diff {np.abs(fp - post[:, -1]).max()}")
+            slopes_predict_last_draw(f"{route} route", rv, post)
     elif not (vi.sum(axis=-1) > 0).all():
         raise AssertionError("a draw's forest has no split at all")
     for c in range(1, sh["C"]):
@@ -2893,6 +2945,456 @@ def phase_profile(dev, steps=20):
              device_idle_share=1.0 - out["device_busy_share"], **out)
 
 
+# ---------------------------------------------------------------------------
+# phase aids: checkpoint / resume, posterior_dtype, debug_nans, profile_dir
+# ---------------------------------------------------------------------------
+
+# the Friedman main path at full width: 60 tuning and 60 draw steps in
+# chunks of 15, interrupted after half the draws (step 90); the n=50,000
+# regression on the large-n route at 10/10 in chunks of 5 (step 15)
+AIDS = dict(TUNE=60, DRAWS=60, CHUNK=15)
+AIDS_LARGE = dict(TUNE=10, DRAWS=10, CHUNK=5)
+
+
+def smoke_dir(tag):
+    """A scratch directory inside the checkout (git-ignored ``_smoke_*``)."""
+    import os
+    import tempfile
+
+    return tempfile.mkdtemp(prefix=f"_smoke_{tag}_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+
+
+def stores_of(rv):
+    trees = rv.all_trees
+    return trees if isinstance(trees, list) else [trees]
+
+
+def differing(a, b, groups=("posterior", "sample_stats")):
+    """The first quantity in which two runs ``(idata, stores)`` differ in
+    any bit (NaNs equal where both hold one), or None; ``groups``: the
+    InferenceData groups compared."""
+    def same(x, y):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if x.dtype.kind == "f":
+            return np.array_equal(x.view(f"u{x.itemsize}"),
+                                  y.view(f"u{y.itemsize}"))
+        return np.array_equal(x, y)
+
+    (ia, ta), (ib, tb) = a, b
+    for group in groups:
+        names = set(ia[group].keys()) | set(ib[group].keys())
+        for name in sorted(names):
+            if name not in ia[group] or name not in ib[group] or not same(
+                    ia[group][name].values, ib[group][name].values):
+                return f"{group}.{name}"
+    if len(ta) != len(tb):
+        return "all_trees (number of stores)"
+    for i, (sa, sb) in enumerate(zip(ta, tb)):
+        for f in ("split_var", "split_val", "split_set", "leaf", "count",
+                  "slope"):
+            if not same(getattr(sa, f), getattr(sb, f)):
+                return f"all_trees[{i}].{f}"
+    return None
+
+
+def require_same(tag, a, b):
+    """Fail unless two runs of ``aids_run`` agree in every bit."""
+    what = differing((a["idata"], a["stores"]), (b["idata"], b["stores"]))
+    if what is not None:
+        raise AssertionError(f"{tag}: the runs differ in {what}")
+
+
+class Interrupt(Exception):
+    pass
+
+
+def aids_run(build, interrupt_at=None, **kw):
+    """``sample(**kw)`` on the card with every launch count set to 0 just
+    before and read just after (``counted_sample``); ``interrupt_at``: stop
+    the run once its checkpoint of that step is written, as a run killed
+    there would.  Returns a dict with ``idata``, ``stores``, ``launches``,
+    ``timings`` and ``seconds`` (None for an interrupted run)."""
+    from pymc_bart_tpu_torch.utils import checkpoint as ck
+
+    real = ck.save_checkpoint
+
+    def save(directory, state, meta=None, step=0):
+        path = real(directory, state, meta, step)
+        if step == interrupt_at:
+            raise Interrupt(step)
+        return path
+
+    if interrupt_at is not None:
+        ck.save_checkpoint = save
+    try:
+        _m, rv, idata, launches, _routes, seconds, timings = counted_sample(
+            build, **kw)
+    except Interrupt:
+        return None
+    finally:
+        ck.save_checkpoint = real
+    if interrupt_at is not None:
+        raise AssertionError(f"the run was not interrupted at step "
+                             f"{interrupt_at}")
+    return dict(idata=idata, stores=stores_of(rv) if kw.get(
+        "store_trees", True) else [], launches=launches, timings=timings,
+        seconds=seconds)
+
+
+def rate(run, draws):
+    return C * draws / run["timings"]["draw_seconds_total"]
+
+
+def phase_aids(dev):
+    """Checkpoint / resume and the debug aids of ``sample()`` on the card."""
+    import glob
+    import os
+    import shutil
+
+    X, Y, _ = friedman(N, PCOLS)
+
+    def friedman_model(pmb):
+        mu = pmb.BART("mu", X, Y, m=M, max_depth=DEPTH)
+        sigma = pmb.HalfNormal("sigma", 1.0)
+        pmb.Normal("y", mu, sigma, observed=Y)
+        return mu
+
+    T, D_, CH = AIDS["TUNE"], AIDS["DRAWS"], AIDS["CHUNK"]
+    kw = dict(tune=T, draws=D_, chains=C, random_seed=0, num_particles=P,
+              num_refinements=R, chunk_size=CH, pgbart_route="fused")
+    fused = {"pgbart_step_fused": T + D_}
+    out, launches = {}, {}
+    root = smoke_dir("aids")
+    try:
+        plain = aids_run(friedman_model, **kw)
+        expect_launches("aids plain", plain["launches"], fused)
+        ck1 = aids_run(friedman_model, checkpoint_dir=f"{root}/a", **kw)
+        ck2 = aids_run(friedman_model, checkpoint_dir=f"{root}/b", **kw)
+        require_same("two checkpointed runs from one seed", ck1, ck2)
+        require_same("a checkpointed run and one without", ck1, plain)
+        half = T + D_ // 2
+        aids_run(friedman_model, interrupt_at=half,
+                 checkpoint_dir=f"{root}/c", **kw)
+        resumed = aids_run(friedman_model, checkpoint_dir=f"{root}/c",
+                           resume=True, **kw)
+        expect_launches("aids resumed", resumed["launches"],
+                        {"pgbart_step_fused": D_ // 2})
+        require_same(f"interrupted at step {half} and resumed", resumed, ck1)
+        tm = ck1["timings"]
+        out["friedman"] = dict(
+            shapes=dict(C=C, P=P, n=N, p=PCOLS, m=M, depth=DEPTH, R=R),
+            tune=T, draws=D_, chunk=CH, interrupted_at_step=half,
+            resume_bit_for_bit=True, two_runs_bit_for_bit=True,
+            checkpoints=len(tm["checkpoint_seconds"]),
+            checkpoint_seconds=tm["checkpoint_seconds"],
+            checkpoint_bytes=tm["checkpoint_bytes"][-1],
+            chain_draws_per_s=rate(plain, D_),
+            chain_draws_per_s_checkpointing=rate(ck1, D_),
+            launches_resumed=resumed["launches"])
+        launches["friedman"] = plain["launches"]
+
+        # the n=50,000 regression on the large-n route
+        Xb, Yb, _ = friedman(LN["N"], LN["PCOLS"], seed=5)
+
+        def large_regression(pmb):
+            mu = pmb.BART("mu", Xb, Yb, m=LN["M"])
+            sigma = pmb.HalfNormal("sigma", 1.0)
+            pmb.Normal("y", mu, sigma, observed=Yb)
+            return mu
+
+        TL, DL, CL = AIDS_LARGE["TUNE"], AIDS_LARGE["DRAWS"], \
+            AIDS_LARGE["CHUNK"]
+        lkw = dict(tune=TL, draws=DL, chains=LN["C"], random_seed=0,
+                   num_particles=LN["P"], num_refinements=0, chunk_size=CL)
+        big_full = aids_run(large_regression, checkpoint_dir=f"{root}/d",
+                            **lkw)
+        expect_launches("aids large-n", big_full["launches"],
+                        {"pgbart_step_bign": TL + DL})
+        aids_run(large_regression, interrupt_at=TL + DL // 2,
+                 checkpoint_dir=f"{root}/e", **lkw)
+        big_resumed = aids_run(large_regression, checkpoint_dir=f"{root}/e",
+                               resume=True, **lkw)
+        expect_launches("aids large-n resumed", big_resumed["launches"],
+                        {"pgbart_step_bign": DL // 2})
+        require_same("large-n interrupted and resumed", big_resumed,
+                     big_full)
+        tl = big_full["timings"]
+        out["large_n"] = dict(
+            shapes=dict(LN), tune=TL, draws=DL, chunk=CL,
+            interrupted_at_step=TL + DL // 2, resume_bit_for_bit=True,
+            checkpoint_seconds=tl["checkpoint_seconds"],
+            checkpoint_bytes=tl["checkpoint_bytes"][-1])
+        launches["large_n"] = big_full["launches"]
+        shutil.rmtree(root)
+        root = smoke_dir("aids")
+
+        # half-precision storage of the collected values
+        lean = dict(kw, store_trees=False)
+        f32 = aids_run(friedman_model, **lean)
+        dtypes = {"float32": dict(drained_bytes=f32["timings"][
+            "drained_bytes"])}
+        ref = f32["idata"].posterior["mu"].values
+        scale = max(float(np.abs(ref).max()), 1.0)
+        for name in ("float16", "bfloat16"):
+            half_run = aids_run(friedman_model, posterior_dtype=name, **lean)
+            got = half_run["idata"].posterior["mu"].values
+            err = float(np.abs(got - ref).max()) / scale
+            if got.dtype != np.float32 or not 0 < err < 1e-2:
+                raise AssertionError(f"posterior_dtype={name}: {got.dtype}, "
+                                     f"relative error {err}")
+            what = differing((half_run["idata"], []), (f32["idata"], []),
+                             groups=("sample_stats",))
+            if what is not None:
+                raise AssertionError(f"posterior_dtype={name} changed "
+                                     f"{what}, not only the stored values")
+            dtypes[name] = dict(
+                drained_bytes=half_run["timings"]["drained_bytes"],
+                max_rel_err_vs_float32=err)
+        out["posterior_dtype"] = dtypes
+
+        # debug_nans: the same bits, and the rate it costs; a second run
+        # without any aid after it gives the spread of the rate
+        checked = aids_run(friedman_model, debug_nans=True, **kw)
+        require_same("debug_nans against the run without it", checked, plain)
+        plain2 = aids_run(friedman_model, **kw)
+        require_same("two runs without an aid", plain2, plain)
+        out["friedman"]["chain_draws_per_s_again"] = rate(plain2, D_)
+        Yn = Y.copy()
+        Yn[7] = np.nan
+
+        def nan_model(pmb):
+            mu = pmb.BART("mu", X, Yn, m=M, max_depth=DEPTH)
+            sigma = pmb.HalfNormal("sigma", 1.0)
+            pmb.Normal("y", mu, sigma, observed=Yn)
+            return mu
+
+        import warnings
+
+        message = None
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # the per-round route's
+                aids_run(nan_model, tune=2, draws=2, chains=C,
+                         random_seed=0, num_particles=P, debug_nans=True)
+        except FloatingPointError as e:
+            message = str(e)
+        if message is None or "is not finite" not in message:
+            raise AssertionError("debug_nans: the NaN-target model did not "
+                                 "raise FloatingPointError")
+        out["debug_nans"] = dict(
+            bit_for_bit=True, chain_draws_per_s=rate(checked, D_),
+            chain_draws_per_s_without=[rate(plain, D_), rate(plain2, D_)],
+            nan_target_raised=message)
+
+        # profile_dir: a Chrome trace that names draw.cu's kernel
+        prof_dir = f"{root}/prof"
+        aids_run(friedman_model, profile_dir=prof_dir, **dict(
+            kw, tune=3, draws=5))
+        traces = glob.glob(os.path.join(prof_dir, "*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profile_dir holds {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernel_events = [e for e in events
+                         if "pgbart_step_kernel" in e.get("name", "")]
+        if len(kernel_events) < 5:
+            raise AssertionError(f"the trace names draw.cu's kernel "
+                                 f"{len(kernel_events)} times in 5 steps")
+        out["profile_dir"] = dict(
+            trace=os.path.basename(traces[0]),
+            trace_bytes=os.path.getsize(traces[0]), events=len(events),
+            draw_kernel_events=len(kernel_events),
+            draw_kernel_name=kernel_events[0]["name"][:120])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("aids", runs=out, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase linlik: linear / mix forests under the non-Gaussian likelihoods
+# ---------------------------------------------------------------------------
+
+COAL_LINEAR = dict(TUNE=200, DRAWS=200)
+CAT_NAN = dict(N=1000, TUNE=100, DRAWS=100)
+
+
+def cat_nan_data(n=CAT_NAN["N"], seed=7):
+    """A Subset column of 48 categories (a non-ordinal grouping), a OneHot
+    column and a continuous column a tenth NaN (tests/test_categorical.py's
+    kind, at n=1000)."""
+    rng = np.random.default_rng(seed)
+    cats = rng.integers(0, 48, size=n)
+    group = (cats % 3 == 0).astype(float)
+    onehot = rng.integers(0, 3, size=n).astype(float)
+    x = rng.uniform(size=n)
+    Y = (5.0 * group + 1.5 * (onehot == 2) + 2.0 * x
+         + rng.normal(0, 0.3, n)).astype(np.float32)
+    x[rng.permutation(n)[: n // 10]] = np.nan
+    return np.stack([cats.astype(float), onehot, x], axis=1), Y, group
+
+
+def slopes_predict_last_draw(tag, rv, post):
+    """Fail unless the stored forests of a linear or mix forest hold slopes
+    and, with them, predict the last draw on the card."""
+    from pymc_bart_tpu_torch.ops.predict import forest_predict
+    from pymc_bart_tpu_torch.ops.trees import Forest
+
+    tr = rv.all_trees
+    if not (tr.slope != 0).any():
+        raise AssertionError(f"{tag}: the stored forests hold no slope")
+    last = Forest(*(torch.as_tensor(np.ascontiguousarray(a[:, -1])).cuda()
+                    for a in (tr.split_var, tr.split_val,
+                              tr.split_set.view(np.int32), tr.leaf,
+                              tr.count, tr.slope)))
+    fp = forest_predict(last, torch.as_tensor(rv.X, dtype=torch.float32)
+                        .cuda(), torch.as_tensor(rv.rules_array()).cuda(),
+                        rv.config.max_depth)[..., 0].cpu().numpy()
+    if not np.allclose(fp, post[:, -1], rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"{tag}: the stored forests with their slopes "
+                             "do not predict the last draw: max abs diff "
+                             f"{np.abs(fp - post[:, -1]).max()}")
+
+
+def phase_linlik(dev, tune, draws):
+    """The linear and mix responses under the Bernoulli code and the
+    generic likelihood, and the categorical rules with NaN X, through
+    ``sample()`` with ``pgbart_route=None``."""
+    import warnings
+
+    runs = {}
+    Xl, Yl = logistic(N, PCOLS)
+
+    def classifier(response):
+        def build(pmb):
+            lo = pmb.BART("lo", Xl, Yl, m=M, max_depth=DEPTH,
+                          response=response)
+            pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Yl)
+            return lo
+        return build
+
+    half = max(2, draws // 2)
+    idata, post, out = sample_run(classifier("linear"), "rounds", half,
+                                  half, choose=True, gaussian=False)
+    runs["logistic_linear"] = dict(out, model="logistic, response=linear",
+                                   **classifier_quality(post, Yl))
+    mix_steps = max(2, draws // 6)
+    idata, post, out = sample_run(classifier("mix"), "rounds", mix_steps,
+                                  mix_steps, choose=True, gaussian=False)
+    runs["logistic_mix"] = dict(out, model="logistic, response=mix",
+                                **classifier_quality(post, Yl))
+    del idata, post
+    runs["logistic_linear"]["profile"] = busy_share(
+        classifier("linear"), 10, chains=C, num_particles=P,
+        num_refinements=R)
+
+    centers, counts, exposure = coal_data()
+
+    def coal_linear(pmb):
+        mu = pmb.BART("mu", centers[:, None], np.log1p(counts), m=COAL["M"],
+                      response="linear")
+        pmb.Poisson("y", mu=pmb.math.exp(mu) * exposure / exposure.mean(),
+                    observed=counts)
+        return mu
+
+    TC, DC = COAL_LINEAR["TUNE"], COAL_LINEAR["DRAWS"]
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        _m, rv, idata, launches, routes, seconds, timings = counted_sample(
+            coal_linear, tune=TC, draws=DC, chains=C, random_seed=0)
+    warned = any("per-round sampler route" in str(w.message) for w in said)
+    if routes != [("generic", "rounds")] or not warned:
+        raise AssertionError(f"coal linear: entries {routes}, per-round "
+                             f"warning given: {warned}")
+    expect_launches("coal linear", launches,
+                    per_round_launches(COAL["M"], DEPTH, TC, DC))
+    post = np.asarray(idata.posterior["mu"].values)
+    if post.shape != (C, DC, len(counts)) or not np.isfinite(post).all():
+        raise AssertionError(f"coal linear posterior {post.shape}")
+    slopes_predict_last_draw("coal linear", rv, post)
+    rate_ = np.exp(post).mean(axis=(0, 1))
+    early, late = (float(rate_[centers < 1890].mean()),
+                   float(rate_[centers > 1900].mean()))
+    if not early / late > 2.0:
+        raise AssertionError(f"coal linear: rate before 1890 {early}, after "
+                             f"1900 {late}: no drop")
+    runs["coal_linear"] = dict(
+        model="examples/coal_disasters.py with response='linear'",
+        n=len(counts), m=COAL["M"], chains=C, tune=TC, draws=DC,
+        routes=routes, launches=launches, seconds=seconds,
+        chain_draws_per_s=C * DC / timings["draw_seconds_total"],
+        rate_before_1890=early, rate_after_1900=late, rate_ratio=early / late)
+    del idata
+
+    Xc, Yc, group = cat_nan_data()
+    TK, DK = CAT_NAN["TUNE"], CAT_NAN["DRAWS"]
+
+    def cat_nan_model(pmb):
+        mu = pmb.BART("mu", Xc, Yc, m=M, max_depth=DEPTH, split_rules=[
+            "SubsetSplit", "OneHotSplit", "ContinuousSplit"])
+        sigma = pmb.HalfNormal("sigma", 1.0)
+        pmb.Normal("y", mu, sigma, observed=Yc)
+        return mu
+
+    _m, rv, idata, launches, routes, seconds, timings = counted_sample(
+        cat_nan_model, tune=TK, draws=DK, chains=C, random_seed=0,
+        num_particles=P, num_refinements=R)
+    if routes != [("gauss", "fused")]:
+        raise AssertionError(f"categorical / NaN model: entries {routes}")
+    expect_launches("categorical / NaN model", launches,
+                    {"pgbart_step_fused": TK + DK})
+    post = np.asarray(idata.posterior["mu"].values)
+    if not np.isfinite(post).all():
+        raise AssertionError("categorical / NaN model: non-finite draws")
+    fhat = post.mean(axis=(0, 1))
+    gap = float(fhat[group == 1].mean() - fhat[group == 0].mean())
+    vi = np.asarray(idata["sample_stats"]["variable_inclusion"].values
+                    ).sum(axis=(0, 1))[0]
+    if not gap > 3.0 or int(np.argmax(vi)) != 0:
+        raise AssertionError(f"categorical / NaN model: group gap {gap}, "
+                             f"inclusion {vi.tolist()}")
+    runs["categorical_nan"] = dict(
+        model="Subset (48 categories), OneHot, continuous a tenth NaN",
+        n=CAT_NAN["N"], m=M, chains=C, tune=TK, draws=DK, launches=launches,
+        seconds=seconds,
+        chain_draws_per_s=C * DK / timings["draw_seconds_total"],
+        group_gap=gap, variable_inclusion=vi.tolist())
+    emit("linlik", runs=runs)
+
+
+def linear_logistic_inputs(dev, seed):
+    """The growth rounds and resampling steps of one tree update of the
+    linear logistic forest of phase ``linlik`` (m=50, 20 particles, n=1000,
+    p=10, zero row weights, the linear statistics), after 12 steps on the
+    plain versions from seed ``seed``."""
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    cfg = BartConfig(m=M, max_depth=DEPTH, response="linear")
+    pg = PgbartConfig(num_particles=P, num_refinements=R)
+    Xl, Yl = logistic(N, PCOLS)
+    X = torch.from_numpy(Xl).to(dev)
+    Y = torch.from_numpy(Yl).to(dev)[:, None]
+    rules = torch.zeros(PCOLS, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = pgbart.init_state(X, Y, cfg, chains=C, device=dev)
+
+    def rands(B):
+        return pgbart.draw_rands(gen, B=B, C=C, P=P, D=DEPTH, n=N, k=1,
+                                 S=cfg.n_nodes, num_refinements=R,
+                                 device=dev, response="linear")
+
+    for _ in range(12):
+        state, _ = pgbart.pgbart_step(state, rands(5), X, Y, rules, cfg, pg,
+                                      True, None, impl="plain",
+                                      lik="bernoulli", route="rounds")
+    return record_tree_update(state, rands(1), X, Y, rules, cfg, pg, None,
+                              lik="bernoulli")
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -2966,6 +3468,10 @@ def main(argv=None):
             fit = (sample_run(friedman_model, "fused", args.tune,
                               args.draws)[0], X, f_true)
         phase_interpret(dev, fit)
+    if "aids" in phases:
+        phase_aids(dev)
+    if "linlik" in phases:
+        phase_linlik(dev, args.tune, args.draws)
     if "timing" in phases:
         times = phase_timing(dev, calls, cfg, smi, runs)
     if "profile" in phases:

@@ -7,17 +7,19 @@ per-leaf residual sums give the prior centres; ``R`` Metropolis sweeps with
 pre-drawn noise refine the leaf values under likelihood x
 ``N(leaf residual mean / m, leaf_sd)`` prior.  The kernel is Gaussian with
 one output; the plain version also takes ``k`` outputs and any likelihood
-(``ll_fn``): the winner and refinement of a joint forest and of the generic
-model likelihood, as the JAX package runs them in XLA.  Two responses:
+(``ll_fn``, under every response): the winner and refinement of a joint
+forest, of the non-Gaussian codes and of the generic model likelihood, as
+the JAX package runs them in XLA.  Two responses:
 
 * ``"constant"``, as the TPU kernel: the winner by inverse CDF on ``u_sel``
   over ``exp(log_w - max)``, the prediction the leaf value;
 * ``"linear"`` / ``"mix"``, as the JAX package runs them in XLA
   (``_update_one_tree``, the winner and refinement block after the growth
-  rounds): the winner by ``jax.random.categorical`` (arg-max of ``log_w``
-  plus the Gumbels ``g_sel``, first index on ties), the prediction with the
-  winner's slope term (``ops/predict.py::leaf_values_at``), its slopes
-  ``sp`` extracted too.
+  rounds): a Gaussian winner by ``jax.random.categorical`` (arg-max of
+  ``log_w`` plus the Gumbels ``g_sel``, first index on ties), another
+  likelihood's by inverse CDF on ``u_sel`` (the ``fused_other`` branch);
+  the prediction with the winner's slope term
+  (``ops/predict.py::leaf_values_at``), its slopes ``sp`` extracted too.
 
 ``select_refine_linear`` is the same step for the linear and mix responses
 with ``k`` outputs, written as the XLA code is (the prediction recomputed
@@ -58,22 +60,22 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     ``resid``/``ll_weight`` (C, k, n), ``eps`` (C, R, k, S)).
 
     ``ll_fn(pred (C, k, n)) -> (C,)`` replaces the Gaussian log-likelihood
-    for the other likelihoods (constant response; the kernel is Gaussian and
-    one-output only): the closed-form codes and the generic model
-    likelihood.  ``half_inv_var`` is (C,) (one output) or (C, k) (a value
-    per output, the prior term of JAX's XLA refinement).  For ``response``
-    ``"linear"`` / ``"mix"`` the slope term ``sp[leaf] * x`` of every row is
-    taken once (the sweeps move intercepts only) and added to each
-    proposal's leaf value, as the kernel does."""
+    for the other likelihoods (the kernel is Gaussian and one-output only):
+    the closed-form codes and the generic model likelihood; their winner is
+    drawn by inverse CDF on ``u_sel`` under every response (JAX's
+    ``fused_other`` rule).  ``half_inv_var`` is (C,) (one output) or (C, k)
+    (a value per output, the prior term of JAX's XLA refinement).  For
+    ``response`` ``"linear"`` / ``"mix"`` the slope term ``sp[leaf] * x`` of
+    every row is taken once (the sweeps move intercepts only) and added to
+    each proposal's leaf value, as the kernel does; a Gaussian winner is
+    then ``argmax(log_w + g_sel)``."""
     C, P, S = sv.shape
     k = lf.shape[2]
     n = leaf_idx.shape[2]
     lin = _is_linear(response)
-    if lin and ll_fn is not None:
-        raise ValueError("the linear and mix responses are Gaussian only")
     R = num_refinements
 
-    if lin:
+    if lin and ll_fn is None:
         widx = (log_w + g_sel).argmax(dim=1)                     # (C,)
     else:
         mx = log_w.max(dim=1, keepdim=True).values

@@ -7,9 +7,8 @@ leading tensor axis ``C`` of one eager program (the JAX package vmaps them);
 per-chain model expressions are batched with ``torch.func.vmap``.
 
 Ported: the fused likelihood patterns ``y ~ Normal(BART, sigma)`` (code
-``gauss``; constant, linear and mix responses) and
-``y ~ Bernoulli(sigmoid(BART))`` (code ``bernoulli``; constant response),
-with one output, and the ``separate_trees`` models with one forest per
+``gauss``) and ``y ~ Bernoulli(sigmoid(BART))`` (code ``bernoulli``), with
+one output, and the ``separate_trees`` models with one forest per
 output: the heteroscedastic ``y ~ Normal(w[0], |w[1]| + c)`` or
 ``Normal(w[0], exp(w[1]))`` (codes ``gauss`` with per-row precision for the
 mean forest, ``het_abs`` / ``het_exp`` for the scale forest) and the
@@ -25,10 +24,11 @@ forest runs on the large-n route of
 kernel's shared memory (``pgbart.resolve_route``), on the whole-step route
 where its gate admits the configuration and on the per-round route
 otherwise (``sample(pgbart_route=...)`` forces one; the linear and mix
-responses take the per-round route); chunked
-tune/draw loops, adaptation harmonisation, timings, stored posterior forests
-and convergence checks.  Arguments and models that wait for later work raise
-``NotImplementedError`` by name.
+responses take the per-round route, under every likelihood); chunked
+tune/draw loops, adaptation harmonisation, timings, stored posterior forests,
+checkpoint / resume (``utils/checkpoint.py``), the debug aids and
+convergence checks.  ``mesh`` waits for later work and raises
+``NotImplementedError``.
 
 Device policy: ``sample(device=None)`` runs on ``cuda`` and raises if no
 CUDA device is present; the CPU is used only for ``device="cpu"``.
@@ -39,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import operator
+import os
 import time
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
@@ -52,6 +53,8 @@ from ..models.distributions import BernoulliDist, CategoricalDist, NormalDist
 from ..models.expr import Expr, Op, evaluate
 from ..models.inference_data import DataArray, Dataset, InferenceData
 from ..models.model import BARTRV, Deterministic, Model
+from ..ops.trees import Forest
+from ..utils import checkpoint as ckpt_mod
 from ..utils.posterior import PosteriorForests
 from . import hmc, nuts, pgbart, rejuvenate
 
@@ -527,17 +530,6 @@ def _unpack_forest_deltas(bs, delta_chunks, snap0_chunks):
             full["sp"])
 
 
-def _tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nested dict / tuple / list."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    if tree is None:
-        return None
-    return fn(tree)
-
-
 class _HostDrain:
     """Device -> host off-load of one chunk's outputs, overlapped with the
     next chunk's compute: copies go to pinned host memory on a side stream
@@ -549,7 +541,8 @@ class _HostDrain:
                        if device.type == "cuda" else None)
 
     def start(self, outs):
-        """Begin copying ``outs`` (nested tensors); returns a handle."""
+        """Begin copying ``outs`` (a dict of named tensors); returns a
+        handle."""
         if self.stream is None:
             return outs, None
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -561,7 +554,7 @@ class _HostDrain:
             return host
 
         with torch.cuda.stream(self.stream):
-            host_outs = _tree_map(copy, outs)
+            host_outs = {k: copy(t) for k, t in outs.items()}
             done = torch.cuda.Event()
             done.record(self.stream)
         return host_outs, done
@@ -571,11 +564,69 @@ class _HostDrain:
         host_outs, done = handle
         if done is not None:
             done.synchronize()
-        return _tree_map(lambda t: t.cpu().numpy().copy(), host_outs)
+        return {k: t.cpu().numpy().copy() for k, t in host_outs.items()}
 
 
-_NOT_PORTED = ("mesh", "checkpoint_dir", "resume", "profile_dir",
-               "debug_nans", "posterior_dtype")
+_POSTERIOR_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def _carry(bart_static, bart_states, h, gen) -> Dict[str, torch.Tensor]:
+    """The whole state a step reads, as named tensors (the unit of
+    ``utils/checkpoint``): every field of each forest entry's
+    ``PgbartState`` (keyed by the entry's tag), every field of the
+    ``HmcState`` and the generator's state, from which every random number
+    of a step is drawn."""
+    out = {}
+    for bs, st in zip(bart_static, bart_states):
+        pre = f"pgbart/{bs['tag']}/"
+        for f in dataclasses.fields(st):
+            v = getattr(st, f.name)
+            if f.name == "forest":
+                for g in dataclasses.fields(v):
+                    out[f"{pre}forest.{g.name}"] = getattr(v, g.name)
+            else:
+                out[pre + f.name] = v
+    for f in dataclasses.fields(h):
+        out["hmc/" + f.name] = getattr(h, f.name)
+    out["generator"] = gen.get_state()
+    return out
+
+
+def _restore_carry(arrays, bart_static, gen):
+    """The inverse of ``_carry``: ``(bart_states, h)``, and ``gen`` set to
+    the saved state."""
+    states = []
+    for bs in bart_static:
+        pre = f"pgbart/{bs['tag']}/"
+        forest = Forest(**{g.name: arrays[f"{pre}forest.{g.name}"]
+                           for g in dataclasses.fields(Forest)})
+        states.append(pgbart.PgbartState(forest=forest, **{
+            f.name: arrays[pre + f.name]
+            for f in dataclasses.fields(pgbart.PgbartState)
+            if f.name != "forest"}))
+    h = hmc.HmcState(**{f.name: arrays["hmc/" + f.name]
+                        for f in dataclasses.fields(hmc.HmcState)})
+    gen.set_state(arrays["generator"])
+    return states, h
+
+
+def _check_finite(draw: int, bart_static, bart_states, h, stats) -> None:
+    """``debug_nans``: raise ``FloatingPointError`` naming the draw and the
+    first quantity holding a value that is not finite: a forest's sum of
+    trees or leaf values, ``theta`` or the NUTS energy (split values may be
+    NaN by design).  One host synchronisation for all of them."""
+    named = {}
+    for bs, st in zip(bart_static, bart_states):
+        named[f"sum_trees of {bs['tag']!r}"] = st.sum_trees
+        named[f"leaf values of {bs['tag']!r}"] = st.forest.leaf
+    named["theta"] = h.theta
+    named["NUTS energy"] = stats["energy"]
+    ok = torch.stack([torch.isfinite(t).all() for t in named.values()]).cpu()
+    bad = (~ok).nonzero()
+    if len(bad):
+        raise FloatingPointError(f"debug_nans: draw {draw}: "
+                                 f"{list(named)[int(bad[0, 0])]} is not "
+                                 "finite")
 
 
 def sample(
@@ -643,19 +694,33 @@ def sample(
     and particles) and takes the per-round route; a joint forest's
     ``all_trees`` is one ``PosteriorForests`` with ``n_outputs == k``.
 
-    Not ported yet (``NotImplementedError``): ``mesh``, ``checkpoint_dir``,
-    ``resume``, ``profile_dir``, ``debug_nans``, ``posterior_dtype``;
-    ``response="linear"`` / ``"mix"`` with another likelihood than
-    ``Normal(BART, sigma)``.
+    ``checkpoint_dir``: save the carry (``_carry``) after every tuning and
+    draw chunk, and each draw chunk's outputs, there
+    (``utils/checkpoint.py``); the draws then drain serially, in lock-step
+    with the carry.  ``resume=True`` continues from the latest checkpoint
+    there (``check_format`` first) and reloads the draws saved up to it, so
+    the result is the full posterior, bit for bit that of an uninterrupted
+    run; ``draws`` may grow on resume.  ``posterior_dtype``: ``"float16"`` /
+    ``"bfloat16"`` storage of the collected values, cast on the device
+    before the drain and returned as float32 (stats and forests are not
+    cast).  ``debug_nans``: after every draw step, raise
+    ``FloatingPointError`` naming the draw and the quantity when a forest's
+    sum of trees or leaf values, ``theta`` or the NUTS energy is not finite
+    (split values may be NaN by design and are not checked); off, it adds no
+    host synchronisation.  ``profile_dir``: trace the draw loop with
+    ``torch.profiler`` (CPU activity, and CUDA activity on the card) and
+    write a Chrome trace ``draws.pt.trace.json`` there.
+
+    Not ported yet (``NotImplementedError``): ``mesh``.
     """
-    passed = dict(mesh=mesh, checkpoint_dir=checkpoint_dir, resume=resume,
-                  profile_dir=profile_dir, debug_nans=debug_nans,
-                  posterior_dtype=posterior_dtype)
-    for name in _NOT_PORTED:
-        if passed[name] not in (None, False):
-            raise NotImplementedError(
-                f"sample({name}=...) is not ported to the PyTorch package "
-                "yet")
+    if mesh is not None:
+        raise NotImplementedError(
+            "sample(mesh=...) is not ported to the PyTorch package yet")
+    if posterior_dtype is not None and posterior_dtype not in \
+            _POSTERIOR_DTYPES:
+        raise ValueError(f"posterior_dtype must be None or one of "
+                         f"{sorted(_POSTERIOR_DTYPES)}, got "
+                         f"{posterior_dtype!r}")
     if algorithm not in ("nuts", "hmc"):
         raise ValueError(f"algorithm must be 'nuts' or 'hmc', got {algorithm!r}")
     device = resolve_device(device)
@@ -722,10 +787,6 @@ def sample(
                 # no closed form: the model's own log-likelihood
                 fused = {"kind": pgbart.GENERIC,
                          "loglik": make_loglik(compiled, brv.name, out)}
-            if cfg.response != "constant" and fused["kind"] != "gauss":
-                raise NotImplementedError(
-                    f"BART variable {tag!r}: response={cfg.response!r} is "
-                    "ported for y ~ Normal(BART, sigma) only")
             Yt_j = Yt if out is None else Yt[:, out:out + 1]
             if fused["kind"] in ("het_abs", "het_exp"):
                 # the scale forest's INITIAL target: per-row scale evidence
@@ -921,18 +982,56 @@ def sample(
         chunk_size = max(1, min(200, draws))
 
     def _even_chunks(total: int, max_chunk: int):
+        total = max(total, 0)
         n = max(1, math.ceil(total / max(max_chunk, 1)))
         base, extra = divmod(total, n)
         return [c for c in [base + 1] * extra + [base] * (n - extra) if c]
 
+    # -- resume ------------------------------------------------------------
+    start_tune, start_draw = 0, 0
+    acc: List[Dict[str, np.ndarray]] = []
+    if checkpoint_dir is not None and resume:
+        found = ckpt_mod.latest_checkpoint(checkpoint_dir)
+        if found is not None:
+            ckpt_mod.check_format(checkpoint_dir)
+            path, step = found
+            restored, h = _restore_carry(
+                ckpt_mod.load_checkpoint(path, _carry(
+                    bart_static, bart_states, h, gen)), bart_static, gen)
+            bart_states[:] = restored
+            if step < tune:
+                start_tune = step
+            else:
+                start_tune = tune
+                start_draw = step - tune
+                # the draws collected before the interruption: the resumed
+                # run returns the FULL posterior
+                acc = ckpt_mod.load_draw_chunks(checkpoint_dir,
+                                                upto_step=step)
+    if timings is not None and checkpoint_dir is not None:
+        timings["checkpoint_seconds"] = []
+        timings["checkpoint_bytes"] = []
+
+    def maybe_checkpoint(step: int):
+        if checkpoint_dir is None:
+            return
+        t0 = time.perf_counter()
+        path = ckpt_mod.save_checkpoint(
+            checkpoint_dir, _carry(bart_static, bart_states, h, gen),
+            meta={"tune": tune, "draws": draws}, step=step)
+        if timings is not None:
+            timings["checkpoint_seconds"].append(time.perf_counter() - t0)
+            timings["checkpoint_bytes"].append(os.path.getsize(path))
+
     # -- tuning --------------------------------------------------------------
     tune_t0 = time.perf_counter()
-    t = 0
+    t = start_tune
     with torch.no_grad():
-        for c in _even_chunks(tune, chunk_size):
+        for c in _even_chunks(tune - start_tune, chunk_size):
             for _ in range(c):
                 one_step(True)
             t += c
+            maybe_checkpoint(t)
             if progressbar:
                 print(f"tune {t}/{tune}", flush=True)
     if timings is not None:
@@ -940,11 +1039,13 @@ def sample(
         timings["tune_seconds"] = time.perf_counter() - tune_t0
         timings["draw_chunk_seconds"] = []
         timings["draw_chunk_sizes"] = []
+        timings["drained_bytes"] = 0
     h = hmc.finalize_adaptation(h)
-    if harmonize_adaptation and C > 1:
+    if harmonize_adaptation and C > 1 and start_draw == 0:
         # leaf_sd and alpha_vec enter the sampler's implied prior, not just
         # the proposal: chains frozen with different values would sample
-        # slightly different posteriors.  Average them at the boundary.
+        # slightly different posteriors.  Average them at the boundary (a
+        # run resumed among its draws restores them averaged).
         def _avg_rep(a):
             return a.mean(dim=0, keepdim=True).expand_as(a).contiguous()
 
@@ -953,99 +1054,156 @@ def sample(
                                 alpha_vec=_avg_rep(st.alpha_vec))
             for st in bart_states]
 
-    # -- draws (chunked; each chunk's outputs drain to the host while the
-    # next chunk computes; exact chunk sizes, nothing is compiled) ----------
+    # -- draws (chunked; each chunk's outputs are one flat dict of named
+    # tensors that drains to the host while the next chunk computes, or
+    # serially in lock-step with the carry when checkpointing) -------------
+    store_dtype = _POSTERIOR_DTYPES.get(posterior_dtype)
     drainer = _HostDrain(device)
-    acc: List = []
     pending = None
+    prof = None
+    if profile_dir is not None:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
     draw_t0 = time.perf_counter()
-    t = 0
-    with torch.no_grad():
-        for c in _even_chunks(draws, chunk_size):
-            chunk_t0 = time.perf_counter()
-            snap0 = (tuple(_tree_map(torch.clone,
-                                     _pack_forest_slice(bs, st.forest))
-                           for bs, st in zip(bart_static, bart_states))
-                     if store_trees else None)
-            values: Dict[str, torch.Tensor] = {}
-            vi_buf = torch.empty((C, c, n_bart, p_max),
-                                 dtype=f32, device=device)
-            stats_buf: Dict[str, torch.Tensor] = {}
-            deltas: Optional[List[Dict[str, torch.Tensor]]] = (
-                [dict() for _ in bart_static] if store_trees else None)
-            for j in range(c):
-                vis, stats = one_step(False)
-                vals = per_chain(_collect)(h.theta, *bart_values())
-                for nm, v in vals.items():
-                    if nm not in values:
-                        values[nm] = torch.empty(
-                            (C, c) + v.shape[1:], dtype=v.dtype, device=device)
-                    values[nm][:, j] = v
-                # one inclusion row per BART RV: a separate-trees group
-                # reports the sum of its forests' split counts
-                vi_buf[:, j].zero_()
-                for bs, v in zip(bart_static, vis):
-                    vi_buf[:, j, bs["rv_index"], : v.shape[1]] += v
-                for nm, v in stats.items():
-                    if nm not in stats_buf:
-                        stats_buf[nm] = torch.empty((C, c), dtype=v.dtype,
-                                                    device=device)
-                    stats_buf[nm][:, j] = v
+    t = start_draw
+    try:
+        with torch.no_grad():
+            for c in _even_chunks(draws - start_draw, chunk_size):
+                chunk_t0 = time.perf_counter()
+                outs: Dict[str, torch.Tensor] = {}
                 if store_trees:
-                    # only the draw's updated trees ship per draw: the tree
-                    # batch, or every tree where rejuvenation moved them all
-                    for bi, (bs, st) in enumerate(zip(bart_static,
-                                                      bart_states)):
-                        cfg_i, pg_i = bs["cfg"], bs["pg"]
-                        B_i = (cfg_i.m if pg_i.ancestor_sampling else
-                               pg_i.batch_size(cfg_i.m, False))
-                        jt = (st.batch_offset.to(torch.int64)[:, None] - B_i
-                              + torch.arange(B_i, device=device)) % bs["cfg"].m
-                        packed = _pack_forest_slice(bs, st.forest, jt)
-                        for key, v in packed.items():
-                            if key not in deltas[bi]:
-                                deltas[bi][key] = torch.empty(
-                                    (C, c) + v.shape[1:], dtype=v.dtype,
-                                    device=device)
-                            deltas[bi][key][:, j] = v
-            outs = ((values, vi_buf, stats_buf,
-                     tuple(deltas) if store_trees else None), snap0)
-            handle = drainer.start(outs)
+                    for i, (bs, st) in enumerate(zip(bart_static,
+                                                     bart_states)):
+                        snap0 = _pack_forest_slice(bs, st.forest)
+                        for key, v in snap0.items():
+                            outs[f"snap0/{i}/{key}"] = v.clone()
+                vi_buf = torch.empty((C, c, n_bart, p_max),
+                                     dtype=f32, device=device)
+                for j in range(c):
+                    vis, stats = one_step(False)
+                    if debug_nans:
+                        _check_finite(t + j, bart_static, bart_states, h,
+                                      stats)
+                    vals = per_chain(_collect)(h.theta, *bart_values())
+                    for nm, v in vals.items():
+                        if store_dtype is not None and v.is_floating_point():
+                            v = v.to(store_dtype)
+                        key = f"values/{nm}"
+                        if key not in outs:
+                            outs[key] = torch.empty(
+                                (C, c) + v.shape[1:], dtype=v.dtype,
+                                device=device)
+                        outs[key][:, j] = v
+                    # one inclusion row per BART RV: a separate-trees group
+                    # reports the sum of its forests' split counts
+                    vi_buf[:, j].zero_()
+                    for bs, v in zip(bart_static, vis):
+                        vi_buf[:, j, bs["rv_index"], : v.shape[1]] += v
+                    for nm, v in stats.items():
+                        key = f"stats/{nm}"
+                        if key not in outs:
+                            outs[key] = torch.empty((C, c), dtype=v.dtype,
+                                                    device=device)
+                        outs[key][:, j] = v
+                    if store_trees:
+                        # only the draw's updated trees ship per draw: the
+                        # tree batch, or every tree where rejuvenation moved
+                        # them all
+                        for bi, (bs, st) in enumerate(zip(bart_static,
+                                                          bart_states)):
+                            cfg_i, pg_i = bs["cfg"], bs["pg"]
+                            B_i = (cfg_i.m if pg_i.ancestor_sampling else
+                                   pg_i.batch_size(cfg_i.m, False))
+                            jt = (st.batch_offset.to(torch.int64)[:, None]
+                                  - B_i + torch.arange(B_i, device=device)
+                                  ) % cfg_i.m
+                            packed = _pack_forest_slice(bs, st.forest, jt)
+                            for key, v in packed.items():
+                                key = f"deltas/{bi}/{key}"
+                                if key not in outs:
+                                    outs[key] = torch.empty(
+                                        (C, c) + v.shape[1:], dtype=v.dtype,
+                                        device=device)
+                                outs[key][:, j] = v
+                outs["vi"] = vi_buf
+                # NumPy has no bfloat16: such values cross as raw 16-bit
+                # words under their own prefix
+                for key in [k_ for k_, v in outs.items()
+                            if v.dtype == torch.bfloat16]:
+                    outs["bf16" + key] = outs.pop(key).view(torch.int16)
+                if timings is not None:
+                    timings["drained_bytes"] += sum(
+                        v.numel() * v.element_size() for v in outs.values())
+                handle = drainer.start(outs)
+                if checkpoint_dir is None:
+                    if pending is not None:
+                        acc.append(drainer.finish(pending))
+                    pending = handle
+                else:
+                    # the chunk's draws first, then the carry that commits
+                    # them: a run stopped between the two resumes from the
+                    # previous carry and ignores the later chunk file
+                    host_outs = drainer.finish(handle)
+                    acc.append(host_outs)
+                    ckpt_mod.save_draw_chunk(checkpoint_dir, tune + t + c,
+                                             host_outs)
+                    maybe_checkpoint(tune + t + c)
+                t += c
+                if timings is not None:
+                    timings["draw_chunk_seconds"].append(
+                        time.perf_counter() - chunk_t0)
+                    timings["draw_chunk_sizes"].append(c)
+                if progressbar:
+                    rate = (t - start_draw) * C / max(
+                        time.perf_counter() - draw_t0, 1e-9)
+                    print(f"draw {t}/{draws} ({rate:.1f} chain-draws/s)",
+                          flush=True)
             if pending is not None:
+                final_t0 = time.perf_counter()
                 acc.append(drainer.finish(pending))
-            pending = handle
-            t += c
-            if timings is not None:
-                timings["draw_chunk_seconds"].append(
-                    time.perf_counter() - chunk_t0)
-                timings["draw_chunk_sizes"].append(c)
-            if progressbar:
-                rate = t * C / max(time.perf_counter() - draw_t0, 1e-9)
-                print(f"draw {t}/{draws} ({rate:.1f} chain-draws/s)",
-                      flush=True)
-        if pending is not None:
-            final_t0 = time.perf_counter()
-            acc.append(drainer.finish(pending))
-            pending = None
-            if timings is not None and timings["draw_chunk_seconds"]:
-                timings["draw_chunk_seconds"][-1] += (
-                    time.perf_counter() - final_t0)
-    if timings is not None:
-        sync()
-        timings["draw_seconds_total"] = time.perf_counter() - draw_t0
+                pending = None
+                if timings is not None and timings["draw_chunk_seconds"]:
+                    timings["draw_chunk_seconds"][-1] += (
+                        time.perf_counter() - final_t0)
+        if timings is not None:
+            sync()
+            timings["draw_seconds_total"] = time.perf_counter() - draw_t0
+    finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(profile_dir, "draws.pt.trace.json"))
 
-    def cat(parts):
-        return np.concatenate(parts, axis=1)
+    def joined(prefix):
+        """Every chunk's arrays named ``prefix + name``, by name, joined
+        along the draw axis; half-precision values come back as float32."""
+        first = acc[0] if acc else {}
+        names = dict.fromkeys(
+            k_[len(prefix) + 4 * k_.startswith("bf16"):] for k_ in first
+            if k_.startswith(prefix) or k_.startswith("bf16" + prefix))
+        out = {}
+        for nm in names:
+            parts = []
+            for ch in acc:
+                a = ch.get(prefix + nm)
+                if a is None:
+                    a = torch.from_numpy(np.ascontiguousarray(
+                        ch["bf16" + prefix + nm])).view(torch.bfloat16).to(
+                            torch.float32).numpy()
+                elif a.dtype == np.float16:
+                    a = a.astype(np.float32)
+                parts.append(a)
+            out[nm] = np.concatenate(parts, axis=1)
+        return out
 
-    scan_accs = [a[0] for a in acc]
-    snap0_accs = [a[1] for a in acc]
-    values = {nm: cat([o[0][nm] for o in scan_accs])
-              for nm in (scan_accs[0][0] if scan_accs else {})}
-    vi = (cat([o[1] for o in scan_accs]) if scan_accs
+    values = joined("values/")
+    vi = (np.concatenate([ch["vi"] for ch in acc], axis=1) if acc
           else np.zeros((C, 0, n_bart, p_max), np.float32))
-    stats_acc = {nm: cat([o[2][nm] for o in scan_accs])
-                 for nm in (scan_accs[0][2] if scan_accs else {})}
-    deltas_accs = [o[3] for o in scan_accs]
+    stats_acc = joined("stats/")
     draws = vi.shape[1]
 
     # -- build InferenceData -------------------------------------------------
@@ -1092,12 +1250,16 @@ def sample(
 
     # attach posterior forests to each BART RV (the all_trees equivalent); a
     # separate-trees RV gets a LIST of per-output stores, as in JAX
-    if store_trees and deltas_accs and deltas_accs[0] is not None:
+    if store_trees and acc:
         by_name: Dict[str, List[PosteriorForests]] = {}
         for i, bs in enumerate(bart_static):
+            def part(ch, prefix):
+                return {k_[len(prefix):]: v for k_, v in ch.items()
+                        if k_.startswith(prefix)}
+
             sv, sl, ss, lf, ct, sp = _unpack_forest_deltas(
-                bs, [d[i] for d in deltas_accs],
-                [s0[i] for s0 in snap0_accs])
+                bs, [part(ch, f"deltas/{i}/") for ch in acc],
+                [part(ch, f"snap0/{i}/") for ch in acc])
             by_name.setdefault(bs["name"], []).append(PosteriorForests(
                 split_var=sv, split_val=sl, split_set=ss, leaf=lf, count=ct,
                 slope=sp, config=bs["cfg"], rules=bs["rules_np"],

@@ -1,12 +1,11 @@
 """PGBART: the particle-Gibbs BART step, batched over chains (PyTorch).
 
 Counterpart of ``pymc_bart_tpu/sampler/pgbart.py`` for the closed-form
-likelihood codes (gauss, bernoulli, het_abs, het_exp, cat_logit) with the
-constant response and one output, the Gaussian code with the linear and mix
-responses, and the generic model likelihood (``lik="generic"``: a
-``loglik_fn`` closure over the model, any number of outputs, constant
-response).  ``pgbart_step`` is the counterpart of ``_pgbart_step_dispatch``;
-it has three routes:
+likelihood codes (gauss, bernoulli, het_abs, het_exp, cat_logit) with one
+output and the generic model likelihood (``lik="generic"``: a ``loglik_fn``
+closure over the model, any number of outputs), each with the constant,
+linear and mix responses.  ``pgbart_step`` is the counterpart of
+``_pgbart_step_dispatch``; it has three routes:
 
 * ``"bign"``: the whole step in the large-n formulation (``ops/bign.py``:
   rows spread over the card, node-space sufficient statistics for the
@@ -23,7 +22,8 @@ it has three routes:
   adaptation (``step_rounds``).  With ``impl="plain"`` this route is the
   plain version of the fused one.  The selection kernel is Gaussian, for the
   constant, linear and mix responses; the other codes select and refine in
-  plain PyTorch on every device, as the JAX package does in XLA.  The linear
+  plain PyTorch on every device, as the JAX package does in XLA (a linear or
+  mix winner's prediction keeps its slope term).  The linear
   and mix responses, the generic likelihood and joint forests of ``k >= 2``
   outputs run here alone (both whole-step gates refuse them); for the
   generic likelihood each round's particle log-likelihood is the model's,
@@ -279,9 +279,9 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     ``batched_loglik`` of the model closure) on the same sum (the growth
     round's Gaussian value is ignored: it is given zero row weights), and the
     winner is refined under the same likelihood, in plain PyTorch, for every
-    output.  For the linear and mix responses (Gaussian only) the rounds draw
-    slopes and the winner is selected among the particles by its Gumbels
-    ``rands.gsel``.
+    output.  For the linear and mix responses the rounds draw slopes; a
+    Gaussian winner is selected among the particles by its Gumbels
+    ``rands.gsel``, another likelihood's by inverse CDF on ``rands.usel``.
     Returns ``(sv, sl, st (C, S), leaf (C, S, k), ct (C, S), slope (C, S, k),
     pred (C, n, k))``.
     """
@@ -392,7 +392,7 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
            else 0.5 / (leaf_sd * leaf_sd))
     args = (sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
             eps_r.contiguous(), rands.uacc[b], rands.usel[b], hiv)
-    if lin:
+    if gauss and lin:
         sv_w, sl_w, st_w, lf_w, ct_w, sp_w, _li_w, pred_w = select_refine(
             *args, num_refinements=R, m=cfg.m, impl=impl,
             response=cfg.response, sp=sp, X=X, g_sel=rands.gsel[b])
@@ -406,10 +406,16 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
         # every device, as the JAX package runs them in XLA (its fused_other
         # branch and its generic one; the winner by inverse CDF on usel, the
         # proposals from epsr / uacc: the distribution of JAX's
-        # categorical and key-drawn normals, from the step's blocks)
-        sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine_plain(
-            *args, num_refinements=R, m=cfg.m, ll_fn=eval_ll)
-        sp_w = torch.zeros_like(lf_w.transpose(1, 2))
+        # categorical and key-drawn normals, from the step's blocks); a
+        # linear or mix winner's refinement moves intercepts only and its
+        # prediction keeps the slope term
+        out = select_refine_plain(*args, num_refinements=R, m=cfg.m,
+                                  ll_fn=eval_ll, response=cfg.response,
+                                  sp=sp, X=X)
+        sv_w, sl_w, st_w, lf_w, ct_w = out[:5]
+        pred_w = out[-1]
+        sp_w = (out[5].transpose(1, 2) if lin
+                else torch.zeros_like(lf_w.transpose(1, 2)))
     return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w, sp_w,
             pred_w.transpose(1, 2))
 
@@ -492,8 +498,8 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     random variable), ``all_cont`` (every split rule continuous; read from
     ``rules`` when None) and ``x_nan`` (X holds a NaN; read from ``X`` when
     None).  ``impl`` forces the kernels or the plain versions on any route.
-    ``cfg.response`` ``"linear"`` / ``"mix"`` take the Gaussian code and the
-    per-round route (``rands`` from ``draw_rands(response=...)``).
+    ``cfg.response`` ``"linear"`` / ``"mix"`` take the per-round route under
+    every likelihood (``rands`` from ``draw_rands(response=...)``).
     ``lik="generic"``: the model's own log-likelihood, ``loglik_fn(f (n, k),
     lik_params) -> scalar`` for one chain (``compound.make_loglik``) with
     ``lik_params`` every chain's current ``(theta (C, d), {name: value
@@ -509,10 +515,6 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     Welford buffers are large and the step is the hot loop); clone the state
     first to keep the old one.  Returns ``(state, variable_inclusion (C, p))``.
     """
-    if cfg.response != "constant" and lik != "gauss":
-        raise NotImplementedError(
-            f"response={cfg.response!r} with likelihood code {lik!r}: the "
-            "linear and mix responses run with the Gaussian code only")
     if cfg.n_outputs != 1 and lik != GENERIC:
         raise NotImplementedError(
             f"n_outputs={cfg.n_outputs} with likelihood code {lik!r}: the "

@@ -135,14 +135,10 @@ def test_posterior_summaries_within_monte_carlo_band_of_jax(port_fit):
 
 @pytest.mark.parametrize("kwargs, word", [
     (dict(mesh=object()), "mesh"),
-    (dict(checkpoint_dir="somewhere"), "checkpoint_dir"),
-    (dict(resume=True), "resume"),
-    (dict(profile_dir="somewhere"), "profile_dir"),
-    (dict(debug_nans=True), "debug_nans"),
-    (dict(posterior_dtype="float16"), "posterior_dtype"),
-], ids=["mesh", "checkpoint_dir", "resume", "profile_dir", "debug_nans",
-        "posterior_dtype"])
+], ids=["mesh"])
 def test_sample_refuses_arguments_that_wait(kwargs, word):
+    """Only ``mesh`` waits; the other five arguments run and are tested in
+    tests/test_torch_checkpoint.py and tests/test_torch_debug_aids.py."""
     X, Y, _ = _toy(30, 3)
     with tpmb.Model():
         mu = tpmb.BART("mu", X, Y, m=4)
@@ -227,7 +223,7 @@ def _categorical_model(X, Y):
 # outputs of one store, or a list of one-output stores); None: still refused
 _RUNS = {"bernoulli": ("mu", (30,), 1),
          "heteroscedastic": ("w", (2, 30), [1, 1]),
-         "categorical": ("lo", (2, 30), 2), "linear": None,
+         "categorical": ("lo", (2, 30), 2), "linear": ("mu", (30,), 1),
          "two_outputs": ("mu", (2, 30), 2)}
 
 
@@ -248,10 +244,10 @@ _RUNS = {"bernoulli": ("mu", (30,), 1),
 ], ids=["bernoulli", "heteroscedastic", "categorical", "linear",
         "two_outputs"])
 def test_sample_refuses_models_that_wait(request, build, word):
-    """The models that waited for the generic likelihood and joint forests
-    now sample on the CPU (finite draws of the right shape, the per-round
-    route's warning given, the stores laid out as in JAX); the linear
-    response under a non-Gaussian likelihood is still refused."""
+    """The models that waited for the generic likelihood and joint forests,
+    and the linear response under a non-Gaussian likelihood, now sample on
+    the CPU (finite draws of the right shape, the per-round route's warning
+    given, the stores laid out as in JAX)."""
     case = request.node.callspec.id
     X, Y, _ = _toy(30, 3)
     with tpmb.Model() as model:

@@ -32,6 +32,7 @@ MODULES = [
     "pymc_bart_tpu_torch.utils.interpret",
     "pymc_bart_tpu_torch.utils.importance",
     "pymc_bart_tpu_torch.utils.plots",
+    "pymc_bart_tpu_torch.utils.checkpoint",
 ]
 
 

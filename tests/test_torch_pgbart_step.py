@@ -123,16 +123,49 @@ def test_pgbart_step_matches_jax_per_round_route(tuning, monkeypatch):
     assert (convert.state_to_numpy(tstate)["split_var"] >= 0).any()
 
 
-def test_step_refuses_what_is_not_ported():
+@pytest.mark.parametrize("kw, lik, word", [
+    (dict(response="linear"), "bernoulli", None),
+    (dict(response="mix"), "het_abs", None),
+    (dict(n_outputs=2), "gauss", "n_outputs")],
+    ids=["linear_bernoulli", "mix_het_abs", "two_outputs_gauss"])
+def test_step_refuses_what_is_not_ported(kw, lik, word):
+    """A closed-form code with two outputs is refused; the linear and mix
+    responses under a non-Gaussian code run on the per-round route
+    (tests/test_torch_linear_lik.py holds them to the JAX package): two
+    steps leave finite sums of trees equal to the forests' predictions,
+    with slopes drawn."""
     X, Y = _setup()
     tpg = TPgbartConfig(num_particles=PARTICLES)
-    for kw, lik, word in ((dict(response="linear"), "bernoulli", "response"),
-                          (dict(response="mix"), "het_abs", "response"),
-                          (dict(n_outputs=2), "gauss", "n_outputs")):
-        tcfg = TBartConfig(m=M, max_depth=DEPTH, **kw)
+    tcfg = TBartConfig(m=M, max_depth=DEPTH, **kw)
+    Xt = torch.from_numpy(X)
+    if word is not None:
         with pytest.raises(NotImplementedError, match=word):
-            tpgbart.pgbart_step(None, None, torch.from_numpy(X), None, None,
-                                tcfg, tpg, False, None, lik=lik)
+            tpgbart.pgbart_step(None, None, Xt, None, None, tcfg, tpg, False,
+                                None, lik=lik)
+        return
+    C = 2
+    if lik == "bernoulli":
+        Yt, row = torch.from_numpy((Y > Y.mean()).astype(np.float32)), None
+    else:
+        dev = np.abs(Y - Y.mean())
+        Yt = torch.from_numpy(dev / 0.7978845608 - 0.1)
+        row = torch.from_numpy(dev * dev)[None].expand(C, N, 1).contiguous()
+    rules = torch.zeros(P_COLS, dtype=torch.int32)
+    state = tpgbart.init_state(X, Yt, tcfg, chains=C, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(2):
+        rands = tpgbart.draw_rands(
+            gen, B=tpg.batch_size(M, True), C=C, P=PARTICLES, D=DEPTH, n=N,
+            k=1, S=tcfg.n_nodes, num_refinements=tpg.num_refinements,
+            device="cpu", response=tcfg.response)
+        state, vi = tpgbart.pgbart_step(state, rands, Xt, Yt, rules, tcfg,
+                                        tpg, True, row, lik=lik,
+                                        lik_const=0.1)
+    assert torch.isfinite(state.sum_trees).all()
+    assert (state.forest.slope != 0).any()
+    refreshed = tpgbart.refresh_tree_pred(state.clone(), Xt, rules, tcfg)
+    torch.testing.assert_close(refreshed.sum_trees, state.sum_trees,
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_draw_rands_shapes_and_determinism():

@@ -211,10 +211,30 @@ def test_sample_linear_on_the_cpu():
     (dict(response="linear", shape=(2, N)), "response")],
     ids=["mix_bernoulli", "linear_two_outputs"])
 def test_sample_refuses_what_waits(kw, word):
+    """Both models run on the per-round route: a mix classifier
+    (closed-form Bernoulli code) and a linear joint forest of two outputs
+    (the generic likelihood); finite draws, slopes stored, and the stored
+    forests predict the last draw."""
     X, Y = _setup(2)
     with tpmb.Model():
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            _model(X, Y[:, 0], **kw)
-        with pytest.raises(NotImplementedError, match=word):
-            tpmb.sample(tune=1, draws=1, chains=1, device="cpu")
+            mu = _model(X, Y[:, 0], **kw)
+        with pytest.warns(UserWarning, match="per-round"):
+            idata = tpmb.sample(tune=4, draws=3, chains=2, num_particles=4,
+                                random_seed=2, device="cpu",
+                                convergence_checks=False)
+    post = idata.posterior["mu"].values
+    k = 1 if "shape" not in kw else 2
+    assert post.shape == (2, 3) + ((N,) if k == 1 else (2, N))
+    assert np.isfinite(post).all() and word == "response"
+    tr = mu.all_trees
+    assert tr.n_outputs == k and (tr.slope != 0).any()
+    t = torch.as_tensor
+    last = Forest(*(t(np.ascontiguousarray(a[:, -1])) for a in (
+        tr.split_var, tr.split_val, tr.split_set.view(np.int32), tr.leaf,
+        tr.count, tr.slope)))
+    pred = forest_predict(last, t(X), t(np.zeros(P_COLS, np.int32)), 3)
+    want = post[:, -1] if k == 1 else post[:, -1].transpose(0, 2, 1)
+    np.testing.assert_allclose(pred.numpy().reshape(want.shape), want,
+                               rtol=1e-5, atol=1e-5)
