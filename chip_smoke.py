@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases device,build,kernels,step,sample,models,
-                                    generic,interpret,aids,linlik,timing]
+                                    generic,interpret,aids,linlik,mesh,timing]
                           [--ptxas] [--tune N] [--draws N]
                           [--large-tune N] [--large-draws N]
                           [--model-tune N] [--model-draws N]
@@ -179,7 +179,24 @@ line:
    categories, a OneHot column, a continuous column a tenth NaN; m=50,
    100/100): ``draw.cu`` once a step, the category groups' gap above 3, the
    Subset column first in the variable inclusion.
-11. ``timing``  CUDA-event times of each kernel and its plain version at the
+11. ``mesh``    ``sample(mesh=...)`` over two ranks that share the card
+   (gloo, spawned processes, ``parallel.mesh.run_local_world`` with a
+   900 s limit; every rank's failure fails the phase).  First ``draw.cu``
+   and ``bign.cu`` on chains 2 and 3 of 4 (``StepRands.shard``: the global
+   chain offset of the generated row Gumbels) equal bit for bit the same
+   kernel's chains 2 and 3 of one launch for all four and the plain version
+   on the block written out for those chains.  Then (a) the Friedman main
+   path (n=1000, p=10, m=50, 20 particles, 4 chains, 60/60) with chains over
+   the ranks on ``draw.cu`` and (b) ``config_large_n`` (n=50,000, m=20, 10
+   particles, 20/20) on ``bign.cu``: every rank's posterior, sample stats
+   and stored forests equal bit for bit the one-process run's in this
+   process, one launch a step on every rank, chain-draws/s of both; (c)
+   ``config_large_n`` with rows over the ranks: three node-space steps on
+   25,000 rows a rank equal in structure and counts to the unsharded ones
+   (float errors printed), and ``sample()`` at 100/100 on the per-round
+   route (``smc.cu`` only, plain node-space growth) with rmse against the
+   true f below half of std(f), its step time and all-reduces a step.
+12. ``timing``  CUDA-event times of each kernel and its plain version at the
    main-path shapes (the growth round and the selection for the constant and
    the linear response): ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
@@ -200,6 +217,19 @@ line:
 share and the device time by kernel name.  (Where a step of the whole-step
 kernel spends its cycles: ``scripts/draw_phase_clocks.py``.)
 
+``--phases nccl`` (a machine of two cards or more; not in the default run):
+``sample(mesh=...)`` launched as a user launches it, ``torchrun`` with one
+rank a card and NCCL (``initialize_distributed("env://", ...)``; every rank
+on ``cuda:<local rank>``; 600 s limit, the whole process group killed past
+it).  (a) the Friedman main path with chains over every card, each rank's
+posterior, sample stats and stored forests bit for bit this process's
+one-process run on card 0, ``draw.cu`` once a step on every rank; (b)
+checkpoint and resume under that mesh, each rank with a checkpoint_dir of
+its own (only rank 0's holds files): the resumed run returns the first
+run's posterior bit for bit; (c) the Friedman model with rows over two data
+shards (every rank the same posterior, rmse against the true f below half
+of std(f), all-reduces a step).
+
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -217,8 +247,8 @@ import numpy as np
 import torch
 
 ALL_PHASES = ("device", "build", "kernels", "step", "sample", "models",
-              "generic", "interpret", "aids", "linlik", "timing")
-EXTRA_PHASES = ("profile",)    # only when asked for with --phases
+              "generic", "interpret", "aids", "linlik", "mesh", "timing")
+EXTRA_PHASES = ("profile", "nccl")    # only when asked for with --phases
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 C, P, N, PCOLS, M, DEPTH, R = 4, 20, 1000, 10, 50, 6, 5
@@ -1915,7 +1945,8 @@ def counted_sample(build, **kw):
             t0 = time.perf_counter()
             idata = pmb.sample(timings=timings, convergence_checks=False,
                                **kw)
-            torch.cuda.synchronize()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         finally:
             pgbart.pgbart_step = real_step
@@ -3395,6 +3426,584 @@ def linear_logistic_inputs(dev, seed):
 
 
 
+# ---------------------------------------------------------------------------
+# phase mesh: sample(mesh=...) over two ranks that share the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+# tuning and draw steps of the mesh runs: (a) the Friedman main path, (b) the
+# large-n model on its kernel, (c) the large-n model with rows over the ranks
+MESH_STEPS = dict(friedman=(60, 60), large_chains=(20, 20),
+                  large_rows=(100, 100))
+MESH_NODE_STEPS = 3      # node-space steps held sharded against unsharded
+
+
+def state_chains(state, part):
+    """The chains ``part`` of a ``PgbartState`` (every field, chain axis 0)."""
+    from pymc_bart_tpu_torch.ops.trees import Forest
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    f = state.forest
+    forest = Forest(*(getattr(f, g.name)[part].clone()
+                      for g in dataclasses.fields(f)))
+    return pgbart.PgbartState(forest=forest, **{
+        g.name: getattr(state, g.name)[part].clone()
+        for g in dataclasses.fields(state) if g.name != "forest"})
+
+
+def check_chain_offset(dev, seed=37):
+    """The whole-step and large-n kernels on chains 2 and 3 of 4 (a rank of a
+    two-rank mesh: ``StepRands.shard``, the kernels' global chain offset of
+    the row-Gumbel streams) equal, bit for bit, the same kernel's chains 2
+    and 3 of one launch for all four, and the plain version on the block
+    ``gumbel_block`` writes out for those chains; the written-out block of a
+    part of the chains and rows is that part of the whole block."""
+    from pymc_bart_tpu_torch.ops.bign import gumbel_block
+
+    part = slice(2, 4)
+    out = {}
+    for kind in ("fused", "bign"):
+        case = (fused_case(dev, "gauss_tune") if kind == "fused"
+                else bign_case(dev, "gauss_tune"))
+        step = fused_step if kind == "fused" else bign_step
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = (grown_state(case, gen, dev) if kind == "fused"
+                 else bign_grown_state(case, gen, dev))
+        rands = (fused_rands if kind == "fused" else bign_rands)(
+            case, gen, True, dev, row_gumbels=False)
+        whole, vi_whole = step(case, state.clone(), rands, True, "kernel")
+        half_case = dict(case, chains=2)
+        for key in ("row", "w_chain", "llw"):
+            if half_case.get(key) is not None:
+                half_case[key] = half_case[key][part].contiguous()
+        sub = rands.shard(part)
+        half, vi_half = step(half_case, state_chains(state, part), sub, True,
+                             "kernel")
+        cfg, pg = case["cfg"], case["pg"]
+        block = gumbel_block(sub.seed, B=pg.batch_size(cfg.m, True), C=2,
+                             P=pg.num_particles, D=cfg.max_depth,
+                             n=case["X"].shape[0], chains=4, chain0=2)
+        plain, vi_plain = step(half_case, state_chains(state, part),
+                               dataclasses.replace(sub, rg=block), True,
+                               "plain")
+        torch.cuda.synchronize()
+        check_close(f"{kind} chains 2-3 vi", vi_half, vi_whole[part], 0.0, 0.0)
+        check_close(f"{kind} chains 2-3 vi plain", vi_plain, vi_half, 0.0,
+                    0.0)
+        for (name, a), (_, b), (_, c) in zip(
+                state_fields(half), state_fields(state_chains(whole, part)),
+                state_fields(plain)):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"{kind} kernel on chains 2-3 of 4: "
+                                     f"{name} differs from the launch for all "
+                                     "chains or from the plain version")
+        out[kind] = dict(bit_for_bit=True, splits=int(
+            (half.forest.split_var >= 0).sum()))
+    # a part of the chains and rows of the written-out block
+    full = gumbel_block(sub.seed, B=2, C=4, P=10, D=6, n=1000)
+    piece = gumbel_block(sub.seed, B=2, C=2, P=10, D=6, n=300, chains=4,
+                         chain0=1, row0=500)
+    if not torch.equal(piece, full[:, :, 1:3, :, 500:800]):
+        raise AssertionError("gumbel_block: a part of the chains and rows "
+                             "is not that part of the whole block")
+    out["gumbel_block_part"] = True
+    return out
+
+
+def mesh_regression(X, Y, m, max_depth=None):
+    def build(pmb):
+        kw = {} if max_depth is None else dict(max_depth=max_depth)
+        mu = pmb.BART("mu", X, Y, m=m, **kw)
+        sigma = pmb.HalfNormal("sigma", 1.0)
+        pmb.Normal("y", mu, sigma, observed=Y)
+        return mu
+    return build
+
+
+def mesh_runs():
+    """The sample() runs of the phase, by name: ``(model builder,
+    sample() arguments)``."""
+    X, Y, _ = friedman(N, PCOLS)
+    Xb, Yb, _ = friedman(LN["N"], LN["PCOLS"], seed=5)
+    big = dict(num_particles=LN["P"], num_refinements=0, chains=LN["C"],
+               random_seed=0, chunk_size=10)
+    runs = {"friedman": (mesh_regression(X, Y, M, DEPTH), dict(
+        num_particles=P, num_refinements=R, chains=C, random_seed=0,
+        chunk_size=30)),
+            "large_chains": (mesh_regression(Xb, Yb, LN["M"]), big),
+            "large_rows": (mesh_regression(Xb, Yb, LN["M"]), dict(
+                big, chunk_size=50))}
+    for name, (tune, draws) in MESH_STEPS.items():
+        runs[name][1].update(tune=tune, draws=draws)
+    return runs
+
+
+def mesh_outputs(model, rv, idata):
+    """A run's posterior, sample stats and stored forests, flat."""
+    out = {}
+    for group in ("posterior", "sample_stats"):
+        for name, da in idata[group].items():
+            out[f"{group}/{name}"] = np.asarray(da.values)
+    for f in ("split_var", "split_val", "split_set", "leaf", "count",
+              "slope"):
+        out[f"trees/{f}"] = np.asarray(getattr(rv.all_trees, f))
+    return out
+
+
+def node_space_steps(dev, rows=None, part=None):
+    """``MESH_NODE_STEPS`` tuning steps of the per-round route in the
+    node-space mode on the large-n model (every route's random numbers from
+    one generator), unsharded or on the rows ``part`` with ``rows``;
+    returns the state's tensors and the seconds of the steps."""
+    from pymc_bart_tpu_torch.config import BartConfig, PgbartConfig
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    X_np, Y_np, _ = friedman(LN["N"], LN["PCOLS"], seed=5)
+    cfg = BartConfig(m=LN["M"], max_depth=LN["DEPTH"])
+    pg = PgbartConfig(num_particles=LN["P"], num_refinements=R)
+    n, Cc = LN["N"], LN["C"]
+    sl = slice(None) if part is None else part
+    X = torch.from_numpy(X_np[sl]).to(dev)
+    Y = torch.from_numpy(Y_np[sl]).to(dev)[:, None]
+    w = torch.full((Cc, X.shape[0], 1), 1.0, device=dev)
+    rules = torch.zeros(LN["PCOLS"], dtype=torch.int32, device=dev)
+    state = pgbart.init_state(X, Y, cfg, chains=Cc, device=dev, rows=rows)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_NODE_STEPS):
+        rands = pgbart.draw_rands(
+            gen, B=pg.batch_size(cfg.m, True), C=Cc, P=pg.num_particles,
+            D=cfg.max_depth, n=n, k=1, S=cfg.n_nodes,
+            num_refinements=pg.num_refinements, device=dev,
+            row_gumbels=False)
+        if rows is not None:
+            rands = rands.shard(slice(0, Cc), part)
+        state, _ = pgbart.pgbart_step(state, rands, X, Y, rules, cfg, pg,
+                                      True, w, route="rounds", w_scalar=True,
+                                      rows=rows, suff_stats=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {f"forest.{g.name}": getattr(state.forest, g.name).cpu().numpy()
+           for g in dataclasses.fields(state.forest)}
+    out.update({g.name: getattr(state, g.name).cpu().numpy()
+                for g in dataclasses.fields(state) if g.name != "forest"})
+    return out, seconds
+
+
+def mesh_rank(rank, init_file, outdir, device):
+    """One rank of the phase's world on ``device``: gloo (NCCL refuses two
+    ranks on one card), ``cuda:0`` for both ranks on the one card."""
+    import json as json_
+    import os
+
+    from pymc_bart_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.initialize_distributed(f"file://{init_file}", MESH_RANKS, rank,
+                                 backend="gloo", device=device)
+    dev = torch.device(device)
+    wrappers = kernel_wrappers()
+    chains_mesh = pmesh.make_mesh()
+    rows_mesh = pmesh.make_mesh(n_data_shards=MESH_RANKS)
+    scalars, arrays = {}, {}
+    for name, (build, kw) in mesh_runs().items():
+        mesh = rows_mesh if name == "large_rows" else chains_mesh
+        calls0 = dict(pmesh.collective_calls)
+        model, rv, idata, launches, _r, seconds, timings = counted_sample(
+            build, mesh=mesh, **kw)
+        scalars[name] = dict(
+            launches=launches, seconds=seconds,
+            draw_seconds_total=timings["draw_seconds_total"],
+            tune_seconds=timings["tune_seconds"],
+            collectives={k: pmesh.collective_calls[k] - calls0[k]
+                         for k in calls0})
+        for k, v in mesh_outputs(model, rv, idata).items():
+            arrays[f"{name}/{k}"] = v
+        del idata
+    rows = pmesh.row_shard(rows_mesh, LN["N"])
+    part = slice(rows.row0, rows.row0 + rows.n)
+    calls0 = dict(pmesh.collective_calls)
+    node, seconds = node_space_steps(dev, rows, part)
+    scalars["node_steps"] = dict(
+        seconds=seconds, rows=[rows.row0, rows.n],
+        all_reduces=pmesh.collective_calls["all_reduce"]
+        - calls0["all_reduce"])
+    for k, v in node.items():
+        arrays[f"node/{k}"] = v
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
+        json_.dump(scalars, fh)
+    del wrappers
+    torch.distributed.destroy_process_group()
+
+
+def mesh_solo(rank, outdir, device):
+    """One of two processes that share the card without a world: the
+    Friedman run of (a) on two chains of its own, no collective (what two
+    processes on one card cost without the mesh's gathers)."""
+    import json as json_
+    import os
+
+    build, kw = mesh_runs()["friedman"]
+    kw = dict(kw, chains=kw["chains"] // MESH_RANKS, random_seed=rank,
+              device=device)
+    _m, _rv, idata, launches, _r, _s, timings = counted_sample(build, **kw)
+    if not np.isfinite(np.asarray(idata.posterior["mu"].values)).all():
+        raise AssertionError("mesh (solo): non-finite draws")
+    with open(os.path.join(outdir, f"solo{rank}.json"), "w") as fh:
+        json_.dump(dict(draw_seconds_total=timings["draw_seconds_total"],
+                        launches=launches), fh)
+
+
+def phase_mesh(dev):
+    """``sample(mesh=...)`` over two ranks on the one card (gloo): (a) the
+    Friedman main path with chains over the ranks on ``draw.cu``, bit for bit
+    the one-process run; (b) the n=50,000 model with chains over the ranks on
+    ``bign.cu``, bit for bit too; (c) the n=50,000 model with rows over the
+    ranks: the node-space step equal to the unsharded one in structure and
+    counts, and sample() at 100/100 within the large-n rmse bound.  Every
+    rank's launches are its own; chain-draws/s one process against two."""
+    import json as json_
+    import os
+    import shutil
+
+    from pymc_bart_tpu_torch.parallel import mesh as pmesh
+    from pymc_bart_tpu_torch.sampler import pgbart
+
+    t_phase = time.perf_counter()
+    offsets = check_chain_offset(dev)
+    work = smoke_dir("mesh")
+    try:
+        t0 = time.perf_counter()
+        pmesh.run_local_world(mesh_rank, MESH_RANKS,
+                              args=(os.path.join(work, "init"), work,
+                                    str(dev)), timeout=900)
+        world_seconds = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(work, f"rank{r}.npz")))
+                 for r in range(MESH_RANKS)]
+        info = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as fh:
+                info.append(json_.load(fh))
+        pmesh.run_local_world(mesh_solo, MESH_RANKS, args=(work, str(dev)),
+                              timeout=300)
+        solo = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"solo{r}.json")) as fh:
+                solo.append(json_.load(fh))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def same_everywhere(tag, want):
+        for r, got in enumerate(ranks):
+            for k, v in want.items():
+                g = got[f"{tag}/{k}"]
+                if g.shape != v.shape or g.dtype != v.dtype or not (
+                        np.array_equal(g.view(np.uint8), v.view(np.uint8))
+                        if v.dtype.kind == "f" else np.array_equal(g, v)):
+                    raise AssertionError(f"mesh ({tag}): rank {r}'s {k} "
+                                         "differs from the one-process run")
+
+    report = dict(chain_offset=offsets, ranks=MESH_RANKS, backend="gloo",
+                  world_seconds=world_seconds)
+    for name, (build, kw) in mesh_runs().items():
+        if name == "large_rows":
+            continue
+        model, rv, idata, launches, _r, seconds, timings = counted_sample(
+            build, **kw)
+        want = mesh_outputs(model, rv, idata)
+        del idata
+        same_everywhere(name, want)
+        kernel = "pgbart_step_fused" if name == "friedman" else \
+            "pgbart_step_bign"
+        steps = kw["tune"] + kw["draws"]
+        for r in range(MESH_RANKS):
+            got = info[r][name]["launches"]
+            if got[kernel] != steps or sum(got.values()) != steps:
+                raise AssertionError(f"mesh ({name}): rank {r} launched "
+                                     f"{got}, expected {steps} of {kernel}")
+        if launches[kernel] != steps:
+            raise AssertionError(f"mesh ({name}): the one-process run "
+                                 f"launched {launches}")
+        wall = max(i[name]["draw_seconds_total"] for i in info)
+        report[name] = dict(
+            tune=kw["tune"], draws=kw["draws"], chains=kw["chains"],
+            bit_for_bit=True, kernel=kernel,
+            launches_per_rank=[i[name]["launches"][kernel] for i in info],
+            chain_draws_per_s_one_process=kw["chains"] * kw["draws"]
+            / timings["draw_seconds_total"],
+            chain_draws_per_s_two_ranks=kw["chains"] * kw["draws"] / wall,
+            draw_seconds_per_rank=[i[name]["draw_seconds_total"]
+                                   for i in info],
+            collectives_per_rank=[i[name]["collectives"] for i in info])
+    tune, draws = MESH_STEPS["friedman"]
+    report["friedman"]["chain_draws_per_s_two_processes_alone"] = C * draws \
+        / max(s_["draw_seconds_total"] for s_ in solo)
+    # (c) rows over the ranks: node-space steps, then sample()
+    want, seconds = node_space_steps(dev)
+    got = {}
+    row_axes = pgbart.PgbartState.ROW_AXES
+    for k in want:
+        if k in row_axes:
+            got[k] = np.concatenate([r[f"node/{k}"] for r in ranks],
+                                    axis=row_axes[k])
+        else:
+            for r in ranks[1:]:
+                if not np.array_equal(r[f"node/{k}"], ranks[0][f"node/{k}"]):
+                    raise AssertionError(f"mesh (node-space): the ranks "
+                                         f"disagree on {k}")
+            got[k] = ranks[0][f"node/{k}"]
+    for k in ("forest.split_var", "forest.count", "iteration",
+              "batch_offset"):
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"mesh (node-space): sharded {k} differs "
+                                 "from the unsharded step's")
+    float_err = {k: float(np.nanmax(np.abs(got[k] - want[k])))
+                 for k in ("forest.leaf", "forest.split_val", "sum_trees",
+                           "leaf_sd") if got[k].size}
+    splits = int((got["forest.split_var"] >= 0).sum())
+    if splits == 0:
+        raise AssertionError("mesh (node-space): no split after the steps")
+    node = [i["node_steps"] for i in info]
+    report["node_space_step"] = dict(
+        steps=MESH_NODE_STEPS, structure_and_counts_equal=True,
+        max_abs_err=float_err, splits=splits,
+        unsharded_ms_per_step=1e3 * seconds / MESH_NODE_STEPS,
+        sharded_ms_per_step=[1e3 * i["seconds"] / MESH_NODE_STEPS
+                             for i in node],
+        all_reduces_per_step=[i["all_reduces"] / MESH_NODE_STEPS
+                              for i in node],
+        rows_per_rank=[i["rows"] for i in node])
+    _Xb, _Yb, fb = friedman(LN["N"], LN["PCOLS"], seed=5)
+    tune, draws = MESH_STEPS["large_rows"]
+    post = ranks[0]["large_rows/posterior/mu"]
+    for r in ranks[1:]:
+        if not np.array_equal(r["large_rows/posterior/mu"], post):
+            raise AssertionError("mesh (rows): the ranks returned different "
+                                 "posteriors")
+    if post.shape != (LN["C"], draws, LN["N"]) or not np.isfinite(post).all():
+        raise AssertionError(f"mesh (rows): posterior {post.shape}, finite "
+                             f"{bool(np.isfinite(post).all())}")
+    rmse = float(np.sqrt(np.mean((post.mean(axis=(0, 1)) - fb) ** 2)))
+    if not rmse < 0.5 * float(np.std(fb)):
+        raise AssertionError(f"mesh (rows): rmse vs true f {rmse} >= half "
+                             f"of std(f) {float(np.std(fb))}")
+    steps = tune + draws
+    report["large_rows"] = dict(
+        tune=tune, draws=draws, chains=LN["C"], rmse_vs_true_f=rmse,
+        std_f=float(np.std(fb)),
+        launches_per_rank=[i["large_rows"]["launches"] for i in info],
+        step_ms_per_rank=[1e3 * (i["large_rows"]["tune_seconds"]
+                                 + i["large_rows"]["draw_seconds_total"])
+                          / steps for i in info],
+        all_reduces_per_step=[i["large_rows"]["collectives"]["all_reduce"]
+                              / steps for i in info],
+        chain_draws_per_s=LN["C"] * draws / max(
+            i["large_rows"]["draw_seconds_total"] for i in info))
+    for i in info:
+        la = i["large_rows"]["launches"]
+        if la["smc_resample"] == 0 or la["pgbart_step_fused"] or \
+                la["pgbart_step_bign"] or la["grow_round"]:
+            raise AssertionError(f"mesh (rows): launches {la}: the sharded "
+                                 "per-round route resamples on smc.cu and "
+                                 "grows in plain PyTorch")
+    report["seconds"] = time.perf_counter() - t_phase
+    emit("mesh", **report)
+
+
+# tuning and draw steps of the runs of phase nccl: (a) the Friedman main
+# path with chains over the cards, (b) its checkpoint / resume, (c) rows
+WORLD_STEPS = dict(chains=(60, 60), resume=(10, 10), rows=(40, 40))
+WORLD_SECONDS = 600
+
+
+def world_runs(steps):
+    """Phase nccl's sample() runs by name: ``(model builder, arguments)``."""
+    X, Y, _ = friedman(N, PCOLS)
+    base = dict(num_particles=P, num_refinements=R, chains=C, random_seed=0,
+                chunk_size=30)
+    runs = {name: (mesh_regression(X, Y, M, DEPTH), dict(base))
+            for name in ("chains", "resume", "rows")}
+    runs["resume"][1]["chunk_size"] = 5
+    for name, (tune, draws) in steps.items():
+        runs[name][1].update(tune=tune, draws=draws)
+    return runs
+
+
+def world_rank(workdir):
+    """One rank of phase nccl, started by ``torchrun`` (``RANK``,
+    ``WORLD_SIZE`` and ``LOCAL_RANK`` in the environment): the runs of
+    ``world_runs`` on this rank's device, written to ``workdir``.
+    ``world.json`` there names the device kind (``"cuda"``: NCCL, one card a
+    rank; ``"cpu"``: gloo) and the steps."""
+    import json as json_
+    import os
+
+    from pymc_bart_tpu_torch.parallel import mesh as pmesh
+
+    with open(os.path.join(workdir, "world.json")) as fh:
+        conf = json_.load(fh)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = conf["device"]
+    if device == "cpu":
+        torch.set_num_threads(1)
+    pmesh.initialize_distributed("env://", world, rank, device=device)
+    meshes = {"chains": pmesh.make_mesh(),
+              "rows": pmesh.make_mesh(n_data_shards=2)}
+    scalars = dict(backend=torch.distributed.get_backend(),
+                   device=str(torch.empty(0, device=device).device))
+    arrays = {}
+    for name, (build, kw) in world_runs(conf["steps"]).items():
+        kw = dict(kw, mesh=meshes["rows" if name == "rows" else "chains"],
+                  device=device)
+        if name == "resume":
+            # no directory shared by the ranks: rank 0 alone writes and
+            # reads its own, the others' stay empty
+            kw["checkpoint_dir"] = os.path.join(workdir, f"ckpt_rank{rank}")
+            first = mesh_outputs(*counted_sample(build, **kw)[:3])
+            for k, v in first.items():
+                arrays[f"resume_first/{k}"] = v
+            kw["resume"] = True
+        calls0 = dict(pmesh.collective_calls)
+        _m, rv, idata, launches, _r, seconds, timings = counted_sample(
+            build, **kw)
+        scalars[name] = dict(
+            launches=launches, seconds=seconds,
+            draw_seconds_total=timings["draw_seconds_total"],
+            collectives={k: pmesh.collective_calls[k] - calls0[k]
+                         for k in calls0})
+        for k, v in mesh_outputs(_m, rv, idata).items():
+            arrays[f"{name}/{k}"] = v
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
+        json_.dump(scalars, fh)
+    torch.distributed.destroy_process_group()
+
+
+def run_world(workdir, ranks, device, steps, timeout=WORLD_SECONDS):
+    """Start ``ranks`` ranks of ``world_rank`` with ``torchrun`` on one host
+    (static rendezvous on a free port of 127.0.0.1) and wait for them; on a
+    non-zero exit or past ``timeout`` seconds the whole process group is
+    killed and the phase fails."""
+    import json as json_
+    import os
+    import signal
+    import socket
+
+    with open(os.path.join(workdir, "world.json"), "w") as fh:
+        json_.dump(dict(device=device, steps=steps), fh)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes=1",
+         f"--nproc_per_node={ranks}", "--master_addr=127.0.0.1",
+         f"--master_port={port}", os.path.abspath(__file__),
+         "--world-rank", workdir], start_new_session=True,
+        stdout=sys.stderr)
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    if rc != 0:
+        raise AssertionError(f"nccl: torchrun exited with {rc}")
+
+
+def check_world(workdir, ranks, dev, steps):
+    """Phase nccl's checks of the ranks' files in ``workdir`` against one
+    process's runs on ``dev``; returns the phase's report."""
+    import json as json_
+    import os
+
+    out = [dict(np.load(os.path.join(workdir, f"rank{r}.npz")))
+           for r in range(ranks)]
+    info = []
+    for r in range(ranks):
+        with open(os.path.join(workdir, f"rank{r}.json")) as fh:
+            info.append(json_.load(fh))
+
+    def same(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and (
+            np.array_equal(a.view(np.uint8), b.view(np.uint8))
+            if a.dtype.kind == "f" else np.array_equal(a, b))
+
+    runs = world_runs(steps)
+    build, kw = runs["chains"]
+    _m, rv, idata, launches, _r, _s, timings = counted_sample(
+        build, device=str(dev), **kw)
+    want = mesh_outputs(_m, rv, idata)
+    tune, draws = steps["chains"]
+    for r in range(ranks):
+        for k, v in want.items():
+            if not same(out[r][f"chains/{k}"], v):
+                raise AssertionError(f"nccl (chains): rank {r}'s {k} "
+                                     "differs from the one-process run")
+        for k in want:
+            if not same(out[r][f"resume/{k}"], out[r][f"resume_first/{k}"]):
+                raise AssertionError(f"nccl (resume): rank {r}'s resumed {k} "
+                                     "differs from the first run's")
+        if r > 0 and os.path.exists(os.path.join(workdir, f"ckpt_rank{r}")):
+            raise AssertionError(f"nccl (resume): rank {r} wrote files")
+        for k in want:
+            if not same(out[r][f"rows/{k}"], out[0][f"rows/{k}"]):
+                raise AssertionError(f"nccl (rows): rank {r}'s {k} differs "
+                                     "from rank 0's")
+    if dev.type == "cuda":
+        for r in range(ranks):
+            got = info[r]["chains"]["launches"]
+            if got["pgbart_step_fused"] != tune + draws:
+                raise AssertionError(f"nccl (chains): rank {r} launched "
+                                     f"{got}")
+    _X, _Y, f = friedman(N, PCOLS)
+    post = out[0]["rows/posterior/mu"]
+    rmse = float(np.sqrt(np.mean((post.mean(axis=(0, 1)) - f) ** 2)))
+    if post.shape != (C, steps["rows"][1], N) or not np.isfinite(post).all() \
+            or not rmse < 0.5 * float(np.std(f)):
+        raise AssertionError(f"nccl (rows): posterior {post.shape}, rmse "
+                             f"{rmse} against half of std(f) "
+                             f"{0.5 * float(np.std(f))}")
+    rows_steps = sum(steps["rows"])
+    return dict(
+        ranks=ranks, backend=info[0]["backend"],
+        devices=[i["device"] for i in info], chains=C,
+        chains_bit_for_bit=True, resume_bit_for_bit=True,
+        launches_per_rank=[i["chains"]["launches"] for i in info],
+        chain_draws_per_s_one_process=C * draws
+        / timings["draw_seconds_total"],
+        chain_draws_per_s_ranks=C * draws / max(
+            i["chains"]["draw_seconds_total"] for i in info),
+        rows=dict(rmse_vs_true_f=rmse, std_f=float(np.std(f)),
+                  step_ms_per_rank=[1e3 * i["rows"]["seconds"] / rows_steps
+                                    for i in info],
+                  all_reduces_per_step=[
+                      i["rows"]["collectives"]["all_reduce"] / rows_steps
+                      for i in info]))
+
+
+def phase_nccl(dev):
+    """``torchrun`` over every card with NCCL (see the module docstring)."""
+    import shutil
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"phase nccl needs two cards or more, this "
+                             f"machine has {cards}")
+    t0 = time.perf_counter()
+    work = smoke_dir("nccl")
+    try:
+        run_world(work, cards, "cuda", WORLD_STEPS)
+        world_seconds = time.perf_counter() - t0
+        report = check_world(work, cards, dev, WORLD_STEPS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("nccl", world_seconds=world_seconds,
+         seconds=time.perf_counter() - t0, **report)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -3409,7 +4018,11 @@ def main(argv=None):
                     help="tuning steps of the heteroscedastic and "
                          "Categorical models (phase models)")
     ap.add_argument("--model-draws", type=int, default=200)
+    ap.add_argument("--world-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.world_rank:
+        world_rank(args.world_rank)
+        return 0
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES) - set(EXTRA_PHASES)
     if unknown:
@@ -3472,10 +4085,14 @@ def main(argv=None):
         phase_aids(dev)
     if "linlik" in phases:
         phase_linlik(dev, args.tune, args.draws)
+    if "mesh" in phases:
+        phase_mesh(dev)
     if "timing" in phases:
         times = phase_timing(dev, calls, cfg, smi, runs)
     if "profile" in phases:
         phase_profile(dev)
+    if "nccl" in phases:
+        phase_nccl(dev)
 
     if set(ALL_PHASES) <= set(phases):
         kernels = []

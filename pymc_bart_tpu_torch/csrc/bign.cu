@@ -113,6 +113,9 @@ struct BignArgs {
   float* vi;
   int C, P, S, n, p, m, B, D, R, lik, tuning, tile, ntiles;
   int y_stride;  // y is one row vector for every chain (0) or one a chain (n)
+  // the row Gumbels' streams are those of chains c0 ... c0 + C - 1 of Cg and
+  // their counters those of rows row0 ... row0 + n - 1 (a rank of a mesh)
+  int Cg, c0, row0;
   float lik_const, decay;
   float p_grow[kMaxDepth];
 };
@@ -156,7 +159,7 @@ __device__ __forceinline__ float row_ll(int lik, float c0, float y, float F,
 
 __device__ __forceinline__ unsigned int gumbel_stream(const BignArgs& a, int b,
                                                       int d, int q) {
-  return bart::gumbel_stream(b, d, a.D, a.C * a.P, q);
+  return bart::gumbel_stream(b, d, a.D, a.Cg * a.P, a.c0 * a.P + q);
 }
 
 // Every kernel of the step is launched with programmatic stream
@@ -806,19 +809,25 @@ __global__ void __launch_bounds__(kThreads) k_finish(const BignArgs a) {
   if (t == 0) a.batch_offset[c] = (a.batch_offset[c] + a.B) % a.m;
 }
 
-// the block of row Gumbels the generator produces, (B, D, C, P, n)
+// the block of row Gumbels the generator produces, (B, D, C, P, n): block
+// row blockIdx.y = (b D + d) C P + q of this block, the stream of its tree,
+// level and global chain
 __global__ void __launch_bounds__(kThreads) k_gumbel_block(const BignArgs a,
                                                            float* out) {
-  const unsigned int stream = blockIdx.y;
+  const int CP = a.C * a.P, bd = blockIdx.y / CP, q = blockIdx.y % CP;
+  const unsigned int stream =
+      bart::gumbel_stream(bd / a.D, bd % a.D, a.D, a.Cg * a.P, a.c0 * a.P + q);
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i < a.n)
-    out[(size_t)stream * a.n + i] = gen_gumbel(a.seed[0], a.seed[1], i, stream);
+    out[(size_t)blockIdx.y * a.n + i] =
+        gen_gumbel(a.seed[0], a.seed[1], a.row0 + i, stream);
 }
 
 bool valid(const BignArgs& a) {
   return a.D >= 1 && a.D <= kMaxDepth && a.P >= 2 && a.C >= 1 && a.n >= 1
       && a.S == (1 << (a.D + 1)) - 1 && a.tile >= 1
       && a.ntiles == (a.n + a.tile - 1) / a.tile && (a.rg || a.seed)
+      && a.c0 >= 0 && a.c0 + a.C <= a.Cg && a.row0 == 0
       && a.tickets != nullptr;
 }
 
@@ -897,7 +906,8 @@ extern "C" int pgbart_bign_launch(const void* args, void* stream_) {
 extern "C" int pgbart_bign_gumbel_block(const void* args, float* out,
                                         void* stream_) {
   const BignArgs a = *static_cast<const BignArgs*>(args);
-  if (a.n < 1 || !a.seed) return (int)cudaErrorInvalidValue;
+  if (a.n < 1 || !a.seed || a.c0 < 0 || a.c0 + a.C > a.Cg || a.row0 < 0)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((a.n + kThreads - 1) / kThreads, a.B * a.D * a.C * a.P);
   BIGN_LAUNCH(k_gumbel_block<<<grid, kThreads, 0, (cudaStream_t)stream_>>>(a, out));
   return 0;

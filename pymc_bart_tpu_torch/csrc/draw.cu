@@ -138,6 +138,9 @@ struct DrawArgs {
   int CS, PB, WP, shared_form, x_staged, cdf_staged;
   // y is one row vector for every chain (0) or one a chain (n)
   int y_stride;
+  // the row Gumbels' streams are those of chains c0 ... c0 + C - 1 of Cg
+  // (a rank of a mesh runs its block of the chains)
+  int Cg, c0;
   float lik_const, decay;
   float p_grow[kMaxDepth];
 };
@@ -676,7 +679,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) pgbart_step_kernel(const DrawA
       if (growing) {
         const float* gum = a.rg
             ? a.rg + ((((size_t)b * D + d) * C + c) * P + pi) * n : nullptr;
-        const unsigned int stream = bart::gumbel_stream(b, d, D, C * P, q);
+        const unsigned int stream =
+            bart::gumbel_stream(b, d, D, a.Cg * P, a.c0 * P + q);
         for (int base = tw * 32; base < n; base += TT) {
           const int i = base + lane;
           int node = -1;
@@ -988,7 +992,7 @@ bool valid_args(const DrawArgs& a) {
       && a.p >= 1 && a.R >= 1 && a.S == (1 << (a.D + 1)) - 1 && a.CS >= 1
       && a.CS <= kMaxCluster && a.PB >= 1 && a.WP >= 1
       && a.PB * a.WP * 32 <= kMaxThreads && a.CS * a.PB >= a.P
-      && (a.rg || a.seed)
+      && (a.rg || a.seed) && a.c0 >= 0 && a.c0 + a.C <= a.Cg
       && (a.shared_form ? a.S <= 65535
                         : a.ps_li && a.g_acc && a.g_cnt && a.g_leaf);
 }

@@ -399,7 +399,7 @@ _POINTERS = (
     "cdf", "root", "ll", "ll_prev", "log_w", "cdfp", "prob", "w_lf", "take",
     "widx", "vi_cnt", "tickets", "vi")
 _INTS = ("C", "P", "S", "n", "p", "m", "B", "D", "R", "lik", "tuning", "tile",
-         "ntiles", "y_stride")
+         "ntiles", "y_stride", "Cg", "c0", "row0")
 
 
 class _BignArgs(ctypes.Structure):
@@ -464,18 +464,35 @@ def _mul_hi_lo(const: int, x: torch.Tensor):
     return hi, lo
 
 
+def gumbel_streams(B: int, D: int, C: int, P: int, chains: Optional[int],
+                   chain0: int, device) -> torch.Tensor:
+    """int64 (B * D * C * P,): the generator's stream of each (tree, level,
+    chain, particle) of a block for the ``C`` chains from ``chain0`` of
+    ``chains`` (``csrc/common.cuh::gumbel_stream`` of the global chain)."""
+    Cg = C if chains is None else chains
+    i64 = torch.int64
+    bd = torch.arange(B * D, dtype=i64, device=device)[:, None, None]
+    c = torch.arange(C, dtype=i64, device=device)[None, :, None]
+    pi = torch.arange(P, dtype=i64, device=device)[None, None, :]
+    return (bd * (Cg * P) + (chain0 + c) * P + pi).reshape(-1)
+
+
 def gumbel_block_plain(seed: torch.Tensor, *, B: int, C: int, P: int, D: int,
-                       n: int) -> torch.Tensor:
+                       n: int, chains: Optional[int] = None, chain0: int = 0,
+                       row0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernels' generator (``csrc/common.cuh``):
     Philox-4x32-10 keyed by ``seed``, counter (row, stream of (tree, level,
     chain, particle)), the first output word's top 23 bits mapped to
-    ``u = (k + 0.5) 2^-23`` and ``-log(-log(u))``."""
+    ``u = (k + 0.5) 2^-23`` and ``-log(-log(u))``.  The block of ``C`` chains
+    from ``chain0`` of ``chains`` and of the rows from ``row0``: the values
+    those chains and rows get in the block of all of them."""
     dev = seed.device
     i64 = torch.int64
     key = seed.to(i64) & 0xFFFFFFFF
     k0, k1 = key[0], key[1]
-    c0 = torch.arange(n, dtype=i64, device=dev).expand(B * D * C * P, n)
-    c1 = torch.arange(B * D * C * P, dtype=i64, device=dev)[:, None].expand(
+    c0 = torch.arange(row0, row0 + n, dtype=i64,
+                      device=dev).expand(B * D * C * P, n)
+    c1 = gumbel_streams(B, D, C, P, chains, chain0, dev)[:, None].expand(
         B * D * C * P, n)
     c2 = torch.zeros_like(c0)
     c3 = torch.zeros_like(c0)
@@ -490,22 +507,28 @@ def gumbel_block_plain(seed: torch.Tensor, *, B: int, C: int, P: int, D: int,
 
 
 def gumbel_block(seed: torch.Tensor, *, B: int, C: int, P: int, D: int,
-                 n: int) -> torch.Tensor:
+                 n: int, chains: Optional[int] = None, chain0: int = 0,
+                 row0: int = 0) -> torch.Tensor:
     """The (B, D, C, P, n) row Gumbels the kernels generate from ``seed``
     (``StepRands.seed``: two int32 words): written out by the kernels' own
     generator for a seed on a CUDA device, by its plain version for one on
-    the CPU (the same uniforms; the logarithms are each device's)."""
+    the CPU (the same uniforms; the logarithms are each device's).  The
+    chains are ``chain0 ... chain0 + C - 1`` of ``chains`` (default ``C``)
+    and the rows ``row0 ... row0 + n - 1``: a rank of a mesh writes out its
+    part of the block of all chains and rows."""
     if not (isinstance(seed, torch.Tensor) and seed.dtype == torch.int32
             and tuple(seed.shape) == (2,)):
         raise ValueError("gumbel_block: seed must be an int32 tensor of "
                          "shape (2,)")
     if not seed.is_cuda:
-        return gumbel_block_plain(seed, B=B, C=C, P=P, D=D, n=n)
+        return gumbel_block_plain(seed, B=B, C=C, P=P, D=D, n=n,
+                                  chains=chains, chain0=chain0, row0=row0)
     device = seed.device
     out = torch.empty((B, D, C, P, n), dtype=torch.float32, device=device)
     a = _BignArgs()
     a.seed = _check_seed(seed, device)
     a.B, a.C, a.P, a.D, a.n = B, C, P, D, n
+    a.Cg, a.c0, a.row0 = C if chains is None else chains, chain0, row0
     with torch.cuda.device(device):
         err = _lib().pgbart_bign_gumbel_block(ctypes.byref(a), out.data_ptr(),
                                               _build.current_stream())
@@ -635,6 +658,7 @@ def pgbart_step_bign_kernel(state, rands, X, Y_target, cfg: BartConfig,
     a.C, a.P, a.S, a.n, a.p, a.m, a.B, a.D, a.R = C, P, S, n, p, m, B, D, R
     a.lik, a.tuning = LIK_CODES[lik], int(bool(tuning))
     a.tile, a.ntiles, a.y_stride = tile, ntiles, y_stride
+    a.Cg, a.c0 = rands.chains or C, rands.chain0
     a.lik_const, a.decay = float(lik_const), float(pg.split_prior_decay)
     for d in range(D):
         a.p_grow[d] = float(cfg.alpha * (1.0 + d) ** (-cfg.beta))

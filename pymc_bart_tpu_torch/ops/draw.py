@@ -243,7 +243,8 @@ def pgbart_step_fused_plain(state, rands, X, Y_target, rules,
         C, m, _S = state.forest.split_var.shape
         rands = dataclasses.replace(rands, rg=gumbel_block(
             rands.seed, B=pg.batch_size(m, tuning), C=C, P=pg.num_particles,
-            D=cfg.max_depth, n=X.shape[0]))
+            D=cfg.max_depth, n=X.shape[0], chains=rands.chains,
+            chain0=rands.chain0))
     return step_rounds(state, rands, X, Y_target, rules, cfg, pg, tuning,
                        lik_row, impl="plain", lik=lik, lik_const=lik_const)
 
@@ -264,7 +265,8 @@ _POINTERS = (
     "ps_lf", "ps_ct", "ps_li", "noi", "g_acc", "g_cnt", "g_leaf", "cdf",
     "vi_cnt", "vi")
 _INTS = ("C", "P", "S", "n", "p", "m", "B", "D", "R", "lik", "tuning", "CS",
-         "PB", "WP", "shared_form", "x_staged", "cdf_staged", "y_stride")
+         "PB", "WP", "shared_form", "x_staged", "cdf_staged", "y_stride",
+         "Cg", "c0")
 
 
 class _DrawArgs(ctypes.Structure):
@@ -446,6 +448,7 @@ def pgbart_step_fused_kernel(state, rands, X, Y_target, rules,
     a.C, a.P, a.S, a.n, a.p, a.m, a.B, a.D, a.R = C, P, S, n, p, m, B, D, R
     a.lik, a.tuning = LIK_CODES[lik], int(bool(tuning))
     a.y_stride = y_stride
+    a.Cg, a.c0 = rands.chains or C, rands.chain0
     a.CS, a.PB, a.WP = plan.cluster, plan.per_block, plan.warps
     a.shared_form = int(shared)
     a.x_staged, a.cdf_staged = int(plan.x_staged), int(plan.cdf_staged)

@@ -32,6 +32,11 @@ The generic likelihood (and every joint forest of k >= 2 outputs) passes
 zero row weights and does not read ``ll``: its particles are weighted by the
 model's own log-likelihood of ``pred`` (``sampler/pgbart.py``).
 
+The plain version is also the row-sharded round (``rows``, the JAX
+package's ``data_axis``; the JAX package turns its Pallas kernels off there
+and so does the port) and the node-space Gaussian round (``node_stats``,
+JAX's ``suff``): see ``grow_round_plain``.
+
 Dispatch: the kernel runs when the tensors are on a CUDA device, the plain
 version when they are on the CPU; ``impl="kernel"|"plain"`` forces one.
 Nothing falls back: a kernel that fails to build or launch raises.
@@ -47,8 +52,9 @@ import torch
 
 from ..config import BartConfig
 from . import _build
-from .sums import (FIXED_BITS, chain_exponent, column_exponents, keyed_isum,
-                   keyed_linear_sums, keyed_sum_fixed, pow2, sum64, true_div)
+from .sums import (FIXED_BITS, chain_exponent, column_exponents, from_fixed,
+                   gumbel_pick, keyed_isum, keyed_linear_sums,
+                   keyed_sum_fixed, pow2, sum64, true_div)
 from .trees import float_to_int32, hash_bit
 
 _RESPONSE_CODE = {"constant": 0, "linear": 1, "mix": 2}
@@ -66,15 +72,62 @@ def _gather_p(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, view.expand(idx.shape + a.shape[2:]))
 
 
+def fixed_moments(resid: torch.Tensor, e_r: torch.Tensor):
+    """int64 ``(round(r 2^(38 - e)), round(r^2 2^(38 - 2 e)))`` of the
+    residuals ``resid`` (C, k, n) on the chains' scales ``e_r`` (C,)
+    (``sums.chain_exponent``): the fixed-point terms of the node-space sums
+    (``r^2`` of a float32 is exact in float64, as is the scaling)."""
+    r = resid.to(torch.float64)
+    e = e_r.to(torch.int32)[:, None, None]
+    return (torch.round(r * pow2(FIXED_BITS - e)).to(torch.int64),
+            torch.round(r * r * pow2(FIXED_BITS - 2 * e)).to(torch.int64))
+
+
+def node_ll(lf, N, R, Q, occ, w, e_r) -> torch.Tensor:
+    """Gaussian log-likelihood of each particle's depth-truncated prediction
+    from its node statistics, with no row pass (JAX's ``node_ll``): every row
+    predicts the leaf value ``v`` of its occupied node, so
+    ``ll = -w/2 sum_occupied (Q - 2 v R + v^2 N)``.  ``lf`` (C, P, 1, S);
+    ``N`` float32, ``R`` and ``Q`` int64 in fixed point on the scale of
+    ``e_r`` (C,) (``fixed_moments``), ``occ`` bool, all (C, P, S); ``w`` (C,)
+    the chains' precisions.  Taken in float64 and rounded once."""
+    f64 = torch.float64
+    e = e_r.to(torch.int32)[:, None, None]
+    Rf = R.to(f64) * pow2(e - FIXED_BITS)
+    Qf = Q.to(f64) * pow2(2 * e - FIXED_BITS)
+    v = lf[:, :, 0].to(f64)
+    t = Qf - 2.0 * v * Rf + v * v * N.to(f64)
+    tot = torch.where(occ, t, torch.zeros_like(t)).sum(dim=-1)
+    return (-0.5 * w.to(f64)[:, None] * tot).to(torch.float32)
+
+
 def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
                      pred_prev, X, resid, rules, alpha_cdf, leaf_sd,
                      ll_weight, u_grow, u_var, row_gum, eps, set_bits,
-                     u_mix=None, *, d: int, cfg: BartConfig):
+                     u_mix=None, *, d: int, cfg: BartConfig, rows=None,
+                     node_stats=None):
     """Plain PyTorch growth round (same signature and outputs as the kernel).
 
     Returns ``(sv, sl, st, lf, ct, sp, leaf_idx, pred, ll)`` with ``ll`` (C, P).
     NaN-able values (``sl`` holds NaN split values) are blended with
     ``torch.where`` only, never with mask arithmetic.
+
+    ``rows`` (``parallel.mesh.RowShard``, constant response): ``X``,
+    ``resid``, ``ll_weight``, ``leaf_idx``, ``pred_prev`` and ``row_gum``
+    hold this rank's rows of a row-sharded model.  A node's split value is
+    ``sums.gumbel_pick``'s over every shard (the unsharded winner, ties to
+    the lowest row); the child counts and fixed-point sums and the
+    log-likelihood's float64 partial sums are added over the data group.
+    The tree state comes out the same on every shard, equal in its integers
+    to the unsharded round's.
+
+    ``node_stats`` ``(N, R, Q, occ)`` (C, P, S) (the node-space Gaussian
+    mode; k = 1, constant response, one precision a chain
+    ``ll_weight[:, 0, 0]``): each particle's per-node row count, fixed-point
+    sums of r and r^2 (``fixed_moments``) and row occupancy.  The round
+    writes the children of every grown or replayed node, ``ll`` is
+    ``node_ll`` and no prediction is carried (``pred_prev`` may be None and
+    comes back as given); the updated ``node_stats`` are a tenth output.
     """
     C, P, S = sv.shape
     n, p = X.shape
@@ -86,11 +139,17 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     lin = cfg.response != "constant"
     m = float(cfg.m)
 
+    if (rows is not None or node_stats is not None) and lin:
+        raise ValueError("grow_round_plain: row sharding and the node-space "
+                         "mode take the constant response")
     tk = take.to(torch.int64)
     fz = torch.gather(frozen.to(torch.bool), 1, tk)[:, :, None]   # (C, P, 1)
-    sv, sl, st, lf, ct, sp, li, pred_prev = (
-        _gather_p(a, tk) for a in (sv, sl, st, lf, ct, sp, leaf_idx,
-                                   pred_prev))
+    sv, sl, st, lf, ct, sp, li = (
+        _gather_p(a, tk) for a in (sv, sl, st, lf, ct, sp, leaf_idx))
+    if pred_prev is not None:
+        pred_prev = _gather_p(pred_prev, tk)
+    if node_stats is not None:
+        node_stats = tuple(_gather_p(a, tk) for a in node_stats)
     li = li.to(torch.int64)
 
     node_sv = sv[:, :, lo:hi]
@@ -107,11 +166,6 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     slots = torch.arange(G, device=dev)
     onehot = slots[None, None, :, None] == (li - lo)[:, :, None, :]
 
-    # uniform member row per node: Gumbel arg-max, first index on ties
-    neg_inf = torch.full((), float("-inf"), device=dev)
-    scores = torch.where(onehot, row_gum[:, :, None, :], neg_inf)
-    row_sel = scores.argmax(dim=-1)                              # (C, P, G)
-
     node_sl = sl[:, :, lo:hi]
     node_st = st[:, :, lo:hi]
     varx = torch.where(fz, node_sv.to(torch.int64), var_s)
@@ -121,13 +175,16 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     # per row: its node's split variable, covariate value and rule
     varx_row = torch.where(in_level, torch.gather(varx_c, 2, g_row),
                            torch.zeros_like(g_row))
-    rows = torch.arange(n, device=dev)
-    xraw = X[rows.expand(varx_row.shape), varx_row]              # (C, P, n)
+    row_ids = torch.arange(n, device=dev)
+    xraw = X[row_ids.expand(varx_row.shape), varx_row]           # (C, P, n)
     xv_nan = torch.isnan(xraw)
     xv = torch.where(xv_nan, torch.zeros_like(xraw), xraw)
     rule_row = rules[varx_row]
 
-    val_raw = torch.gather(xraw, 2, row_sel)                     # NaN kept
+    # each node's split value: the covariate at its member row of largest
+    # Gumbel (over every shard's rows, with ``rows``)
+    val_raw = gumbel_pick(row_gum[:, :, None, :], onehot,
+                          xraw[:, :, None, :], rows)             # (C, P, G)
     valx = torch.where(fz, node_sl, val_raw)
     setx = torch.where(fz, node_st, set_bits)
     valx_row = torch.gather(valx, 2, g_row)
@@ -149,12 +206,19 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     # the kernel's integer atomics)
     G2 = 2 * G
     key = tentative - hi
-    e_r = chain_exponent(resid)                                  # (C,)
+    e_r = chain_exponent(resid, rows)                            # (C,)
     ccounts = keyed_isum(torch.ones((C, P, 1, n), dtype=torch.int64,
-                                    device=dev), key, G2)[:, :, 0].to(
+                                    device=dev), key, G2, rows)[:, :, 0].to(
         torch.float32)                                           # (C, P, 2G)
-    csums = keyed_sum_fixed(resid, key, G2, pow2(FIXED_BITS - e_r),
-                            pow2(e_r - FIXED_BITS))              # (C,P,k,2G)
+    if node_stats is None:
+        csums = keyed_sum_fixed(resid, key, G2, pow2(FIXED_BITS - e_r),
+                                pow2(e_r - FIXED_BITS), rows)    # (C,P,k,2G)
+    else:
+        q_r, q_q = fixed_moments(resid, e_r)                     # (C, 1, n)
+        acc = keyed_isum(torch.cat([q_r, q_q], dim=1)[:, None].expand(
+            C, P, 2, n), key, G2, rows)                          # (C,P,2,2G)
+        csums = from_fixed(acc[:, :, 0:1],
+                           pow2(e_r - FIXED_BITS)[:, None, None, None])
     cl = ccounts[..., 0::2]
     cr = ccounts[..., 1::2]
     grow_ok = want & (cl > 0) & (cr > 0)
@@ -205,6 +269,23 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     lf_new = lf.clone()
     lf_new[..., hi:hi + G2] = new_clf
 
+    if node_stats is not None:
+        # the statistics of every node activated this round (grown, or
+        # replayed by the frozen particle: its likelihood is taken under the
+        # current residuals); the rows move from the parents to the children
+        N, R, Q, occ = (a.clone() for a in node_stats)
+        act2 = active_final.repeat_interleave(2, dim=-1)         # (C, P, 2G)
+        N[:, :, hi:hi + G2] = torch.where(act2, ccounts, N[:, :, hi:hi + G2])
+        R[:, :, hi:hi + G2] = torch.where(act2, acc[:, :, 0],
+                                          R[:, :, hi:hi + G2])
+        Q[:, :, hi:hi + G2] = torch.where(act2, acc[:, :, 1],
+                                          Q[:, :, hi:hi + G2])
+        occ[:, :, lo:hi] = occ[:, :, lo:hi] & ~active_final
+        occ[:, :, hi:hi + G2] = occ[:, :, hi:hi + G2] | (act2 & (ccounts > 0))
+        ll = node_ll(lf_new, N, R, Q, occ, ll_weight[:, 0, 0], e_r)
+        return (sv_new, sl_new, st_new, lf_new, ct_new, sp_new,
+                li_new.to(torch.int32), pred_prev, ll, (N, R, Q, occ))
+
     # incremental prediction: only rows that moved change value
     ch_row = key.clamp(0, G2 - 1)[:, :, None, :].expand(C, P, k, n)
     mu_row = torch.gather(new_clf, 3, ch_row)
@@ -213,7 +294,8 @@ def grow_round_plain(take, frozen, sv, sl, st, lf, ct, sp, leaf_idx,
     pred = torch.where(moved[:, :, None, :], mu_row, pred_prev)
 
     diff = resid[:, None] - pred
-    ll = -0.5 * sum64((ll_weight[:, None] * diff * diff).flatten(2))
+    ll = -0.5 * sum64((ll_weight[:, None] * diff * diff).flatten(2),
+                      rows=rows)
     return (sv_new, sl_new, st_new, lf_new, ct_new, sp_new,
             li_new.to(torch.int32), pred, ll)
 

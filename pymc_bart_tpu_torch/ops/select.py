@@ -43,9 +43,10 @@ from typing import Optional
 import torch
 
 from . import _build
+from .grow import node_ll
 from .predict import leaf_values_at
-from .sums import (fixed_scale, keyed_sum_fixed, seq_cumsum, sum64,
-                   true_div)
+from .sums import (FIXED_BITS, fixed_scale, from_fixed, keyed_sum_fixed, pow2,
+                   seq_cumsum, sum64, true_div)
 
 RESPONSES = ("constant", "linear", "mix")
 
@@ -54,7 +55,7 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
                         ll_weight, eps, u_acc, u_sel, half_inv_var, *,
                         num_refinements: int, m: int = 1, ll_fn=None,
                         response: str = "constant", sp=None, X=None,
-                        g_sel=None):
+                        g_sel=None, rows=None):
     """Plain PyTorch version (same signature and outputs as the kernel), for
     ``k >= 1`` outputs (``lf``/``sp`` (C, P, k, S), ``pred`` (C, P, k, n),
     ``resid``/``ll_weight`` (C, k, n), ``eps`` (C, R, k, S)).
@@ -68,7 +69,10 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     ``response`` ``"linear"`` / ``"mix"`` the slope term ``sp[leaf] * x`` of
     every row is taken once (the sweeps move intercepts only) and added to
     each proposal's leaf value, as the kernel does; a Gaussian winner is
-    then ``argmax(log_w + g_sel)``."""
+    then ``argmax(log_w + g_sel)``.  ``rows`` (``parallel.mesh.RowShard``):
+    the row arrays are this rank's of a row-sharded model; the leaf sums and
+    the Gaussian log-likelihood are reduced over the data group (an
+    ``ll_fn`` reduces its own)."""
     C, P, S = sv.shape
     k = lf.shape[2]
     n = leaf_idx.shape[2]
@@ -108,7 +112,8 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     # per-leaf residual sums in fixed point, the other sums in float64
     # rounded once: what the kernels compute (ops/sums.py)
     leaf_rsum = keyed_sum_fixed(resid, li64[:, None, :], S,
-                                *fixed_scale(resid))[:, 0]       # (C, k, S)
+                                *fixed_scale(resid, rows),
+                                rows=rows)[:, 0]                 # (C, k, S)
     center = true_div(leaf_rsum / ct_w.clamp_min(1.0)[:, None, :], m)
     hiv = half_inv_var
     per_output = hiv.dim() == 2
@@ -117,7 +122,7 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
         if ll_fn is not None:
             return ll_fn(pred_x)
         diff = resid - pred_x
-        return -0.5 * sum64((ll_weight * diff * diff).flatten(1))
+        return -0.5 * sum64((ll_weight * diff * diff).flatten(1), rows=rows)
 
     def lp_of(lf_x):
         # the order of products of the JAX package's constant kernel and of
@@ -143,6 +148,61 @@ def select_refine_plain(sv, sl, st, lf, ct, leaf_idx, pred, log_w, resid,
     if lin:
         head = head + (sp_w,)
     return head + (li_w, pred_w)
+
+
+def select_refine_nodes(sv, sl, st, lf, ct, leaf_idx, node_stats, log_w, w,
+                        e_r, eps, u_acc, u_sel, half_inv_var, *,
+                        num_refinements: int, m: int = 1):
+    """Winner and refinement of a Gaussian tree in node space (JAX's
+    ``suff_gauss`` branch of ``_update_one_tree``), k = 1, constant response.
+
+    ``node_stats`` ``(N, R, Q, occ)`` (C, P, S) are the particles' node
+    statistics from ``grow_round_plain(node_stats=...)`` (fixed point on the
+    scale of ``e_r`` (C,)), ``w`` (C,) the chains' precisions; the other
+    arguments as ``select_refine_plain``'s (``leaf_idx`` (C, P, n) may hold
+    one shard's rows).  The winner is drawn as the constant response's (by
+    inverse CDF on ``u_sel``); the prior centres are the winner's leaf sums
+    over its counts and each of the ``num_refinements`` sweeps weighs its
+    proposal by ``grow.node_ll``: no row is read until the winner's
+    prediction, one gather at the end.  Every quantity is replicated over a
+    data group, so a row-sharded run refines as the unsharded one does.
+    Returns ``sv, sl, st (C, S)``, ``lf (C, 1, S)``, ``ct (C, S)``,
+    ``leaf_idx (C, n)``, ``pred (C, 1, n)``."""
+    C, P, S = sv.shape
+    mx = log_w.max(dim=1, keepdim=True).values
+    cdf = seq_cumsum(torch.exp(log_w - mx))
+    u = u_sel * cdf[:, -1]
+    widx = (cdf < u[:, None]).sum(dim=1).clamp(0, P - 1)         # (C,)
+
+    def pick(a):
+        idx = widx.reshape((C, 1) + (1,) * (a.dim() - 2))
+        return torch.gather(a, 1, idx.expand((C, 1) + a.shape[2:]))
+
+    sv_w, sl_w, st_w, ct_w, li_w = (pick(a)[:, 0] for a in (
+        sv, sl, st, ct, leaf_idx))
+    lf_w = pick(lf)[:, 0]                                        # (C, 1, S)
+    N_w, R_w, Q_w, occ_w = (pick(a) for a in node_stats)         # (C, 1, S)
+    leaf_mask = occ_w.to(torch.float32)                          # (C, 1, S)
+    rsum = from_fixed(R_w, pow2(e_r - FIXED_BITS)[:, None, None])
+    center = true_div(rsum / ct_w.clamp_min(1.0)[:, None, :], m)
+    hiv = half_inv_var
+
+    def ll_of(lf_x):
+        return node_ll(lf_x[:, None], N_w, R_w, Q_w, occ_w, w, e_r)[:, 0]
+
+    def lp_of(lf_x):
+        dev = lf_x - center
+        return -hiv * sum64((leaf_mask * dev * dev).flatten(1))
+
+    ll_c = ll_of(lf_w) + lp_of(lf_w)
+    for i in range(num_refinements):
+        lf_p = lf_w + eps[:, i] * leaf_mask
+        ll_p = ll_of(lf_p) + lp_of(lf_p)
+        acc = (torch.log(u_acc[:, i]) < (ll_p - ll_c))
+        lf_w = torch.where(acc[:, None, None], lf_p, lf_w)
+        ll_c = torch.where(acc, ll_p, ll_c)
+    pred_w = torch.gather(lf_w, 2, li_w.to(torch.int64)[:, None, :])
+    return sv_w, sl_w, st_w, lf_w, ct_w, li_w, pred_w
 
 
 def _is_linear(response: str) -> bool:

@@ -26,18 +26,27 @@ same numbers.
   x r on the product of the column's and the chain's residual scale; the
   products are exact in float64 before they are rounded to integers.  With
   at most 2^24 rows no sum overflows 63 bits.
+
+Under row sharding (``rows``: a ``parallel.mesh.RowShard``) every such sum is
+reduced over the data group: the fixed-point integers by an int64 SUM (exact,
+in no order, so a sharded sum has the bits of the unsharded one), the
+exponents by a MAX (every shard scales by the largest value of all rows),
+the float64 partial sums before their one rounding.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import row_max, row_sum
+
 FIXED_BITS = 38           # bits of the chain's largest residual (kernel: same)
 
 
-def sum64(x: torch.Tensor, dim=-1) -> torch.Tensor:
-    """Sum over ``dim`` in float64, rounded to float32 once."""
-    return x.to(torch.float64).sum(dim=dim).to(torch.float32)
+def sum64(x: torch.Tensor, dim=-1, rows=None) -> torch.Tensor:
+    """Sum over ``dim`` in float64, rounded to float32 once (the partial sums
+    of the data group added first, with ``rows``)."""
+    return row_sum(x.to(torch.float64).sum(dim=dim), rows).to(torch.float32)
 
 
 def seq_sum(x: torch.Tensor) -> torch.Tensor:
@@ -84,20 +93,20 @@ def pow2(e: torch.Tensor) -> torch.Tensor:
                                   device=e.device), e)
 
 
-def fixed_scale(resid: torch.Tensor):
+def fixed_scale(resid: torch.Tensor, rows=None):
     """``(scale, inverse)`` float64[C] of the fixed-point sums of a chain's
     residuals ``resid`` (C, ...): powers of two with
     ``max |resid| * scale < 2^FIXED_BITS``."""
-    e = chain_exponent(resid)
+    e = chain_exponent(resid, rows)
     return pow2(FIXED_BITS - e), pow2(e - FIXED_BITS)
 
 
-def chain_exponent(resid: torch.Tensor) -> torch.Tensor:
+def chain_exponent(resid: torch.Tensor, rows=None) -> torch.Tensor:
     """int32[C]: ``fixed_exponent`` of the largest ``|resid|`` of each chain
-    (C, ...)."""
+    (C, ...) (over every shard's rows, with ``rows``)."""
     C = resid.shape[0]
-    return fixed_exponent(resid.reshape(C, -1).abs().amax(dim=1).to(
-        torch.float64))
+    top = resid.reshape(C, -1).abs().amax(dim=1).to(torch.float64)
+    return fixed_exponent(row_max(top, rows))
 
 
 def column_exponents(X: torch.Tensor) -> torch.Tensor:
@@ -107,14 +116,64 @@ def column_exponents(X: torch.Tensor) -> torch.Tensor:
     return fixed_exponent(finite.abs().amax(dim=0).to(torch.float64))
 
 
-def keyed_isum(q: torch.Tensor, keys: torch.Tensor, K: int) -> torch.Tensor:
+def keyed_isum(q: torch.Tensor, keys: torch.Tensor, K: int,
+               rows=None) -> torch.Tensor:
     """Integer sums of ``q`` int64 (C, P, J, n) keyed by ``keys`` (C, P, n):
-    int64 (C, P, J, K); a row whose key is outside ``[0, K)`` is left out."""
+    int64 (C, P, J, K); a row whose key is outside ``[0, K)`` is left out.
+    With ``rows`` the sums of the data group's shards are added."""
     C, P, J, n = q.shape
     idx = torch.where((keys >= 0) & (keys < K), keys, torch.full_like(keys, K))
     acc = torch.zeros((C, P, J, K + 1), dtype=torch.int64, device=q.device)
     acc.scatter_add_(3, idx[:, :, None, :].expand(C, P, J, n), q)
-    return acc[..., :K]
+    return row_sum(acc[..., :K], rows)
+
+
+def pack_key(v: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose order is that of ``(v, -i)``: the float32 value
+    ``v`` above, the row ``i`` below (``csrc/common.cuh::pack_key`` shifted
+    to the signed range), so the largest key is the largest value at its
+    lowest row; one MAX over rows (and over shards, with global rows) finds
+    the Gumbel winner of the kernels' tie rule."""
+    b = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where(b >= 2**31, 0xFFFFFFFF - b, b + 2**31)
+    return (b - 2**31) * 2**32 + (0xFFFFFFFF - i.to(torch.int64))
+
+
+def key_row(key: torch.Tensor) -> torch.Tensor:
+    """The row ``i`` a ``pack_key`` key holds."""
+    return 0xFFFFFFFF - (key & 0xFFFFFFFF)
+
+
+# below every ``pack_key`` key: no row
+_NO_KEY = -2**63
+
+
+def gumbel_pick(gum: torch.Tensor, mask: torch.Tensor, values: torch.Tensor,
+                rows=None) -> torch.Tensor:
+    """The value of ``values`` at the row of largest Gumbel ``gum`` among the
+    rows that ``mask`` holds (the lowest row on a tie), NaN where it holds
+    none: the split-value draw of the growth rounds and of rejuvenation.
+
+    The three arrays broadcast together, rows on the last axis; the result
+    has their shape without it.  The winner is the largest ``pack_key`` of
+    (Gumbel, row); with ``rows`` (``parallel.mesh.RowShard``) the rows are
+    one shard's and the key holds the GLOBAL row, so one MAX over the data
+    group gives the unsharded winner, and its value comes from the shard
+    that owns it (an int64 SUM of the bit pattern, NaN kept)."""
+    n = gum.shape[-1]
+    row0 = 0 if rows is None else rows.row0
+    keys = pack_key(gum, torch.arange(row0, row0 + n, device=gum.device))
+    best = row_max(torch.where(mask, keys, _NO_KEY).amax(dim=-1), rows)
+    found = best != _NO_KEY
+    idx = key_row(best) - row0
+    shape = torch.broadcast_shapes(gum.shape, mask.shape, values.shape)
+    val = values.expand(shape).gather(
+        -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    if rows is not None:
+        own = found & (idx >= 0) & (idx < n)
+        bits = torch.where(own, val.view(torch.int32).to(torch.int64), 0)
+        val = row_sum(bits, rows).to(torch.int32).view(torch.float32)
+    return torch.where(found, val, float("nan"))
 
 
 def from_fixed(acc: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
@@ -154,7 +213,8 @@ def keyed_linear_sums(xv: torch.Tensor, resid: torch.Tensor,
 
 
 def keyed_sum_fixed(values: torch.Tensor, keys: torch.Tensor, K: int,
-                    scale: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
+                    scale: torch.Tensor, inverse: torch.Tensor,
+                    rows=None) -> torch.Tensor:
     """Sums of ``values`` keyed by ``keys``, in fixed point.
 
     ``values`` float32 (C, k, n); ``keys`` int64 (C, P, n) with the key of
@@ -164,5 +224,5 @@ def keyed_sum_fixed(values: torch.Tensor, keys: torch.Tensor, K: int,
     P = keys.shape[1]
     q = torch.round(values.to(torch.float64) * scale[:, None, None]).to(
         torch.int64)
-    acc = keyed_isum(q[:, None].expand(C, P, k, n), keys, K)
+    acc = keyed_isum(q[:, None].expand(C, P, k, n), keys, K, rows)
     return from_fixed(acc, inverse[:, None, None, None])

@@ -27,8 +27,9 @@ otherwise (``sample(pgbart_route=...)`` forces one; the linear and mix
 responses take the per-round route, under every likelihood); chunked
 tune/draw loops, adaptation harmonisation, timings, stored posterior forests,
 checkpoint / resume (``utils/checkpoint.py``), the debug aids and
-convergence checks.  ``mesh`` waits for later work and raises
-``NotImplementedError``.
+convergence checks; ``sample(mesh=...)`` over the ranks of a
+``torch.distributed`` world (``parallel/mesh.py``): chains over the
+``"chains"`` axis, rows over ``"data"``, the full posterior on every rank.
 
 Device policy: ``sample(device=None)`` runs on ``cuda`` and raises if no
 CUDA device is present; the CPU is used only for ``device="cpu"``.
@@ -54,6 +55,7 @@ from ..models.expr import Expr, Op, evaluate
 from ..models.inference_data import DataArray, Dataset, InferenceData
 from ..models.model import BARTRV, Deterministic, Model
 from ..ops.trees import Forest
+from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt_mod
 from ..utils.posterior import PosteriorForests
 from . import hmc, nuts, pgbart, rejuvenate
@@ -610,6 +612,42 @@ def _restore_carry(arrays, bart_static, gen):
     return states, h
 
 
+def _carry_layout(bart_static, carry):
+    """``(row axes, names whole on every rank)`` of a ``_carry`` dict under
+    a mesh: the forest entries' fields are each rank's chains (and rows);
+    the ``HmcState`` (every chain on every rank) and the generator are the
+    same on every rank."""
+    rows = {f"pgbart/{bs['tag']}/{name}": ax for bs in bart_static
+            if bs["rows"] is not None
+            for name, ax in pgbart.PgbartState.ROW_AXES.items()}
+    whole = [k_ for k_ in carry if not k_.startswith("pgbart/")]
+    return rows, whole
+
+
+def _gather_carry(bart_static, carry, mesh) -> Dict[str, np.ndarray]:
+    """Every rank's ``_carry`` joined into the whole run's (host arrays)."""
+    host = {k_: v.detach().cpu().numpy() for k_, v in carry.items()}
+    rows, whole = _carry_layout(bart_static, carry)
+    return pmesh.gather_outputs(host, mesh, rows, whole)
+
+
+def _shard_carry(bart_static, arrays, chain_part) -> Dict[str, torch.Tensor]:
+    """This rank's part of a whole run's carry (the inverse of
+    ``_gather_carry``)."""
+    rows, whole = _carry_layout(bart_static, arrays)
+    tag_rows = {f"pgbart/{bs['tag']}/": bs["rows"] for bs in bart_static}
+    out = {}
+    for k_, v in arrays.items():
+        if k_ not in whole:
+            v = v[chain_part]
+            if k_ in rows:
+                r = tag_rows[k_[:k_.rindex("/") + 1]]
+                v = v.narrow(rows[k_], r.row0, r.n)
+            v = v.contiguous()
+        out[k_] = v
+    return out
+
+
 def _check_finite(draw: int, bart_static, bart_states, h, stats) -> None:
     """``debug_nans``: raise ``FloatingPointError`` naming the draw and the
     first quantity holding a value that is not finite: a forest's sum of
@@ -709,13 +747,32 @@ def sample(
     (split values may be NaN by design and are not checked); off, it adds no
     host synchronisation.  ``profile_dir``: trace the draw loop with
     ``torch.profiler`` (CPU activity, and CUDA activity on the card) and
-    write a Chrome trace ``draws.pt.trace.json`` there.
+    write a Chrome trace ``draws.pt.trace.json`` there
+    (``draws.rank<r>.pt.trace.json`` for rank r > 0 of a mesh).
 
-    Not ported yet (``NotImplementedError``): ``mesh``.
+    ``mesh``: a ``DeviceMesh`` of the ranks of a ``torch.distributed`` world
+    (``parallel.mesh.make_mesh``) with a ``"chains"`` axis and optionally a
+    ``"data"`` axis; every rank calls ``sample`` with the same arguments on
+    its own device.  Chains are split over ``"chains"`` (``chains`` must be
+    a multiple of its size): each rank runs the PGBART steps of its chains
+    on its device, with the random numbers an unsharded run gives them (it
+    draws every chain's and keeps its own), and no collective inside a
+    PGBART step; NUTS runs every chain on every rank, on the gathered
+    values of all chains (host-bound, it costs a rank no more than its own
+    chains would, and it keeps the run independent of the placement), so a
+    meshed run returns the unsharded run's posterior bit for bit.  Rows are
+    split over ``"data"``: X, the targets and the observed values hold each
+    rank's rows, the PGBART steps take the per-round route with their child
+    statistics, likelihood sums and split winners reduced over the data
+    group, NUTS sums the observed part's value and gradient over it.  Row
+    sharding refuses what the JAX package refuses: a generic likelihood, a
+    response other than ``"constant"`` and Deterministics.  Every rank
+    returns the full ``InferenceData`` (the draw chunks and, with
+    ``checkpoint_dir``, the carry are gathered; rank 0 alone writes and reads
+    the files and hands every rank its part on resume, so ``checkpoint_dir``
+    need not be on a filesystem the ranks share).  ``random_seed=None``:
+    rank 0's seed.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sample(mesh=...) is not ported to the PyTorch package yet")
     if posterior_dtype is not None and posterior_dtype not in \
             _POSTERIOR_DTYPES:
         raise ValueError(f"posterior_dtype must be None or one of "
@@ -726,8 +783,11 @@ def sample(
     device = resolve_device(device)
     model = Model.get_context(model)
     compiled = CompiledModel(model, device)
+    pmesh.check_mesh(mesh)
+    n_chain_shards, n_data_shards = pmesh.mesh_shape(mesh)
     if random_seed is None:
-        random_seed = int(np.random.default_rng().integers(0, 2**31 - 1))
+        random_seed = int(pmesh.broadcast_object(
+            int(np.random.default_rng().integers(0, 2**31 - 1)), mesh))
     gen = torch.Generator(device=device)
     gen.manual_seed(int(random_seed))
     C = chains
@@ -760,6 +820,8 @@ def sample(
                                         np.float32).reshape(-1),
                              device=device)
              if len(model.observed_rvs) == 1 else None)
+    if obs_y is not None:
+        obs_y = obs_y[pmesh.row_sharding(mesh, obs_y.shape[0])]
     bart_static = []
     for rv_index, brv in enumerate(compiled.bart_rvs):
         cfg = brv.config
@@ -772,9 +834,12 @@ def sample(
             X_np = _jitter_duplicate_values(
                 X_np, rules_np, seed=int(random_seed) ^ 0x5EED)
         Yt = _bart_growth_target(model, brv)
+        n_all = X_np.shape[0]
+        part = pmesh.row_sharding(mesh, n_all)     # this rank's rows
         common = dict(
-            name=brv.name, rv_index=rv_index,
-            X=torch.as_tensor(X_np, device=device), X_raw=X_raw,
+            name=brv.name, rv_index=rv_index, n_total=n_all,
+            rows=pmesh.row_shard(mesh, n_all), row_part=part,
+            X=torch.as_tensor(X_np[part], device=device), X_raw=X_raw,
             rules=torch.as_tensor(rules_np, dtype=torch.int32, device=device),
             rules_np=rules_np, pg=pg_cfgs[brv.name],
             split_prior=brv.split_prior,
@@ -801,8 +866,30 @@ def sample(
                 cfg=(dataclasses.replace(cfg, n_outputs=1,
                                          separate_trees=False)
                      if separate else cfg),
-                Yt=torch.as_tensor(np.ascontiguousarray(Yt_j), dtype=f32,
-                                   device=device)))
+                Yt=torch.as_tensor(np.ascontiguousarray(Yt_j[part]),
+                                   dtype=f32, device=device)))
+    if n_data_shards > 1:
+        # the JAX package's refusals, with its messages
+        for bs in bart_static:
+            if bs["fused"]["kind"] == pgbart.GENERIC:
+                raise ValueError(
+                    "row ('data') sharding requires a fused likelihood "
+                    "(Normal / Bernoulli / heteroscedastic patterns); this "
+                    "model's likelihood is generic")
+            if bs["cfg"].response != "constant":
+                raise ValueError(
+                    "row sharding supports response='constant' only")
+        if model.deterministics:
+            raise ValueError(
+                "row sharding does not support Deterministic tracking")
+        # the observed values hold this rank's rows
+        compiled.observed = tuple(
+            o[pmesh.row_sharding(mesh, o.shape[0])]
+            for o in compiled.observed)
+    chain_part = pmesh.chain_sharding(mesh, chains)
+    Cl = chain_part.stop - chain_part.start      # the chains of this rank
+    obs_rows = (pmesh.row_shard(mesh, len(model.observed_rvs[0].observed))
+                if n_data_shards > 1 and model.observed_rvs else None)
     n_bart = len(compiled.bart_rvs)
     p_max = max((bs["X"].shape[1] for bs in bart_static), default=1)
     if pgbart_route not in (None,) + pgbart.ROUTES:
@@ -813,13 +900,19 @@ def sample(
     theta0 = torch.as_tensor(compiled.initial_theta(), device=device)
     jitter = torch.rand((C, compiled.theta_size), generator=gen,
                         device=device) - 0.5
+    # NUTS state: every chain, on every rank
     h = hmc.init_state(theta0[None, :] + jitter)
     bart_states = [
         pgbart.init_state(bs["X"], bs["Yt"], bs["cfg"],
                           bs["split_prior"] if bs["split_prior"].size
-                          else None, chains=C, device=device)
+                          else None, chains=Cl, device=device,
+                          rows=bs["rows"])
         for bs in bart_static]
     names = [brv.name for brv in compiled.bart_rvs]
+
+    def theta_l():
+        """The NUTS values of this rank's chains."""
+        return h.theta[chain_part]
 
     def bart_values():
         """Each BART RV's current value (C, n, k), in ``names`` order: an
@@ -858,15 +951,15 @@ def sample(
         kind = bs["fused"]["kind"]
         n_i = bs["X"].shape[0]
         probe = (None if kind == "bernoulli"
-                 else torch.ones((C, n_i, 1), device=device))
+                 else torch.ones((Cl, n_i, 1), device=device))
         # a 0-d sigma (one value per chain) means every row of a chain
         # shares one precision: the large-n route's Gaussian regime applies
         bs["w_scalar"] = (kind == "gauss" and env_fns[i](
-            h.theta, *bart_values()).dim() == 1)
+            theta_l(), *bart_values()).dim() == 1)
         bs["route"], why = pgbart.resolve_route(
-            pgbart_route, bs["cfg"], bs["pg"], bs["X"], probe, kind, chains=C,
-            w_scalar=bs["w_scalar"], all_cont=bs["all_cont"],
-            x_nan=bs["x_nan"])
+            pgbart_route, bs["cfg"], bs["pg"], bs["X"], probe, kind,
+            chains=Cl, w_scalar=bs["w_scalar"], all_cont=bs["all_cont"],
+            x_nan=bs["x_nan"], rows=bs["rows"])
         # on the card the row Gumbels come from a seed on every route (the
         # whole-step kernels generate them, the per-round route has them
         # written out by the same generator); on the CPU the block is drawn
@@ -880,6 +973,14 @@ def sample(
 
     def _logp(theta, *bart):
         return compiled.logdensity(theta, dict(zip(names, bart)))
+
+    def _prior(theta, *bart):
+        env, log_jac = compiled.build_env(theta, dict(zip(names, bart)))
+        return compiled.prior_logp(env) + log_jac
+
+    def _observed(theta, *bart):
+        env, _ = compiled.build_env(theta, dict(zip(names, bart)))
+        return compiled.observed_logp(env)
 
     def _collect(theta, *bart):
         internal = dict(zip(names, bart))
@@ -899,12 +1000,12 @@ def sample(
         lik = bs["fused"]["kind"]
         n_i = bs["X"].shape[0]
         if lik == "gauss":
-            sigma = env_fns[i](h.theta, *bart_values())      # (C,) | (C, n)
+            sigma = env_fns[i](theta_l(), *bart_values())    # (C,) | (C, n)
             w = 1.0 / sigma.clamp_min(1e-12) ** 2
-            return torch.broadcast_to(w.reshape(C, -1, 1),
-                                      (C, n_i, 1)).contiguous(), bs["Yt"]
+            return torch.broadcast_to(w.reshape(Cl, -1, 1),
+                                      (Cl, n_i, 1)).contiguous(), bs["Yt"]
         if lik in ("het_abs", "het_exp"):
-            mu0 = env_fns[i](h.theta, *bart_values()).reshape(C, n_i)
+            mu0 = env_fns[i](theta_l(), *bart_values()).reshape(Cl, n_i)
             return scale_forest_data(lik, bs["fused"]["const"], obs_y, mu0)
         if lik == "cat_logit":
             W = bart_values()[names.index(bs["name"])]       # (C, n, k)
@@ -920,16 +1021,23 @@ def sample(
             cfg, pg = bs["cfg"], bs["pg"]
             n_i, k_i = bs["X"].shape[0], cfg.n_outputs
             lik_row, Yt_i = row_data(i, bs)
+            # every chain's and every row's numbers, of which this rank
+            # keeps its own
             rands = pgbart.draw_rands(
                 gen, B=pg.batch_size(cfg.m, tuning), C=C,
-                P=pg.num_particles, D=cfg.max_depth, n=n_i, k=k_i,
+                P=pg.num_particles, D=cfg.max_depth, n=bs["n_total"], k=k_i,
                 S=cfg.n_nodes, num_refinements=pg.num_refinements,
                 device=device, row_gumbels=bs["row_gumbels"],
                 response=cfg.response)
             rejuv = (rejuvenate.draw_rejuv_rands(
                 gen, moves=cfg.m * max(pg.rejuvenation_sweeps, 1), C=C,
-                S=cfg.n_nodes, n=n_i, k=k_i, device=device)
+                S=cfg.n_nodes, n=bs["n_total"], k=k_i, device=device)
                 if bs["pg"].ancestor_sampling else None)
+            if mesh is not None:
+                part = bs["row_part"] if bs["rows"] is not None else None
+                rands = rands.shard(chain_part, part)
+                if rejuv is not None:
+                    rejuv = rejuv.shard(chain_part, part)
             generic = bs["fused"]["kind"] == pgbart.GENERIC
             bart_states[i], vi = pgbart.pgbart_step(
                 bart_states[i], rands, bs["X"], Yt_i, bs["rules"], cfg,
@@ -938,16 +1046,24 @@ def sample(
                 w_scalar=bs["w_scalar"], all_cont=bs["all_cont"],
                 x_nan=bs["x_nan"], rejuv=rejuv,
                 loglik_fn=bs["fused"].get("loglik"),
-                lik_params=((h.theta, dict(zip(names, bart_values())))
-                            if generic else None))
+                lik_params=((theta_l(), dict(zip(names, bart_values())))
+                            if generic else None), rows=bs["rows"])
             vis.append(vi)
 
         if compiled.theta_size > 0:
-            bart_now = bart_values()
-            batched = per_chain(_logp)
+            # every chain's values: NUTS runs all chains on every rank
+            bart_now = tuple(pmesh.chains_gather(v, mesh)
+                             for v in bart_values())
+            if obs_rows is None:
+                batched = per_chain(_logp)
 
-            def logp_fn(theta):
-                return batched(theta, *bart_now)
+                def logp_fn(theta):
+                    return batched(theta, *bart_now)
+            else:
+                prior_b, obs_b = per_chain(_prior), per_chain(_observed)
+                logp_fn = hmc.ShardedLogp(
+                    lambda theta: prior_b(theta, *bart_now),
+                    lambda theta: obs_b(theta, *bart_now), obs_rows)
 
             if algorithm == "nuts":
                 h, stats = nuts.nuts_step(gen, h, logp_fn, tuning=tuning,
@@ -990,24 +1106,60 @@ def sample(
     # -- resume ------------------------------------------------------------
     start_tune, start_draw = 0, 0
     acc: List[Dict[str, np.ndarray]] = []
-    if checkpoint_dir is not None and resume:
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+
+    def read_checkpoint(like):
+        """``(step, carry, draws up to it)`` of the latest checkpoint in
+        ``checkpoint_dir`` (the carry shaped as ``like``), or None."""
         found = ckpt_mod.latest_checkpoint(checkpoint_dir)
+        if found is None:
+            return None
+        ckpt_mod.check_format(checkpoint_dir)
+        path, step = found
+        # the draws collected before the interruption: the resumed run
+        # returns the FULL posterior
+        return (step, ckpt_mod.load_checkpoint(path, like),
+                ckpt_mod.load_draw_chunks(checkpoint_dir, upto_step=step)
+                if step >= tune else [])
+
+    if checkpoint_dir is not None and resume:
+        here = _carry(bart_static, bart_states, h, gen)
+        if mesh is None:
+            found = read_checkpoint(here)
+        else:
+            # rank 0 alone reads the directory and hands every rank the
+            # whole run's carry (or its error), of which each takes its
+            # part: the other ranks need not see checkpoint_dir
+            like = {k_: torch.from_numpy(v) for k_, v in
+                    _gather_carry(bart_static, here, mesh).items()}
+            found = None
+            if rank0:
+                try:
+                    found = read_checkpoint(like)
+                except Exception as err:    # every rank raises it below
+                    found = err
+                if isinstance(found, tuple):
+                    found = (found[0], {k_: v.numpy()
+                                        for k_, v in found[1].items()},
+                             found[2])
+            found = pmesh.broadcast_object(found, mesh)
+            if isinstance(found, Exception):
+                raise found
+            if found is not None:
+                part = _shard_carry(bart_static, {
+                    k_: torch.from_numpy(v) for k_, v in found[1].items()},
+                    chain_part)
+                found = (found[0], {k_: v.to(here[k_].device)
+                                    for k_, v in part.items()}, found[2])
         if found is not None:
-            ckpt_mod.check_format(checkpoint_dir)
-            path, step = found
-            restored, h = _restore_carry(
-                ckpt_mod.load_checkpoint(path, _carry(
-                    bart_static, bart_states, h, gen)), bart_static, gen)
+            step, arrays, acc = found
+            restored, h = _restore_carry(arrays, bart_static, gen)
             bart_states[:] = restored
             if step < tune:
                 start_tune = step
             else:
                 start_tune = tune
                 start_draw = step - tune
-                # the draws collected before the interruption: the resumed
-                # run returns the FULL posterior
-                acc = ckpt_mod.load_draw_chunks(checkpoint_dir,
-                                                upto_step=step)
     if timings is not None and checkpoint_dir is not None:
         timings["checkpoint_seconds"] = []
         timings["checkpoint_bytes"] = []
@@ -1016,12 +1168,20 @@ def sample(
         if checkpoint_dir is None:
             return
         t0 = time.perf_counter()
-        path = ckpt_mod.save_checkpoint(
-            checkpoint_dir, _carry(bart_static, bart_states, h, gen),
-            meta={"tune": tune, "draws": draws}, step=step)
+        carry = _carry(bart_static, bart_states, h, gen)
+        if mesh is not None:
+            carry = _gather_carry(bart_static, carry, mesh)
+        nbytes = None
+        if rank0:
+            nbytes = os.path.getsize(ckpt_mod.save_checkpoint(
+                checkpoint_dir, carry, meta={"tune": tune, "draws": draws},
+                step=step))
+        # every rank learns the file's size once it is on disk: no rank runs
+        # ahead of a checkpoint that is not written yet
+        nbytes = pmesh.broadcast_object(nbytes, mesh)
         if timings is not None:
             timings["checkpoint_seconds"].append(time.perf_counter() - t0)
-            timings["checkpoint_bytes"].append(os.path.getsize(path))
+            timings["checkpoint_bytes"].append(nbytes)
 
     # -- tuning --------------------------------------------------------------
     tune_t0 = time.perf_counter()
@@ -1045,9 +1205,10 @@ def sample(
         # leaf_sd and alpha_vec enter the sampler's implied prior, not just
         # the proposal: chains frozen with different values would sample
         # slightly different posteriors.  Average them at the boundary (a
-        # run resumed among its draws restores them averaged).
+        # run resumed among its draws restores them averaged), over the
+        # chains of every rank.
         def _avg_rep(a):
-            return a.mean(dim=0, keepdim=True).expand_as(a).contiguous()
+            return pmesh.chains_mean(a, mesh).expand_as(a).contiguous()
 
         bart_states = [
             dataclasses.replace(st, leaf_sd=_avg_rep(st.leaf_sd),
@@ -1067,6 +1228,13 @@ def sample(
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
         prof.start()
+    # the rows of each BART value are the data shards' (the last axis)
+    value_rows = ({pre + b.name: -1 for b in compiled.bart_rvs
+                   for pre in ("values/", "bf16values/")}
+                  if n_data_shards > 1 else {})
+
+    def gathered(host_outs):
+        return pmesh.gather_outputs(host_outs, mesh, value_rows)
     draw_t0 = time.perf_counter()
     t = start_draw
     try:
@@ -1080,21 +1248,21 @@ def sample(
                         snap0 = _pack_forest_slice(bs, st.forest)
                         for key, v in snap0.items():
                             outs[f"snap0/{i}/{key}"] = v.clone()
-                vi_buf = torch.empty((C, c, n_bart, p_max),
+                vi_buf = torch.empty((Cl, c, n_bart, p_max),
                                      dtype=f32, device=device)
                 for j in range(c):
                     vis, stats = one_step(False)
                     if debug_nans:
                         _check_finite(t + j, bart_static, bart_states, h,
                                       stats)
-                    vals = per_chain(_collect)(h.theta, *bart_values())
+                    vals = per_chain(_collect)(theta_l(), *bart_values())
                     for nm, v in vals.items():
                         if store_dtype is not None and v.is_floating_point():
                             v = v.to(store_dtype)
                         key = f"values/{nm}"
                         if key not in outs:
                             outs[key] = torch.empty(
-                                (C, c) + v.shape[1:], dtype=v.dtype,
+                                (Cl, c) + v.shape[1:], dtype=v.dtype,
                                 device=device)
                         outs[key][:, j] = v
                     # one inclusion row per BART RV: a separate-trees group
@@ -1105,9 +1273,9 @@ def sample(
                     for nm, v in stats.items():
                         key = f"stats/{nm}"
                         if key not in outs:
-                            outs[key] = torch.empty((C, c), dtype=v.dtype,
+                            outs[key] = torch.empty((Cl, c), dtype=v.dtype,
                                                     device=device)
-                        outs[key][:, j] = v
+                        outs[key][:, j] = v[chain_part]
                     if store_trees:
                         # only the draw's updated trees ship per draw: the
                         # tree batch, or every tree where rejuvenation moved
@@ -1125,7 +1293,7 @@ def sample(
                                 key = f"deltas/{bi}/{key}"
                                 if key not in outs:
                                     outs[key] = torch.empty(
-                                        (C, c) + v.shape[1:], dtype=v.dtype,
+                                        (Cl, c) + v.shape[1:], dtype=v.dtype,
                                         device=device)
                                 outs[key][:, j] = v
                 outs["vi"] = vi_buf
@@ -1140,16 +1308,17 @@ def sample(
                 handle = drainer.start(outs)
                 if checkpoint_dir is None:
                     if pending is not None:
-                        acc.append(drainer.finish(pending))
+                        acc.append(gathered(drainer.finish(pending)))
                     pending = handle
                 else:
                     # the chunk's draws first, then the carry that commits
                     # them: a run stopped between the two resumes from the
                     # previous carry and ignores the later chunk file
-                    host_outs = drainer.finish(handle)
+                    host_outs = gathered(drainer.finish(handle))
                     acc.append(host_outs)
-                    ckpt_mod.save_draw_chunk(checkpoint_dir, tune + t + c,
-                                             host_outs)
+                    if rank0:
+                        ckpt_mod.save_draw_chunk(checkpoint_dir,
+                                                 tune + t + c, host_outs)
                     maybe_checkpoint(tune + t + c)
                 t += c
                 if timings is not None:
@@ -1163,7 +1332,7 @@ def sample(
                           flush=True)
             if pending is not None:
                 final_t0 = time.perf_counter()
-                acc.append(drainer.finish(pending))
+                acc.append(gathered(drainer.finish(pending)))
                 pending = None
                 if timings is not None and timings["draw_chunk_seconds"]:
                     timings["draw_chunk_seconds"][-1] += (
@@ -1175,8 +1344,10 @@ def sample(
         if prof is not None:
             prof.stop()
             os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(
-                os.path.join(profile_dir, "draws.pt.trace.json"))
+            rank = 0 if mesh is None else torch.distributed.get_rank()
+            prof.export_chrome_trace(os.path.join(
+                profile_dir, "draws.pt.trace.json" if rank == 0
+                else f"draws.rank{rank}.pt.trace.json"))
 
     def joined(prefix):
         """Every chunk's arrays named ``prefix + name``, by name, joined

@@ -9,6 +9,9 @@ gradient (one ``torch.autograd.grad`` call per leapfrog).
 Adaptation (during tuning): dual-averaging step size targeting 0.8
 acceptance (Hoffman & Gelman 2014, Algorithm 5) and a diagonal mass matrix
 from a Welford variance estimate of the draws.
+
+A row-sharded model's log-density is a ``ShardedLogp``: its observed part is
+summed over the data group, so that every shard follows the same trajectory.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import math
 from typing import Callable
 
 import torch
+
+from ..parallel.mesh import RowShard, row_sum
 
 
 @dataclasses.dataclass
@@ -50,12 +55,37 @@ def init_state(theta0: torch.Tensor) -> HmcState:
     )
 
 
+@dataclasses.dataclass
+class ShardedLogp:
+    """The log-density of a model whose rows are sharded over a data group
+    (JAX's ``_sum_over`` / ``_sum_grad_over`` pair): ``shared(theta)`` (C,)
+    is the prior and the log-Jacobian, taken once; ``local(theta)`` (C,) the
+    observed terms of this rank's rows."""
+
+    shared: Callable
+    local: Callable
+    rows: RowShard
+
+
 def value_and_grad(logp_fn: Callable, theta: torch.Tensor):
-    """Per-chain log-density (C,) and its gradient (C, d)."""
+    """Per-chain log-density (C,) and its gradient (C, d).  For a
+    ``ShardedLogp`` the local part's value and gradient (autograd, one rank's
+    rows) are summed over the data group OUTSIDE autograd and ``vmap``, where
+    a collective cannot run, and the shared part's are added once: every
+    shard gets the same value and gradient."""
+    if isinstance(logp_fn, ShardedLogp):
+        v_s, g_s = value_and_grad(logp_fn.shared, theta)
+        v_l, g_l = value_and_grad(logp_fn.local, theta)
+        tot = row_sum(torch.cat([v_l[:, None], g_l], dim=1).to(torch.float64),
+                      logp_fn.rows).to(theta.dtype)
+        return v_s + tot[:, 0], g_s + tot[:, 1:]
     theta = theta.detach().requires_grad_(True)
     with torch.enable_grad():
         val = logp_fn(theta)
-        (grad,) = torch.autograd.grad(val.sum(), theta)
+        grad = (torch.autograd.grad(val.sum(), theta, allow_unused=True)[0]
+                if val.requires_grad else None)
+    if grad is None:     # a part of a ShardedLogp that theta does not enter
+        grad = torch.zeros_like(theta)
     return val.detach(), grad
 
 

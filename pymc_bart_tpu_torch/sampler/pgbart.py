@@ -40,7 +40,17 @@ every route is followed by the retained-path rejuvenation sweeps of
 ``sampler/rejuvenate.py`` (plain PyTorch on the returned state; their random
 numbers are ``pgbart_step``'s argument ``rejuv``).
 
-Not ported yet: the XLA-only sufficient-statistics mode and row sharding.
+Row sharding (``rows``: a ``parallel.mesh.RowShard``, JAX's ``data_axis``):
+X, the targets, the row data and every per-row field of the state hold this
+rank's rows; the tree state is replicated.  The step then takes the
+per-round route with the plain growth round (``ops.grow.grow_round_plain``
+reduces the child statistics, the split-value winner and the likelihood
+sums over the data group, as the JAX package's XLA round does with its
+Pallas kernels off), the SMC resampling of the replicated weights, and a
+plain selection whose sums are reduced too.  The node-space Gaussian mode
+(``suff_stats``, JAX's ``suff_gauss``: per-node count, sum r and sum r^2,
+no row pass until the winner's prediction) serves a scalar precision there
+and, unsharded, the plain per-round route from ``NODE_SPACE_ROWS`` rows.
 """
 
 from __future__ import annotations
@@ -53,13 +63,19 @@ import torch
 from ..config import BartConfig, PgbartConfig
 from ..ops import bign as _bign
 from ..ops import draw as _draw
-from ..ops.grow import grow_round
+from ..ops.grow import fixed_moments, grow_round, grow_round_plain, node_ll
 from ..ops.predict import tree_predict
-from ..ops.select import select_refine, select_refine_plain
+from ..ops.select import select_refine, select_refine_nodes, select_refine_plain
 from ..ops.smc import smc_resample
-from ..ops.sums import alpha_cdf_of, sum64, true_div
+from ..ops.sums import (FIXED_BITS, alpha_cdf_of, chain_exponent, from_fixed,
+                        pow2, sum64, true_div)
 from ..ops.trees import Forest, init_forest
+from ..parallel.mesh import row_sum
 from .rejuvenate import RejuvRands, gumbel, rejuvenate_forest
+
+# rows from which the plain per-round route takes the node-space Gaussian
+# mode by itself (JAX's _SEG_MATMUL_N gate of suff_gauss)
+NODE_SPACE_ROWS = 16384
 
 
 @dataclasses.dataclass
@@ -77,6 +93,10 @@ class PgbartState:
     wf_m2: torch.Tensor       # float32[C, n, k]
     batch_offset: torch.Tensor  # int32[C] rotating tree pointer
     iteration: torch.Tensor   # int32[C] Gibbs iterations done
+
+    # the per-row fields and their row axes (one shard's rows under row
+    # sharding; not a dataclass field)
+    ROW_AXES = {"tree_pred": 2, "sum_trees": 1, "wf_mean": 1, "wf_m2": 1}
 
     def clone(self) -> "PgbartState":
         out = {f.name: getattr(self, f.name).clone()
@@ -112,14 +132,46 @@ class StepRands:
     seed: Optional[torch.Tensor] = None
     umix: Optional[torch.Tensor] = None  # float32[B, C, P, 2*Gtot]
     gsel: Optional[torch.Tensor] = None  # float32[B, C, P] winner Gumbels
+    # where these chains and rows sit among all of them: the generated row
+    # Gumbels are keyed by the global chain and row (``shard``)
+    chains: Optional[int] = None  # every chain of the draw (None: C)
+    chain0: int = 0
+    row0: int = 0
+
+    # the chain axis of each block (the rows of rg are its last axis)
+    _CHAIN_AXIS = {"ug": 1, "uv": 1, "rg": 2, "eps": 1, "sb": 1, "ures": 2,
+                   "usel": 1, "epsr": 1, "uacc": 1, "umix": 1, "gsel": 1}
+
+    def shard(self, chains: slice, rows: Optional[slice] = None
+              ) -> "StepRands":
+        """The blocks of the chains ``chains`` (and the row Gumbels of the
+        rows ``rows``) out of blocks drawn for every chain: a rank of a mesh
+        draws all chains' numbers and keeps its own, so its chains get what
+        an unsharded run gives them."""
+        out = {}
+        for name, ax in self._CHAIN_AXIS.items():
+            a = getattr(self, name)
+            if a is not None:
+                a = a.narrow(ax, chains.start, chains.stop - chains.start)
+                if name == "rg" and rows is not None:
+                    a = a[..., rows]
+                a = a.contiguous()
+            out[name] = a
+        return dataclasses.replace(
+            self, **out, chains=self.usel.shape[1] if self.chains is None
+            else self.chains, chain0=self.chain0 + chains.start,
+            row0=self.row0 + (0 if rows is None else rows.start))
 
 
 def init_state(X, Y_target, cfg: BartConfig, split_prior=None, *,
-               chains: int, device) -> PgbartState:
+               chains: int, device, rows=None) -> PgbartState:
     """Initial all-root-leaf state, replicated over ``chains``.
 
     Each tree starts as a single leaf predicting mean(Y)/m, so the initial
-    sum of trees equals Y.mean(); leaf_sd starts at std(Y)/sqrt(m).
+    sum of trees equals Y.mean(); leaf_sd starts at std(Y)/sqrt(m).  With
+    ``rows`` (``X`` and ``Y_target`` this rank's rows) the mean, the variance
+    and the root count are those of every shard's rows (float64 sums over
+    the data group), so every shard starts from the same tree state.
     """
     device = torch.device(device)
     X = torch.as_tensor(X, dtype=torch.float32, device=device)
@@ -128,8 +180,16 @@ def init_state(X, Y_target, cfg: BartConfig, split_prior=None, *,
     C = chains
     Y = torch.as_tensor(Y_target, dtype=torch.float32,
                         device=device).reshape(n, k)
-    y_mean = Y.mean(dim=0)
-    f1 = init_forest(cfg.m, cfg.n_nodes, k, y_mean / cfg.m, n, device)
+    if rows is None:
+        y_mean = Y.mean(dim=0)
+        y_sd = Y.std(dim=0, unbiased=False)
+    else:
+        Y64 = Y.to(torch.float64)
+        mean64 = row_sum(Y64.sum(dim=0), rows) / rows.n_total
+        var64 = row_sum(((Y64 - mean64) ** 2).sum(dim=0), rows) / rows.n_total
+        y_mean, y_sd = mean64.to(torch.float32), var64.sqrt().to(torch.float32)
+    f1 = init_forest(cfg.m, cfg.n_nodes, k, y_mean / cfg.m,
+                     n if rows is None else rows.n_total, device)
     forest = Forest(*(getattr(f1, f.name).unsqueeze(0).repeat(
         (C,) + (1,) * getattr(f1, f.name).dim())
         for f in dataclasses.fields(f1)))
@@ -138,7 +198,7 @@ def init_state(X, Y_target, cfg: BartConfig, split_prior=None, *,
     else:
         alpha_vec = torch.as_tensor(split_prior, dtype=torch.float32,
                                     device=device)
-    leaf_sd = Y.std(dim=0, unbiased=False) / float(cfg.m) ** 0.5
+    leaf_sd = y_sd / float(cfg.m) ** 0.5
     leaf_sd = leaf_sd.clamp_min(1e-6)
 
     def rep(a):
@@ -241,14 +301,15 @@ def batched_loglik(loglik_fn, lik_params):
 
 
 def make_ll_of(lik: str, lik_const: float, row, Y, loglik_fn=None,
-               lik_params=None):
+               lik_params=None, rows=None):
     """The model log-likelihood ``ll_of(sum_noi, pred) -> (C,)`` of one
     tree's prediction ``pred`` (C, n, k) beside the other trees' sum
     ``sum_noi``, in the closed form of the SMC weights (JAX's
     ``_make_ll_of``): ``row`` is the code's row data (C, n, k) (the Gaussian
     precision, ``None`` for ``"bernoulli"``), ``Y`` the target (C|1, n, k).
     ``lik="generic"``: the model's own, ``loglik_fn`` at ``lik_params``
-    (``batched_loglik``)."""
+    (``batched_loglik``).  With ``rows`` the closed forms' row sums are
+    reduced over the data group."""
     if lik == GENERIC:
         ll = batched_loglik(loglik_fn, lik_params)
 
@@ -257,11 +318,11 @@ def make_ll_of(lik: str, lik_const: float, row, Y, loglik_fn=None,
     elif lik == "gauss":
         def ll_of(sum_noi, pred):
             diff = (Y - sum_noi) - pred
-            return -0.5 * sum64((row * diff * diff).flatten(1))
+            return -0.5 * sum64((row * diff * diff).flatten(1), rows=rows)
     else:
         def ll_of(sum_noi, pred):
             return sum64(closed_form_ll(lik, lik_const, sum_noi + pred, Y,
-                                        row).flatten(1))
+                                        row).flatten(1), rows=rows)
     return ll_of
 
 
@@ -269,7 +330,7 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
                      leaf_sd, X, rules, cfg: BartConfig, pg: PgbartConfig,
                      gauss_w, impl: Optional[str], lik: str = "gauss",
                      lik_const: float = 0.0, sum_noi=None, Y=None,
-                     loglik=None):
+                     loglik=None, rows=None, node_space: bool = False):
     """Conditional SMC for tree ``b`` of the batch, all chains.
 
     ``tree`` holds (C, S[, k]) tensors; ``resid``/``gauss_w`` (C, n, k).
@@ -282,12 +343,20 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     output.  For the linear and mix responses the rounds draw slopes; a
     Gaussian winner is selected among the particles by its Gumbels
     ``rands.gsel``, another likelihood's by inverse CDF on ``rands.usel``.
+    ``rows``: the rows are this rank's of a row-sharded model (plain growth
+    rounds and selection with their sums reduced over the data group).
+    ``node_space``: the Gaussian node-space mode (one precision a chain,
+    ``gauss_w[:, 0, 0]``; k = 1, constant response): the particles carry
+    per-node (count, sum r, sum r^2) in fixed point and are weighted by
+    ``ops.grow.node_ll``; the winner and its refinement are
+    ``select_refine_nodes``.
     Returns ``(sv, sl, st (C, S), leaf (C, S, k), ct (C, S), slope (C, S, k),
     pred (C, n, k))``.
     """
     P = pg.num_particles
     S = cfg.n_nodes
     n, _p = X.shape
+    n_glob = n if rows is None else rows.n_total
     k = cfg.n_outputs
     D = cfg.max_depth
     C = resid.shape[0]
@@ -299,7 +368,19 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
         return torch.cat([old[:, None], fresh[:, None].expand(
             (C, P - 1) + fresh.shape[1:])], dim=1).contiguous()
 
-    root_mu = true_div(true_div(sum64(resid, dim=1), n), cfg.m)   # (C, k)
+    residT = resid.transpose(1, 2).contiguous()                   # (C, k, n)
+    if node_space:
+        # the root's statistics in fixed point, over every shard's rows
+        e_r = chain_exponent(resid, rows)
+        q_r, q_q = fixed_moments(residT, e_r)
+        root_r = row_sum(q_r[:, 0].sum(dim=1), rows)              # (C,)
+        root_q = row_sum(q_q[:, 0].sum(dim=1), rows)
+        root_mu = true_div(true_div(
+            from_fixed(root_r, pow2(e_r - FIXED_BITS))[:, None], n_glob),
+            cfg.m)                                                # (C, k)
+    else:
+        root_mu = true_div(true_div(sum64(resid, dim=1, rows=rows), n_glob),
+                           cfg.m)                                 # (C, k)
     sv = broadcast0(tree.split_var, torch.full((C, S), -1, dtype=i32,
                                                device=dev))
     sl = broadcast0(tree.split_val, torch.zeros((C, S), dtype=f32,
@@ -310,7 +391,7 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     fresh_lf[:, :, 0] = root_mu
     lf = broadcast0(tree.leaf.transpose(1, 2), fresh_lf)          # (C,P,k,S)
     fresh_ct = torch.zeros((C, S), dtype=f32, device=dev)
-    fresh_ct[:, 0] = float(n)
+    fresh_ct[:, 0] = float(n_glob)
     ct = broadcast0(tree.count, fresh_ct)
     sp = broadcast0(tree.slope.transpose(1, 2),
                     torch.zeros((C, k, S), dtype=f32, device=dev))
@@ -320,7 +401,6 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     ident = torch.arange(P, dtype=i32, device=dev).expand(C, P).contiguous()
 
     alpha_cdf = alpha_cdf_of(alpha_vec)
-    residT = resid.transpose(1, 2).contiguous()                   # (C, k, n)
     gauss = lik == "gauss"
     generic = lik == GENERIC
     lin = cfg.response != "constant"
@@ -347,15 +427,28 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
             r_, w_ = (residT[:, None], llwT[:, None]) if lead else (residT,
                                                                     llwT)
             diff = r_ - pred_all
-            return -0.5 * sum64((w_ * diff * diff).flatten(-2))
+            return -0.5 * sum64((w_ * diff * diff).flatten(-2), rows=rows)
         noi_, y_ = (noiT[:, None], yT[:, None]) if lead else (noiT, yT)
         row_ = None if rowT is None else (rowT[:, None] if lead else rowT)
         return sum64(closed_form_ll(lik, lik_const, noi_ + pred_all, y_,
-                                    row_).flatten(-2))
+                                    row_).flatten(-2), rows=rows)
 
-    # all rows sit at the root: prediction = root leaf value
-    pred = lf[:, :, :, 0:1].expand(C, P, k, n).contiguous()
-    ll = eval_ll(pred)                                            # (C, P)
+    if node_space:
+        stats = (torch.zeros((C, P, S), dtype=f32, device=dev),
+                 torch.zeros((C, P, S), dtype=torch.int64, device=dev),
+                 torch.zeros((C, P, S), dtype=torch.int64, device=dev),
+                 torch.zeros((C, P, S), dtype=torch.bool, device=dev))
+        stats[0][:, :, 0] = float(n_glob)
+        stats[1][:, :, 0] = root_r[:, None]
+        stats[2][:, :, 0] = root_q[:, None]
+        stats[3][:, :, 0] = True
+        w_chain = gauss_w[:, 0, 0]
+        pred = None
+        ll = node_ll(lf, *stats, w_chain, e_r)
+    else:
+        # all rows sit at the root: prediction = root leaf value
+        pred = lf[:, :, :, 0:1].expand(C, P, k, n).contiguous()
+        ll = eval_ll(pred)                                        # (C, P)
     log_w = ll
     ll_prev = ll
     take = ident
@@ -363,14 +456,24 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     for d in range(D):
         off = 2**d - 1
         G = 2**d
-        sv, sl, st, lf, ct, sp, leaf_idx, pred, ll = grow_round(
-            take, frozen, sv, sl, st, lf, ct, sp, leaf_idx, pred,
-            X, residT, rules, alpha_cdf, leaf_sd, llwT,
-            rands.ug[b, :, :, off:off + G], rands.uv[b, :, :, off:off + G],
-            rands.rg[b, d], rands.eps[b, :, :, :, 2 * off:2 * off + 2 * G],
-            rands.sb[b, :, :, off:off + G],
-            rands.umix[b, :, :, 2 * off:2 * off + 2 * G] if lin else None,
-            d=d, cfg=cfg, impl=impl)
+        args = (take, frozen, sv, sl, st, lf, ct, sp, leaf_idx, pred,
+                X, residT, rules, alpha_cdf, leaf_sd, llwT,
+                rands.ug[b, :, :, off:off + G], rands.uv[b, :, :, off:off + G],
+                rands.rg[b, d], rands.eps[b, :, :, :, 2 * off:2 * off + 2 * G],
+                rands.sb[b, :, :, off:off + G],
+                rands.umix[b, :, :, 2 * off:2 * off + 2 * G] if lin else None)
+        if node_space:
+            (sv, sl, st, lf, ct, sp, leaf_idx, pred, ll,
+             stats) = grow_round_plain(*args, d=d, cfg=cfg, rows=rows,
+                                       node_stats=stats)
+        elif rows is not None:
+            # the row-sharded round is the plain one with its sums reduced
+            # (the JAX package turns its Pallas kernels off there too)
+            sv, sl, st, lf, ct, sp, leaf_idx, pred, ll = grow_round_plain(
+                *args, d=d, cfg=cfg, rows=rows)
+        else:
+            sv, sl, st, lf, ct, sp, leaf_idx, pred, ll = grow_round(
+                *args, d=d, cfg=cfg, impl=impl)
         if not gauss:
             ll = eval_ll(pred)
         take = ident
@@ -390,6 +493,13 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
     # for a joint forest
     hiv = (0.5 / (leaf_sd[:, 0] * leaf_sd[:, 0]) if k == 1
            else 0.5 / (leaf_sd * leaf_sd))
+    if node_space:
+        sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine_nodes(
+            sv, sl, st, lf, ct, leaf_idx, stats, log_w, w_chain, e_r,
+            eps_r.contiguous(), rands.uacc[b], rands.usel[b], hiv,
+            num_refinements=R, m=cfg.m)
+        return (sv_w, sl_w, st_w, lf_w.transpose(1, 2), ct_w,
+                torch.zeros_like(lf_w.transpose(1, 2)), pred_w.transpose(1, 2))
     args = (sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
             eps_r.contiguous(), rands.uacc[b], rands.usel[b], hiv)
     if gauss and lin:
@@ -398,8 +508,12 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
             response=cfg.response, sp=sp, X=X, g_sel=rands.gsel[b])
         sp_w = sp_w.transpose(1, 2)
     elif gauss:
-        sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine(
-            *args, num_refinements=R, m=cfg.m, impl=impl)
+        if rows is None:
+            sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine(
+                *args, num_refinements=R, m=cfg.m, impl=impl)
+        else:
+            sv_w, sl_w, st_w, lf_w, ct_w, _li_w, pred_w = select_refine_plain(
+                *args, num_refinements=R, m=cfg.m, rows=rows)
         sp_w = torch.zeros_like(lf_w.transpose(1, 2))
     else:
         # the other likelihoods' winner and refinement are plain PyTorch on
@@ -411,7 +525,7 @@ def _update_one_tree(b: int, rands: StepRands, tree: Forest, resid, alpha_vec,
         # prediction keeps the slope term
         out = select_refine_plain(*args, num_refinements=R, m=cfg.m,
                                   ll_fn=eval_ll, response=cfg.response,
-                                  sp=sp, X=X)
+                                  sp=sp, X=X, rows=rows)
         sv_w, sl_w, st_w, lf_w, ct_w = out[:5]
         pred_w = out[-1]
         sp_w = (out[5].transpose(1, 2) if lin
@@ -446,15 +560,25 @@ def fused_rows_on_chip(cfg: BartConfig, pg: PgbartConfig, X,
 
 def resolve_route(route: Optional[str], cfg: BartConfig, pg: PgbartConfig, X,
                   gauss_w, lik: str, *, chains: int, w_scalar: bool,
-                  all_cont: bool, x_nan: bool):
+                  all_cont: bool, x_nan: bool, rows=None):
     """``(route taken, {route: why not})`` for one PGBART step.
 
     ``route=None``: ``"bign"`` when its gate admits the configuration and the
     whole-step kernel would not keep the rows on chip (``fused_rows_on_chip``),
     else ``"fused"`` where its gate admits it, else ``"rounds"``.  A named
-    route is taken or raises with its gate's reason."""
+    route is taken or raises with its gate's reason.  Rows sharded over a data
+    axis (``rows``) take ``"rounds"``: both whole-step kernels see one
+    rank's rows only."""
     if route not in (None,) + ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if rows is not None:
+        reason = (f"the rows are sharded over the mesh's 'data' axis (this "
+                  f"rank holds {rows.n} of {rows.n_total}); the whole-step "
+                  "kernels read one rank's rows, so the growth rounds run in "
+                  "plain PyTorch with their sums reduced over the data group")
+        if route in ("bign", "fused"):
+            raise ValueError(f"route={route!r}: {reason}")
+        return "rounds", {"bign": reason, "fused": reason}
     why = {}
     if route in (None, "bign"):
         why["bign"] = _bign.bign_unsupported_reason(
@@ -485,7 +609,8 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
                 w_scalar: bool = False, all_cont: Optional[bool] = None,
                 x_nan: Optional[bool] = None,
                 rejuv: Optional[RejuvRands] = None, loglik_fn=None,
-                lik_params=None):
+                lik_params=None, rows=None,
+                suff_stats: Optional[bool] = None):
     """One PGBART MCMC step for all chains: update a rotating batch of trees.
 
     ``X`` (n, p) is shared by the chains, ``Y_target`` (n, k) too or is
@@ -511,6 +636,15 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     route's step, with the moves' numbers ``rejuv``
     (``rejuvenate.draw_rejuv_rands``), and the inclusion counts are taken
     afterwards.
+    ``rows`` (``parallel.mesh.RowShard``): ``X``, ``Y_target``, ``gauss_w``,
+    the state's per-row fields and ``rands.rg`` hold this rank's rows of a
+    row-sharded model (``StepRands.shard``); closed-form codes with the
+    constant response only.  ``suff_stats``: the node-space Gaussian mode
+    (``"gauss"``, ``w_scalar``, constant response, one output) on or off;
+    None takes it under ``rows`` and on the plain per-round route from
+    ``NODE_SPACE_ROWS`` rows, as the JAX package does.  The mode's rounds and
+    selection are plain PyTorch: ``suff_stats=True`` on the card takes them
+    in place of ``grow.cu`` and ``select.cu`` (``smc.cu`` still resamples).
     The state's tensors are UPDATED IN PLACE (forest, tree_pred and the
     Welford buffers are large and the step is the hot loop); clone the state
     first to keep the old one.  Returns ``(state, variable_inclusion (C, p))``.
@@ -520,6 +654,11 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
             f"n_outputs={cfg.n_outputs} with likelihood code {lik!r}: the "
             "closed-form codes take one output; a joint forest takes the "
             "model's likelihood (lik='generic')")
+    if rows is not None and (lik == GENERIC or cfg.response != "constant"):
+        raise NotImplementedError(
+            "row sharding takes the closed-form likelihood codes with "
+            f"response='constant'; got lik={lik!r}, "
+            f"response={cfg.response!r}")
     if pg.ancestor_sampling and cfg.response != "constant":
         raise ValueError(
             "ancestor_sampling (retained-path grow/prune rejuvenation) "
@@ -530,7 +669,8 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     out = _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning,
                       gauss_w, impl, lik=lik, lik_const=lik_const, route=route,
                       w_scalar=w_scalar, all_cont=all_cont, x_nan=x_nan,
-                      loglik_fn=loglik_fn, lik_params=lik_params)
+                      loglik_fn=loglik_fn, lik_params=lik_params, rows=rows,
+                      suff_stats=suff_stats)
     if not pg.ancestor_sampling:
         return out
     # every route leaves tree_pred and sum_trees equal to the forest's
@@ -542,18 +682,37 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
         all_cont = bool((rules == 0).all())
     rejuvenate_forest(state, rejuv, X, Y, rules, cfg, pg,
                       make_ll_of(lik, lik_const, gauss_w, Y, loglik_fn,
-                                 lik_params), all_cont)
+                                 lik_params, rows), all_cont, rows=rows)
     return state, split_var_counts(state.forest, p)
+
+
+def node_space_mode(suff_stats: Optional[bool], cfg: BartConfig, lik: str,
+                    w_scalar: bool, n: int, plain: bool, rows) -> bool:
+    """Whether the per-round route takes the node-space Gaussian mode: as
+    asked, else under row sharding and on the plain route from
+    ``NODE_SPACE_ROWS`` rows (JAX's ``suff_gauss`` gate; on the card the
+    per-round kernels cover every n and keep the row-space rounds)."""
+    able = (lik == "gauss" and w_scalar and cfg.response == "constant"
+            and cfg.n_outputs == 1)
+    if suff_stats is None:
+        return able and (rows is not None or (plain and n >= NODE_SPACE_ROWS))
+    if suff_stats and not able:
+        raise ValueError(
+            "suff_stats=True: the node-space mode takes lik='gauss' with one "
+            "precision a chain (w_scalar), response='constant' and one "
+            f"output; got lik={lik!r}, w_scalar={w_scalar}, "
+            f"response={cfg.response!r}, n_outputs={cfg.n_outputs}")
+    return bool(suff_stats)
 
 
 def _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning, gauss_w,
                 impl, *, lik, lik_const, route, w_scalar, all_cont, x_nan,
-                loglik_fn=None, lik_params=None):
+                loglik_fn=None, lik_params=None, rows=None, suff_stats=None):
     """The step of the route ``resolve_route`` takes (``pgbart_step``
     without the rejuvenation sweeps)."""
     C = state.sum_trees.shape[0]
-    bign_possible = route == "bign" or (
-        route is None and not fused_rows_on_chip(cfg, pg, X, C))
+    bign_possible = rows is None and (route == "bign" or (
+        route is None and not fused_rows_on_chip(cfg, pg, X, C)))
     if bign_possible:       # the two reads synchronise: only where needed
         if all_cont is None:
             all_cont = bool((rules == 0).all())
@@ -562,7 +721,7 @@ def _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning, gauss_w,
     taken, _why = resolve_route(
         route, cfg, pg, X, gauss_w, lik, chains=C, w_scalar=w_scalar,
         all_cont=bool(all_cont) if bign_possible else False,
-        x_nan=bool(x_nan) if bign_possible else True)
+        x_nan=bool(x_nan) if bign_possible else True, rows=rows)
     if taken == "bign":
         # gauss: one precision per chain; the other codes: their row data
         w_chain = llw = None
@@ -586,19 +745,27 @@ def _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning, gauss_w,
                 "generate them from")
         rands = dataclasses.replace(rands, rg=_bign.gumbel_block(
             rands.seed, B=pg.batch_size(cfg.m, tuning), C=C,
-            P=pg.num_particles, D=cfg.max_depth, n=X.shape[0]))
+            P=pg.num_particles, D=cfg.max_depth, n=X.shape[0],
+            chains=rands.chains, chain0=rands.chain0, row0=rands.row0))
+    plain = impl == "plain" or (impl is None and not X.is_cuda)
     return step_rounds(state, rands, X, Y_target, rules, cfg, pg, tuning,
                        gauss_w, impl=impl, lik=lik, lik_const=lik_const,
-                       loglik_fn=loglik_fn, lik_params=lik_params)
+                       loglik_fn=loglik_fn, lik_params=lik_params, rows=rows,
+                       node_space=node_space_mode(
+                           suff_stats, cfg, lik, w_scalar, X.shape[0], plain,
+                           rows))
 
 
 def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
                 cfg: BartConfig, pg: PgbartConfig, tuning: bool, gauss_w,
                 impl: Optional[str] = None, *, lik: str = "gauss",
-                lik_const: float = 0.0, loglik_fn=None, lik_params=None):
+                lik_const: float = 0.0, loglik_fn=None, lik_params=None,
+                rows=None, node_space: bool = False):
     """The per-round route of ``pgbart_step`` (same arguments and outputs):
     one call per growth round, resampling step and selection, with the
-    commit and the adaptation in plain PyTorch between them."""
+    commit and the adaptation in plain PyTorch between them.  ``rows`` and
+    ``node_space``: see ``_update_one_tree``; the leaf-sd adaptation then
+    averages over every shard's rows."""
     if lik == GENERIC:
         if loglik_fn is None:
             raise ValueError("lik='generic' needs the model closure "
@@ -615,6 +782,7 @@ def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
     m = cfg.m
     B = pg.batch_size(m, tuning)
     n, p = X.shape
+    n_glob = n if rows is None else rows.n_total
     C = state.sum_trees.shape[0]
     dev = state.sum_trees.device
     Y = Y_target.reshape(-1, n, cfg.n_outputs)        # (1|C, n, k)
@@ -632,7 +800,8 @@ def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
         resid = Y - sum_noi
         sv_w, sl_w, st_w, lf_w, ct_w, sp_w, pred = _update_one_tree(
             i, rands, tree, resid, state.alpha_vec, state.leaf_sd, X, rules,
-            cfg, pg, gauss_w, impl, lik, lik_const, sum_noi, Y, loglik)
+            cfg, pg, gauss_w, impl, lik, lik_const, sum_noi, Y, loglik,
+            rows=rows, node_space=node_space)
         forest.split_var[ar, jt] = sv_w
         forest.split_val[ar, jt] = sl_w
         forest.split_set[ar, jt] = st_w
@@ -655,7 +824,8 @@ def step_rounds(state: PgbartState, rands: StepRands, X, Y_target, rules,
             state.wf_mean = state.wf_mean + delta / wc
             state.wf_m2 = state.wf_m2 + delta * (pred - state.wf_mean)
             sd = true_div(sum64(torch.sqrt(
-                (state.wf_m2 / wc.clamp_min(1.0)).clamp_min(1e-12)), dim=1), n)
+                (state.wf_m2 / wc.clamp_min(1.0)).clamp_min(1e-12)), dim=1,
+                rows=rows), n_glob)
             state.leaf_sd = torch.where(
                 (state.iteration > m)[:, None], sd.clamp_min(1e-6),
                 state.leaf_sd)

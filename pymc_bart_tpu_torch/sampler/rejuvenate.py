@@ -23,6 +23,12 @@ the likelihood twice, and ``torch.where`` picks each chain's branch, as
 inside a sweep.  The random numbers of each move are inputs
 (``RejuvRands``): the tests feed the JAX package's, ``draw_rejuv_rands``
 draws them from the sampler's ``torch.Generator``.
+
+Under row sharding (``rows``, JAX's ``data_axis``) the rows of X, the
+targets, the predictions and ``RejuvRands.row_gum`` are one rank's: the
+split value is ``sums.gumbel_pick``'s over every shard and the counts,
+residual sums and likelihood sums are reduced over the data group, so every
+shard takes the same decisions.
 """
 
 from __future__ import annotations
@@ -33,8 +39,9 @@ from typing import Callable
 import torch
 
 from ..config import BartConfig, PgbartConfig
-from ..ops.sums import alpha_cdf_of, sum64, true_div
+from ..ops.sums import alpha_cdf_of, gumbel_pick, sum64, true_div
 from ..ops.trees import decide_left
+from ..parallel.mesh import row_sum
 
 # move choice: grow below 0.25, prune below 0.5, change above
 P_GROW_MOVE, P_PRUNE_MOVE = 0.25, 0.5
@@ -57,6 +64,17 @@ class RejuvRands:
         """The randoms of move ``i`` (the move axis dropped)."""
         return RejuvRands(*(getattr(self, f.name)[i]
                             for f in dataclasses.fields(self)))
+
+    def shard(self, chains: slice, rows=None) -> "RejuvRands":
+        """The numbers of the chains ``chains`` (and the row Gumbels of the
+        rows ``rows``) out of numbers drawn for every chain (axis 1)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            a = getattr(self, f.name)[:, chains]
+            if f.name == "row_gum" and rows is not None:
+                a = a[..., rows]
+            out[f.name] = a.contiguous()
+        return RejuvRands(**out)
 
 
 def gumbel(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -132,7 +150,7 @@ def _salt_bits(salt: torch.Tensor) -> torch.Tensor:
 
 def _one_move(r: RejuvRands, sv, sl, st, lf, ct, pred, XT, resid, sum_noi,
               alpha_cdf, leaf_sd, rules, cfg: BartConfig, ll_of: Callable,
-              depth, all_cont: bool = False):
+              depth, all_cont: bool = False, rows=None):
     """One grow, prune or change attempt on one tree of each chain.
 
     ``sv``/``sl``/``st``/``ct`` (C, S), ``lf`` (C, S, k), ``pred`` /
@@ -140,12 +158,13 @@ def _one_move(r: RejuvRands, sv, sl, st, lf, ct, pred, XT, resid, sum_noi,
     ``leaf_sd`` (C, k), ``rules`` (p,), ``depth`` int64[S]; ``r`` holds one
     move's randoms (``RejuvRands.move``).  ``ll_of(sum_noi, pred) -> (C,)``.
     ``all_cont``: every split rule is continuous (the decisions are then
-    ``x <= value`` alone).
+    ``x <= value`` alone).  ``rows``: the row arrays are this rank's of a
+    row-sharded model (``ll_of`` reduces its own sums).
     Returns the (possibly unchanged) ``(sv, sl, st, lf, ct, pred)`` and the
     accept decision bool[C].
     """
-    C, S = sv.shape
-    p, n = XT.shape
+    S = sv.shape[1]
+    p = XT.shape[0]
     D, m = cfg.max_depth, cfg.m
     dev = sv.device
     f32 = torch.float32
@@ -177,18 +196,16 @@ def _one_move(r: RejuvRands, sv, sl, st, lf, ct, pred, XT, resid, sum_noi,
     var = torch.searchsorted(alpha_cdf, r.u_var[:, None] * alpha_cdf[:, -1:]
                              ).clamp(0, p - 1)[:, 0]
     xcol = XT[var]                                               # (C, n)
-    ridx = torch.argmax(torch.where(mask, r.row_gum,
-                                    torch.full_like(r.row_gum, float("-inf"))),
-                        1)
-    val = torch.where(mask.any(1), _at(xcol, ridx),
-                      torch.full((C,), float("nan"), device=dev))
+    val = gumbel_pick(r.row_gum, mask, xcol, rows)           # (C,)
     left = mask & _decide(xcol, val[:, None], r.salt[:, None],
                           rules[var][:, None], all_cont)
-    cl = left.sum(1).to(f32)
+    cl = row_sum(left.sum(1), rows).to(f32)
     cr = cnt - cl
     zero = torch.zeros_like(resid)
-    rs_t = sum64(torch.where(mask[:, :, None], resid, zero), dim=1)  # (C, k)
-    rs_l = sum64(torch.where(left[:, :, None], resid, zero), dim=1)
+    rs_t = sum64(torch.where(mask[:, :, None], resid, zero), dim=1,
+                 rows=rows)                                      # (C, k)
+    rs_l = sum64(torch.where(left[:, :, None], resid, zero), dim=1,
+                 rows=rows)
     rs_r = rs_t - rs_l
     noise = r.eps * leaf_sd[:, None, :]                              # (C,2,k)
     mu_l = true_div(rs_l / cl.clamp_min(1.0)[:, None], m) + noise[:, 0]
@@ -257,12 +274,12 @@ def _one_move(r: RejuvRands, sv, sl, st, lf, ct, pred, XT, resid, sum_noi,
 
 def rejuvenate_forest(state, rands: RejuvRands, X, Y_target, rules,
                       cfg: BartConfig, pg: PgbartConfig, ll_of: Callable,
-                      all_cont: bool = False):
+                      all_cont: bool = False, rows=None):
     """``pg.rejuvenation_sweeps`` sweeps of one move per tree over every
     chain's committed forest (``PgbartState`` with a leading chain axis,
     UPDATED IN PLACE and returned).  ``Y_target`` is (n, k) or (C, n, k);
     ``rands`` holds ``m * rejuvenation_sweeps`` moves; ``all_cont``: every
-    rule of ``rules`` is continuous."""
+    rule of ``rules`` is continuous; ``rows``: see ``_one_move``."""
     m = cfg.m
     n, _p = X.shape
     k = cfg.n_outputs
@@ -283,7 +300,7 @@ def rejuvenate_forest(state, rands: RejuvRands, X, Y_target, rules,
             rands.move(i), f.split_var[:, jt], f.split_val[:, jt],
             f.split_set[:, jt], f.leaf[:, jt], f.count[:, jt], pred, XT,
             Y - sum_noi, sum_noi, alpha_cdf, state.leaf_sd, rules, cfg, ll_of,
-            depth, all_cont)
+            depth, all_cont, rows)
         f.split_var[:, jt] = sv
         f.split_val[:, jt] = sl
         f.split_set[:, jt] = st

@@ -137,13 +137,16 @@ def test_posterior_summaries_within_monte_carlo_band_of_jax(port_fit):
     (dict(mesh=object()), "mesh"),
 ], ids=["mesh"])
 def test_sample_refuses_arguments_that_wait(kwargs, word):
-    """Only ``mesh`` waits; the other five arguments run and are tested in
-    tests/test_torch_checkpoint.py and tests/test_torch_debug_aids.py."""
+    """No argument waits any more: ``mesh`` runs
+    (tests/test_torch_parallel.py), the other five are tested in
+    tests/test_torch_checkpoint.py and tests/test_torch_debug_aids.py.  A
+    ``mesh`` that is not a ``DeviceMesh`` over the JAX package's axes is
+    refused."""
     X, Y, _ = _toy(30, 3)
     with tpmb.Model():
         mu = tpmb.BART("mu", X, Y, m=4)
         tpmb.Normal("y", mu, 1.0, observed=Y)
-        with pytest.raises(NotImplementedError, match=word):
+        with pytest.raises(TypeError, match=word):
             tpmb.sample(tune=1, draws=1, chains=1, device="cpu", **kwargs)
 
 

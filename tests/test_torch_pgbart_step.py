@@ -177,8 +177,10 @@ def test_draw_rands_shapes_and_determinism():
     assert a.sb.dtype == torch.int32 and a.epsr.shape == (3, 2, 5, 1, 15)
     assert a.seed is None and b.seed is None    # drawn only without the block
     assert a.umix is None and a.gsel is None    # drawn for linear / mix only
+    # every chain and row of the draw (StepRands.shard places a part)
+    assert (a.chains, a.chain0, a.row0) == (None, 0, 0)
     for f in dataclasses.fields(a):
-        if f.name in ("seed", "umix", "gsel"):
+        if f.name in ("seed", "umix", "gsel", "chains", "chain0", "row0"):
             continue
         x, y = getattr(a, f.name), getattr(b, f.name)
         assert torch.equal(x, y), f.name

@@ -258,7 +258,8 @@ def test_a_target_per_chain_gives_each_chain_its_own_step(route):
 
     def chain(obj, c, axis):
         return type(obj)(**{
-            f.name: (v if v is None else
+            f.name: (v if not isinstance(v, torch.Tensor)
+                     and not dataclasses.is_dataclass(v) else
                      chain(v, c, axis) if dataclasses.is_dataclass(v) else
                      v.narrow(axis(f.name), c, 1).contiguous())
             for f in dataclasses.fields(obj)

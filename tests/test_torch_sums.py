@@ -123,3 +123,29 @@ def test_true_div_is_one_rounding_of_the_quotient(count):
     got = sums.true_div(torch.from_numpy(x), count).numpy()
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, x / np.float32(count))
+
+
+def test_gumbel_pick_takes_the_lowest_row_of_the_largest_gumbel():
+    """``gumbel_pick`` against NumPy's first arg-max over the masked rows:
+    ties go to the lowest row, a NaN covariate of the winner is kept, a
+    node with no row gets NaN, and the arrays broadcast (a node axis)."""
+    rng = np.random.default_rng(3)
+    n, G = 40, 3
+    gum = rng.gumbel(size=(2, n)).astype(np.float32)
+    gum[0, [5, 9, 30]] = 9.0                 # a three-way tie
+    vals = rng.normal(size=(2, n)).astype(np.float32)
+    vals[1, int(np.argmax(gum[1]))] = np.nan
+    node = rng.integers(0, G - 1, size=(2, n))   # node G-1 holds no row
+    mask = node[:, None, :] == np.arange(G)[None, :, None]     # (2, G, n)
+    got = sums.gumbel_pick(torch.from_numpy(gum)[:, None],
+                           torch.from_numpy(mask),
+                           torch.from_numpy(vals)[:, None]).numpy()
+    want = np.full((2, G), np.nan, np.float32)
+    for c in range(2):
+        for g in range(G - 1):
+            score = np.where(mask[c, g], gum[c], -np.inf)
+            want[c, g] = vals[c, int(np.argmax(score))]
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[:, G - 1]).all()
+    assert got[0, node[0, 5]] == vals[0, min(
+        i for i in (5, 9, 30) if node[0, i] == node[0, 5])]
