@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases device,build,kernels,step,sample,models,
-                                    generic,interpret,aids,linlik,mesh,timing]
+                                    generic,interpret,aids,linlik,mesh,
+                                    examples,timing]
                           [--ptxas] [--tune N] [--draws N]
                           [--large-tune N] [--large-draws N]
                           [--model-tune N] [--model-draws N]
@@ -196,7 +197,22 @@ line:
    (float errors printed), and ``sample()`` at 100/100 on the per-round
    route (``smc.cu`` only, plain node-space growth) with rmse against the
    true f below half of std(f), its step time and all-reduces a step.
-12. ``timing``  CUDA-event times of each kernel and its plain version at the
+12. ``examples`` the six examples of ``examples/port/`` (seven entries) at
+   their own budgets through their entries with ``device=None``: each
+   example's kernels launched exactly as its steps ask (``draw.cu`` once a
+   step and forest for Friedman, out-of-sample, binary, categorical (three
+   forests), heteroscedastic (two) and high-dim; ``grow.cu`` D and ``smc.cu``
+   D-1 times a tree for coal) and no other, no plain version of a kernel
+   called (coal's winner and refinement are plain PyTorch by design, as in
+   JAX's XLA), and each example's check: coal's early over late rate above
+   2, Friedman rmse below 1.5, the classifiers' accuracy above their
+   majority rates, heteroscedastic ``corr_mean_output`` at least 0.8, the
+   five active columns the high-dim top five, out-of-sample rmse below
+   half of std(f_test).  Chain-draws/s and seconds of each; the high-dim
+   example's PDP / ICE seconds, and its plots' computations through the
+   shared continuous-only descent rule against the full ``decide_left``
+   in turns (equal bit for bit).
+13. ``timing``  CUDA-event times of each kernel and its plain version at the
    main-path shapes (the growth round and the selection for the constant and
    the linear response): ``ms``/``plain_ms`` with the card's queue kept full
    (device time only), ``call_ms``/``plain_call_ms`` issued to an idle card
@@ -216,6 +232,17 @@ line:
 ``sample()`` run on the fused route and on the large-n route: device busy
 share and the device time by kernel name.  (Where a step of the whole-step
 kernel spends its cycles: ``scripts/draw_phase_clocks.py``.)
+
+``--phases device,build,parity`` (not in the default run): the nine models
+of ``bench.py`` (``config_friedman`` ... ``config_het_joint``) through
+``sample()`` at the bench's budgets and settings (4 chains,
+``posterior_dtype="float16"``, ``chunk_size`` a quarter of the draws, the
+rows' particles, batch, split-prior decay, refinements, ``ancestor_sampling``
+and ``store_trees``), data from copies of the bench's generators, quality
+as the bench's ``quality`` functions (and sigma of large-n regression, and
+bench.py's R-hat rows), each row held to a band around the JAX package's
+record in ``BENCH_FULL.json``: seed 0, seed 1 for a row outside its band;
+a row outside at both seeds fails the phase.  One line a row.
 
 ``--phases nccl`` (a machine of two cards or more; not in the default run):
 ``sample(mesh=...)`` launched as a user launches it, ``torchrun`` with one
@@ -237,6 +264,7 @@ as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -247,8 +275,9 @@ import numpy as np
 import torch
 
 ALL_PHASES = ("device", "build", "kernels", "step", "sample", "models",
-              "generic", "interpret", "aids", "linlik", "mesh", "timing")
-EXTRA_PHASES = ("profile", "nccl")    # only when asked for with --phases
+              "generic", "interpret", "aids", "linlik", "mesh", "examples",
+              "timing")
+EXTRA_PHASES = ("profile", "nccl", "parity")  # only when asked for by name
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 C, P, N, PCOLS, M, DEPTH, R = 4, 20, 1000, 10, 50, 6, 5
@@ -1611,8 +1640,9 @@ def sample_run(model, route, tune, draws, shape=None, choose=False,
     just before and read just after; checks the counts of the route.
     ``gaussian``: the model's likelihood is Normal (the per-round route
     selects with the kernel; a classifier selects in plain PyTorch).
-    Nothing may call ``ops.select.select_refine_linear``, the XLA-shaped
-    form of the linear selection that only the tests use.
+    No plain version of a kernel may run (``plain_calls``; a classifier's
+    plain selection excepted), ``ops.select.select_refine_linear`` (the
+    XLA-shaped form of the linear selection that only the tests use) neither.
 
     ``shape``: ``dict(C, P, N, PCOLS, M, DEPTH)`` plus the ``sample()``
     arguments ``refinements`` and ``store_trees``; default the n=1000 shapes.
@@ -1625,7 +1655,6 @@ def sample_run(model, route, tune, draws, shape=None, choose=False,
     import warnings
 
     import pymc_bart_tpu_torch as pmb
-    from pymc_bart_tpu_torch.ops import select as select_mod
 
     sh = dict(C=C, P=P, N=N, PCOLS=PCOLS, M=M, DEPTH=DEPTH, refinements=R,
               store_trees=True)
@@ -1641,25 +1670,14 @@ def sample_run(model, route, tune, draws, shape=None, choose=False,
         blocks_drawn.append(bool(kw.get("row_gumbels", True)))
         return real_draw(*a, **kw)
 
-    # select_refine_linear wherever a module holds it by that name
-    linear_holders = [m for m in (select_mod, pgbart)
-                      if hasattr(m, "select_refine_linear")]
-    real_linear = select_mod.select_refine_linear
-    linear_calls = []
-
-    def linear_spy(*a, **kw):
-        linear_calls.append(1)
-        return real_linear(*a, **kw)
-
     choose = choose or route == "bign"
-    with pmb.Model(), warnings.catch_warnings(record=True) as said:
+    with (pmb.Model(), warnings.catch_warnings(record=True) as said,
+          plain_calls() as plain):
         warnings.simplefilter("always")
         rv = model(pmb)
         for w in wrappers.values():
             w.launches = 0
         pgbart.draw_rands = spy
-        for m in linear_holders:
-            m.select_refine_linear = linear_spy
         try:
             t0 = time.perf_counter()
             idata = pmb.sample(tune=tune, draws=draws, chains=sh["C"],
@@ -1673,12 +1691,9 @@ def sample_run(model, route, tune, draws, shape=None, choose=False,
             seconds = time.perf_counter() - t0
         finally:
             pgbart.draw_rands = real_draw
-            for m in linear_holders:
-                m.select_refine_linear = real_linear
         launches = {k: int(w.launches) for k, w in wrappers.items()}
-    if linear_calls:
-        raise AssertionError(f"{route} route: select_refine_linear was called "
-                             f"{len(linear_calls)} times on the card")
+    expect_no_plain(f"{route} route", plain,
+                    () if gaussian else ("plain_selection",))
     per_round_said = any("per-round sampler route" in str(w.message)
                          for w in said)
     if choose and per_round_said != (route == "rounds"):
@@ -1742,7 +1757,7 @@ def sample_run(model, route, tune, draws, shape=None, choose=False,
                / timings["draw_seconds_total"],
                vi_top5=np.argsort(vi.sum(axis=(0, 1))[0])[::-1][:5].tolist(),
                launches=launches, gumbel_blocks_drawn=sum(blocks_drawn),
-               select_refine_linear_calls=len(linear_calls))
+               plain_calls=plain)
     return idata, post, out
 
 
@@ -4004,6 +4019,510 @@ def phase_nccl(dev):
          seconds=time.perf_counter() - t0, **report)
 
 
+# -- phase examples: the six examples of examples/port/ on the card ---------
+# entry: (route, BART forests of its model, what its check asks, the check
+# on the dict it returns)
+PORT_EXAMPLES = {
+    "coal_disasters.main": (
+        "rounds", 1, "early / late > 2",
+        lambda r: r["early"] / r["late"] > 2),
+    "friedman_regression.main": (
+        "fused", 1, f"rmse < {RMSE_BOUND}", lambda r: r["rmse"] < RMSE_BOUND),
+    "classification.binary": (
+        "fused", 1, "accuracy > majority_rate",
+        lambda r: r["accuracy"] > r["majority_rate"]),
+    "classification.categorical": (
+        "fused", 3, "accuracy > majority_rate",
+        lambda r: r["accuracy"] > r["majority_rate"]),
+    "heteroscedastic.main": (
+        "fused", 2, "corr_mean_output >= 0.8",
+        lambda r: r["corr_mean_output"] >= 0.8),
+    "high_dim_selection.main": (
+        "fused", 1, "top5 == [0, 1, 2, 3, 4]",
+        lambda r: r["top5"] == [0, 1, 2, 3, 4]),
+    "out_of_sample.main": (
+        "fused", 1, "rmse < std_f_test / 2",
+        lambda r: r["rmse"] < 0.5 * r["std_f_test"]),
+}
+# the plain versions of the kernels, by every module attribute the sampler
+# calls them through, with the kernel each stands in for
+PLAIN_VERSIONS = (
+    ("pymc_bart_tpu_torch.ops.draw", "pgbart_step_fused_plain",
+     "pgbart_step_fused"),
+    ("pymc_bart_tpu_torch.ops.bign", "pgbart_step_bign_plain",
+     "pgbart_step_bign"),
+    ("pymc_bart_tpu_torch.ops.grow", "grow_round_plain", "grow_round"),
+    ("pymc_bart_tpu_torch.sampler.pgbart", "grow_round_plain", "grow_round"),
+    ("pymc_bart_tpu_torch.ops.smc", "smc_resample_plain", "smc_resample"),
+    ("pymc_bart_tpu_torch.ops.bign", "smc_resample_plain", "smc_resample"),
+    ("pymc_bart_tpu_torch.ops.select", "select_refine_plain",
+     "select_refine"),
+    # the XLA-shaped linear selection, which only the tests use
+    ("pymc_bart_tpu_torch.ops.select", "select_refine_linear",
+     "select_refine"),
+    # the winner and refinement of a non-Gaussian or joint forest: plain
+    # PyTorch by design, as the JAX package runs them in XLA
+    ("pymc_bart_tpu_torch.sampler.pgbart", "select_refine_plain",
+     "plain_selection"),
+)
+
+
+def load_port_example(name):
+    """The module of ``examples/port/<name>.py``, under a name of its own."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "examples" / "port" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"pymc_bart_tpu_torch_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of every plain version (``PLAIN_VERSIONS``) while
+    the block runs: a dict of counts by the kernel each stands in for."""
+    import importlib
+
+    counts = {}
+    saved = []
+
+    def spy(key, fn):
+        def counted(*a, **k):
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*a, **k)
+        return counted
+
+    for mod_name, attr, key in PLAIN_VERSIONS:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, spy(key, getattr(mod, attr)))
+    try:
+        yield counts
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def instrumented(fn, *args, **kw):
+    """Run ``fn(*args, **kw)`` with every launch count set to 0 just before
+    and read just after and the plain versions counted; each
+    ``pmb.sample`` call gets a ``timings`` dict, and each PDP / ICE
+    computation (``utils.interpret.partial_dependence`` / ``ice``, from a
+    plot or called alone) is timed; the callee's printing goes to stderr.
+    Returns ``(result, seconds, launches, plain calls, samples, curves)``."""
+    import pymc_bart_tpu_torch as pmb
+    from pymc_bart_tpu_torch.utils import interpret, plots
+
+    wrappers = kernel_wrappers()
+    samples, curves = [], []
+    real_sample = pmb.sample
+    saved = [(m, k, getattr(m, k)) for m in (interpret, plots)
+             for k in ("partial_dependence", "ice")]
+
+    def sample(*a, **k):
+        timings = {}
+        idata = real_sample(*a, timings=timings, **k)
+        samples.append(dict(chains=k["chains"], tune=k["tune"],
+                            draws=k["draws"], timings=timings))
+        return idata
+
+    def timed(name, fn):
+        def computed(trees, X, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(trees, X, *a, **k)
+            torch.cuda.synchronize()
+            curves.append(dict(name=name, seconds=time.perf_counter() - t0,
+                               trees=trees, X=X))
+            return res
+        return computed
+
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        pmb.sample = sample
+        for m, k, f in saved:
+            setattr(m, k, timed(k, f))
+        with plain_calls() as plain, contextlib.redirect_stdout(sys.stderr):
+            t0 = time.perf_counter()
+            result = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        pmb.sample = real_sample
+        for m, k, f in saved:
+            setattr(m, k, f)
+    launches = {k: int(w.launches) for k, w in wrappers.items()}
+    return result, seconds, launches, dict(plain), samples, curves
+
+
+def descent_rule_seconds(trees, X):
+    """The high-dim example's plot computations on the card: PDP of the five
+    active columns (200 draws) and ICE of columns 0 and 3 (30 instances,
+    100 draws), through the shared continuous-only descent rule and through
+    the full ``decide_left`` (``utils.posterior``'s ``rules_all_continuous``
+    answering False), in turns (full, shared, shared, full) after a warm-up.
+    Seconds of each; the two rules' curves must be equal bit for bit."""
+    from pymc_bart_tpu_torch.utils import interpret, posterior
+
+    shared_rule = posterior.rules_all_continuous
+
+    def run(rule):
+        posterior.rules_all_continuous = rule
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pdp = interpret.partial_dependence(
+                trees, X, range(5), samples=200,
+                rng=np.random.default_rng(0), device=None)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ice = interpret.ice(trees, X, [0, 3], instances=30, samples=100,
+                                rng=np.random.default_rng(1), device=None)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        finally:
+            posterior.rules_all_continuous = shared_rule
+        return [b.curves for b in pdp + ice], t1 - t0, t2 - t1
+
+    rules = {"shared": shared_rule, "full": lambda rules: False}
+    run(shared_rule)
+    out = {k: dict(pdp_seconds=[], ice_seconds=[]) for k in rules}
+    curves = {}
+    for label in ("full", "shared", "shared", "full"):
+        curves[label], pdp_s, ice_s = run(rules[label])
+        out[label]["pdp_seconds"].append(pdp_s)
+        out[label]["ice_seconds"].append(ice_s)
+    for a, b in zip(curves["full"], curves["shared"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("PDP / ICE curves differ between the shared "
+                                 "continuous-only rule and decide_left")
+    return out
+
+
+def expect_no_plain(tag, plain, allowed=()):
+    """Fail if a plain version other than ``allowed`` was called."""
+    if set(plain) - set(allowed):
+        raise AssertionError(f"{tag}: plain versions called on the card: "
+                             f"{plain}")
+
+
+def expect_route(tag, launches, kernels):
+    """Fail unless every kernel of ``kernels`` launched and no other did."""
+    missing = [k for k in kernels if launches[k] == 0]
+    others = [k for k, v in launches.items() if v and k not in kernels]
+    if missing or others:
+        raise AssertionError(f"{tag}: not launched {missing}, launched off "
+                             f"the route {others}")
+
+
+def phase_examples(dev):
+    """The six examples of ``examples/port/`` (seven entries) at their own
+    budgets on the card, each through its entry with ``device=None``: the
+    kernels of its route launched exactly as often as its steps ask
+    (``draw.cu`` once a step and forest; coal ``grow.cu`` D and ``smc.cu``
+    D-1 times a tree) and nothing else, no plain version of a kernel called
+    (coal's winner and refinement are plain PyTorch by design), finite
+    returned numbers and each example's quality check.  Prints one line an
+    entry (chain-draws/s, seconds, launches; the high-dim example's PDP / ICE
+    seconds, and its plot computations with the shared continuous-only
+    descent rule against the full ``decide_left``), then the summary."""
+    failed = []
+    summary = {}
+    for key, (route, forests, what, check) in PORT_EXAMPLES.items():
+        name, entry = key.split(".")
+        mod = load_port_example(name)
+        res, seconds, launches, plain, samples, curves = instrumented(
+            getattr(mod, entry), device=None)
+        (s,) = samples
+        steps = s["tune"] + s["draws"]
+        if route == "fused":
+            want = {"pgbart_step_fused": steps * forests}
+            allowed_plain = ()
+        else:
+            want = per_round_launches(20, DEPTH, s["tune"], s["draws"])
+            allowed_plain = ("plain_selection",)
+        expect_launches(key, launches, want)
+        expect_no_plain(key, plain, allowed_plain)
+        numbers = [v for v in res.values() if not isinstance(v, list)]
+        numbers += [x for v in res.values() if isinstance(v, list)
+                    for x in v if not isinstance(x, str)]
+        if not np.isfinite(np.asarray(numbers, float)).all():
+            raise AssertionError(f"{key}: non-finite result {res}")
+        ok = bool(check(res))
+        line = dict(example=key, route=route, forests=forests,
+                    chains=s["chains"], tune=s["tune"], draws=s["draws"],
+                    seconds=seconds,
+                    tune_seconds=s["timings"]["tune_seconds"],
+                    draw_seconds_total=s["timings"]["draw_seconds_total"],
+                    chain_draws_per_s=s["chains"] * s["draws"]
+                    / s["timings"]["draw_seconds_total"],
+                    launches=launches, plain_calls=plain, result=res,
+                    check=what, check_passed=ok)
+        if curves:
+            line["curve_seconds"] = {c["name"]: c["seconds"] for c in curves}
+            line["matplotlib"] = "matplotlib" in sys.modules
+            line["descent_rule"] = descent_rule_seconds(
+                curves[0]["trees"], np.asarray(curves[0]["X"], np.float64))
+        emit("examples", **line)
+        summary[key] = dict(chain_draws_per_s=line["chain_draws_per_s"],
+                            seconds=seconds, check_passed=ok)
+        if not ok:
+            failed.append((key, what, res))
+    emit("examples", summary=summary)
+    if failed:
+        raise AssertionError(f"examples failing their checks: {failed}")
+
+
+# -- phase parity: the nine models of bench.py at its budgets ---------------
+def bikes_like(n, seed=1):
+    """``bench.py``'s synthetic hourly rental counts: daily cycle x
+    temperature (a copy: this script imports nothing of the JAX side)."""
+    rng = np.random.default_rng(seed)
+    hour = rng.uniform(0, 24, n)
+    temp = rng.uniform(-5, 35, n)
+    hum = rng.uniform(20, 100, n)
+    wind = rng.uniform(0, 40, n)
+    work = rng.integers(0, 2, n).astype(np.float32)
+    lam = (60 * np.exp(-0.5 * ((hour - 8) / 2.0) ** 2)
+           + 80 * np.exp(-0.5 * ((hour - 17.5) / 2.5) ** 2)
+           + 2.0 * np.clip(temp, 0, 30) - 0.3 * (hum - 60) - 0.5 * wind)
+    lam = np.maximum(lam, 2.0)
+    Y = rng.poisson(lam).astype(np.float32)
+    X = np.stack([hour, temp, hum, wind, work], axis=1).astype(np.float32)
+    return X, Y, lam
+
+
+def regression(X, Y, m, sigma=1.0, **bart):
+    def build(pmb):
+        mu = pmb.BART("mu", X, Y, m=m, **bart)
+        s = pmb.HalfNormal("sigma", sigma)
+        pmb.Normal("y", mu, s, observed=Y)
+        return mu
+    return build
+
+
+def classifier(X, Y, m):
+    def build(pmb):
+        lo = pmb.BART("lo", X, Y, m=m)
+        pmb.Bernoulli("y", p=pmb.math.sigmoid(lo), observed=Y)
+        return lo
+    return build
+
+
+def two_output(X, Y, m, separate_trees):
+    def build(pmb):
+        w = pmb.BART("w", X, Y, m=m, shape=(2, len(Y)),
+                     separate_trees=separate_trees)
+        pmb.Normal("y", w[0], pmb.math.abs(w[1]) + 0.05, observed=Y)
+        return w
+    return build
+
+
+def fit_quality(idata, f_true):
+    mu_hat = idata.posterior["mu"].values.mean(axis=(0, 1))
+    return {"rmse_vs_true_f": float(np.sqrt(np.mean((mu_hat - f_true) ** 2))),
+            "sigma_mean": float(idata.posterior["sigma"].values.mean())}
+
+
+def classifier_quality_of(idata, Y, p_true):
+    lo_hat = idata.posterior["lo"].values.mean(axis=(0, 1))
+    ph = np.clip(1 / (1 + np.exp(-lo_hat)), 1e-6, 1 - 1e-6)
+    return {"train_accuracy": float(((lo_hat > 0) == (Y > 0.5)).mean()),
+            "bayes_accuracy": float(np.maximum(p_true, 1 - p_true).mean()),
+            "mean_loglik": float(np.mean(Y * np.log(ph)
+                                         + (1 - Y) * np.log(1 - ph)))}
+
+
+def scale_quality(idata, X, mu_true):
+    w = idata.posterior["w"].values
+    corr = float(np.corrcoef(w.mean(axis=(0, 1))[0], mu_true)[0, 1])
+    s_hat = np.abs(w[:, :, 1, :]).mean(axis=(0, 1)) + 0.05
+    return {"corr_mean_output": corr,
+            "scale_hi_over_lo": float(s_hat[X[:, 1] > 0].mean()
+                                      / max(s_hat[X[:, 1] <= 0].mean(),
+                                            1e-9)),
+            "true_ratio": 8.5}
+
+
+def parity_rows():
+    """The nine models of ``bench.py`` (``config_*``, ``:224-483``) with its
+    data, budgets and ``sample()`` settings: ``(name, build, sample
+    arguments, quality(idata), band(quality) -> list of failures, the
+    JAX package's record in BENCH_FULL.json, kernels the route launches)``.
+    Every row: 4 chains, ``posterior_dtype="float16"`` and ``chunk_size`` a
+    quarter of the draws, as ``bench.py::run_config``.  ``build(pmb)`` takes
+    either package."""
+    rows = []
+    X, Y, f = friedman(1000, 10)
+    rows.append((
+        "friedman", regression(X, Y, 50),
+        dict(tune=200, draws=600, num_particles=20),
+        lambda i, f=f: {**fit_quality(i, f), "vi_top5_is_signal": set(
+            np.argsort(i["sample_stats"]["variable_inclusion"].values.sum(
+                axis=(0, 1))[0])[::-1][:5].tolist()) == {0, 1, 2, 3, 4}},
+        lambda q: ([] if q["rmse_vs_true_f"] <= 0.685 else ["rmse > 0.685"])
+        + ([] if q["vi_top5_is_signal"] else ["vi_top5_is_signal false"]),
+        {"rmse_vs_true_f": 0.571, "sigma_mean": 1.273,
+         "vi_top5_is_signal": True}, ("pgbart_step_fused",)))
+    Xb, Yb, lam = bikes_like(1000)
+
+    def bikes_quality(i, lam=lam):
+        mu_hat = i.posterior["mu"].values.mean(axis=(0, 1))
+        rmse = float(np.sqrt(np.mean((mu_hat - lam) ** 2)))
+        return {"rmse_vs_lambda": rmse, "rel_rmse": rmse / float(lam.std())}
+
+    rows.append((
+        "bikes", regression(Xb, Yb, 50, sigma=2.0),
+        dict(tune=200, draws=400, num_particles=20), bikes_quality,
+        lambda q: [] if q["rel_rmse"] <= 0.119 else ["rel_rmse > 0.119"],
+        {"rmse_vs_lambda": 3.201, "rel_rmse": 0.099}, ("pgbart_step_fused",)))
+    Xl, Yl = logistic(1000, 10, seed=2)
+    pl = 1 / (1 + np.exp(-(4 * np.sin(np.pi * Xl[:, 0] * Xl[:, 1])
+                           + 4 * Xl[:, 3] - 2)))
+    rows.append((
+        "logistic", classifier(Xl, Yl, 50),
+        dict(tune=200, draws=400, num_particles=20),
+        lambda i: classifier_quality_of(i, Yl, pl),
+        lambda q: ([] if q["train_accuracy"] >= 0.808 else ["accuracy < 0.808"])
+        + ([] if q["mean_loglik"] >= -0.407 else ["mean_loglik < -0.407"]),
+        {"train_accuracy": 0.828, "bayes_accuracy": 0.837,
+         "mean_loglik": -0.387}, ("pgbart_step_fused",)))
+    Xh, Yh, mu_h = het_data(500, seed=3)
+    rows.append((
+        "heteroscedastic", two_output(Xh, Yh, 30, True),
+        dict(tune=400, draws=400, ancestor_sampling=True),
+        lambda i: scale_quality(i, Xh, mu_h),
+        lambda q: ([] if q["corr_mean_output"] >= 0.99 else ["corr < 0.99"])
+        + ([] if q["scale_hi_over_lo"] >= 4.73 else ["scale ratio < 4.73"]),
+        {"corr_mean_output": 0.998, "scale_hi_over_lo": 5.91},
+        ("pgbart_step_fused",)))
+    rng = np.random.default_rng(4)
+    Xd = rng.normal(size=(200, 1000)).astype(np.float32)
+    Yd = (3 * Xd[:, 0] + 2 * Xd[:, 1] - 2 * Xd[:, 2]
+          + rng.normal(0, 0.5, 200)).astype(np.float32)
+
+    def highdim_quality(i):
+        counts = i["sample_stats"]["variable_inclusion"].values.sum(
+            axis=(0, 1))[0].astype(float)
+        order = np.argsort(counts)[::-1]
+        return {"vi_top3_is_signal": set(order[:3].tolist()) == {0, 1, 2},
+                "signal_mass": float(counts[:3].sum() / counts.sum())}
+
+    rows.append((
+        "highdim_p1000", regression(Xd, Yd, 50, split_prior=np.ones(1000)),
+        dict(tune=200, draws=400, num_particles=40, batch=(0.5, 0.5),
+             split_prior_decay=0.999), highdim_quality,
+        lambda q: ([] if q["vi_top3_is_signal"] else ["vi_top3 false"])
+        + ([] if q["signal_mass"] >= 0.867 else ["signal_mass < 0.867"]),
+        {"vi_top3_is_signal": True, "signal_mass": 0.917},
+        ("pgbart_step_fused",)))
+    large = dict(tune=200, draws=600, num_particles=10, num_refinements=0,
+                 store_trees=False, ancestor_sampling=True)
+    Xn, Yn, fn = friedman(50_000, 10, seed=5)
+    rows.append((
+        "large_n_50k", regression(Xn, Yn, 20), dict(large),
+        lambda i: fit_quality(i, fn),
+        lambda q: ([] if q["rmse_vs_true_f"] <= 0.98 else ["rmse > 0.98"])
+        + ([] if q["sigma_mean"] <= 1.40 else ["sigma > 1.40"]),
+        {"rmse_vs_true_f": 0.891}, ("pgbart_step_bign",)))
+    Xc, Yc = logistic(50_000, 10, seed=7)
+    pc = 1 / (1 + np.exp(-(4 * np.sin(np.pi * Xc[:, 0] * Xc[:, 1])
+                           + 4 * Xc[:, 3] - 2)))
+    rows.append((
+        "large_n_logistic_50k", classifier(Xc, Yc, 20), dict(large),
+        lambda i: classifier_quality_of(i, Yc, pc),
+        lambda q: [] if q["train_accuracy"] >= 0.831 else ["accuracy < 0.831"],
+        {"train_accuracy": 0.841, "bayes_accuracy": 0.842},
+        ("pgbart_step_bign",)))
+    Xr, Yr, fr = friedman(1000, 10, seed=6)
+    rows.append((
+        "friedman_linear", regression(Xr, Yr, 50, response="linear"),
+        dict(tune=200, draws=400, num_particles=20),
+        lambda i: fit_quality(i, fr),
+        lambda q: [] if q["rmse_vs_true_f"] <= 0.654 else ["rmse > 0.654"],
+        {"rmse_vs_true_f": 0.545, "sigma_mean": 1.276},
+        ("grow_round", "smc_resample", "select_refine")))
+    rows.append((
+        "het_joint", two_output(Xh, Yh, 30, False), dict(tune=200, draws=400),
+        lambda i: scale_quality(i, Xh, mu_h),
+        lambda q: ([] if q["corr_mean_output"] >= 0.985 else ["corr < 0.985"])
+        + ([] if q["scale_hi_over_lo"] >= 2.26 else ["scale ratio < 2.26"]),
+        {"corr_mean_output": 0.995, "scale_hi_over_lo": 2.83},
+        ("grow_round", "smc_resample")))
+    return rows
+
+
+def max_rhat(idata, name):
+    """``bench.py::_ess_block``'s R-hat: the first, middle and last row of
+    the BART variable, and sigma where the model has it."""
+    from pymc_bart_tpu_torch.utils.diagnostics import rhat
+
+    v = np.asarray(idata.posterior[name].values, np.float64)
+    v = v.reshape(v.shape[0], v.shape[1], -1)
+    r = [float(rhat(v[..., j])) for j in (0, v.shape[-1] // 2,
+                                          v.shape[-1] - 1)]
+    if "sigma" in idata.posterior:
+        r.append(float(rhat(np.asarray(idata.posterior["sigma"].values,
+                                       np.float64))))
+    return max(r)
+
+
+def parity_run(name, build, kw, quality, kernels, seed):
+    """One row at one seed through ``sample()`` on the card: its quality,
+    rate, launches; the route's kernels must have launched and no plain
+    version of a kernel run."""
+    import warnings
+
+    draws = kw["draws"]
+    with warnings.catch_warnings(), plain_calls() as plain:
+        warnings.simplefilter("ignore")     # the per-round route's, R-hat's
+        (_model, rv, idata, launches, _routes, seconds,
+         timings) = counted_sample(
+            build, chains=4, random_seed=seed, chunk_size=max(draws // 4, 1),
+            posterior_dtype="float16", **kw)
+    expect_route(f"parity {name}", launches, kernels)
+    expect_no_plain(f"parity {name}", plain, ("plain_selection",))
+    q = quality(idata)
+    return dict(seed=seed, quality=q, max_rhat=max_rhat(idata, rv.name),
+                seconds=seconds, tune_seconds=timings["tune_seconds"],
+                draw_seconds_total=timings["draw_seconds_total"],
+                chain_draws_per_s=4 * draws / timings["draw_seconds_total"],
+                launches=launches, plain_calls=plain)
+
+
+def phase_parity(dev):
+    """The nine models of ``bench.py`` through the port's ``sample()`` at the
+    bench's budgets and settings on the card, each row's quality computed as
+    the bench's ``quality`` functions do, against a band around the JAX
+    package's record (``BENCH_FULL.json``; one run on another chip, so the
+    bands leave room for Monte-Carlo error).  Seed 0 first; seed 1 only for
+    a row outside its band; a row outside at both seeds is a fault of the
+    port and fails the phase after every row has run.  One line a row."""
+    faults = []
+    for name, build, kw, quality, band, jax_record, kernels in parity_rows():
+        runs = []
+        for seed in (0, 1):
+            run = parity_run(name, build, kw, quality, kernels, seed)
+            run["outside_band"] = band(run["quality"])
+            runs.append(run)
+            if not run["outside_band"]:
+                break
+        emit("parity", row=name, settings={
+            k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in kw.items()}, chains=4, posterior_dtype="float16",
+            jax_bench_full=jax_record, runs=runs,
+            in_band=not runs[-1]["outside_band"])
+        if runs[-1]["outside_band"]:
+            faults.append((name, [r["outside_band"] for r in runs]))
+    if faults:
+        raise AssertionError(f"parity rows outside their bands at seeds 0 "
+                             f"and 1: {faults}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -4087,6 +4606,10 @@ def main(argv=None):
         phase_linlik(dev, args.tune, args.draws)
     if "mesh" in phases:
         phase_mesh(dev)
+    if "examples" in phases:     # after interpret: it imports matplotlib
+        phase_examples(dev)
+    if "parity" in phases:
+        phase_parity(dev)
     if "timing" in phases:
         times = phase_timing(dev, calls, cfg, smi, runs)
     if "profile" in phases:

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .trees import Forest, decide_left, level_slots
+from .trees import Forest, decide_left, level_slots, rules_all_continuous
 
 
 def _x_at(X: torch.Tensor, var_c: torch.Tensor) -> torch.Tensor:
@@ -26,14 +26,21 @@ def _x_at(X: torch.Tensor, var_c: torch.Tensor) -> torch.Tensor:
     return X[rows.expand(var_c.shape), var_c]
 
 
-def tree_leaf_index(split_var, split_val, split_set, X, rules, depth: int):
+def tree_leaf_index(split_var, split_val, split_set, X, rules, depth: int,
+                    *, all_cont: bool | None = None):
     """Node slot reached by each row of X after ``depth`` descent rounds.
 
     split_var/split_val/split_set: [..., S]; X: float32[n, p]; rules int32[p].
     Returns int64[..., n] node slots (for ``depth < max_depth`` the row's
-    node in the depth-truncated tree).
+    node in the depth-truncated tree).  ``all_cont``: every rule is
+    continuous, so the continuous decision alone decides (``decide_left``);
+    None reads it from ``rules`` once a call, which synchronises when
+    ``rules`` lies on the card: a caller holding the rules on the host
+    passes it.
     """
     n, p = X.shape
+    if all_cont is None:
+        all_cont = rules_all_continuous(rules)
     batch = split_var.shape[:-1]
     idx = torch.zeros(batch + (n,), dtype=torch.int64, device=X.device)
     sv64 = split_var.to(torch.int64)
@@ -42,7 +49,8 @@ def tree_leaf_index(split_var, split_val, split_set, X, rules, depth: int):
         var_c = var.clamp(0, p - 1)
         xv = _x_at(X, var_c)
         left = decide_left(xv, torch.gather(split_val, -1, idx),
-                           torch.gather(split_set, -1, idx), rules[var_c])
+                           torch.gather(split_set, -1, idx), rules[var_c],
+                           all_cont)
         child = 2 * idx + 1 + (~left).to(torch.int64)
         idx = torch.where(var >= 0, child, idx)
     return idx
@@ -68,19 +76,21 @@ def leaf_values_at(split_var, leaf, slope, X, idx):
 
 
 def tree_predict(split_var, split_val, split_set, leaf, slope, X, rules,
-                 depth: int):
+                 depth: int, *, all_cont: bool | None = None):
     """Per-tree prediction: float32[..., n, k]."""
-    idx = tree_leaf_index(split_var, split_val, split_set, X, rules, depth)
+    idx = tree_leaf_index(split_var, split_val, split_set, X, rules, depth,
+                          all_cont=all_cont)
     return leaf_values_at(split_var, leaf, slope, X, idx)
 
 
-def forest_predict(forest: Forest, X, rules, depth: int | None = None):
+def forest_predict(forest: Forest, X, rules, depth: int | None = None, *,
+                   all_cont: bool | None = None):
     """Sum-of-trees prediction over the m-tree axis: float32[..., n, k]."""
     if depth is None:
         depth = _max_depth_of(forest.split_var.shape[-1])
     per_tree = tree_predict(forest.split_var, forest.split_val,
                             forest.split_set, forest.leaf, forest.slope,
-                            X, rules, depth)
+                            X, rules, depth, all_cont=all_cont)
     return per_tree.sum(dim=-3)
 
 
@@ -100,14 +110,18 @@ def _excluded_at(excluded_mask, var_c):
 
 
 def tree_predict_excluded(split_var, split_val, split_set, leaf, count, slope,
-                          X, rules, excluded_mask, depth: int):
+                          X, rules, excluded_mask, depth: int, *,
+                          all_cont: bool | None = None):
     """Per-tree prediction with the covariates marked in ``excluded_mask``
     (bool[p]) integrated out by row-count-weighted mass propagation:
     float32[..., n, k].  A leaf's linear term still reads the covariate:
     exclusion integrates out routing, not leaf functions.  A (M, p) mask
     holds one exclusion set for each index of the tree tensors' first axis
-    (M): every mask in one pass."""
+    (M): every mask in one pass.  The descent's decisions and ``all_cont``
+    as in ``tree_leaf_index``."""
     n, p = X.shape
+    if all_cont is None:
+        all_cont = rules_all_continuous(rules)
     batch = split_var.shape[:-1]
     dev = X.device
     XT = X.t()
@@ -133,7 +147,7 @@ def tree_predict_excluded(split_var, split_val, split_set, leaf, count, slope,
             break
         left = decide_left(_x_cols(XT, var_c), split_val[..., lo:hi].unsqueeze(-2),
                            split_set[..., lo:hi].unsqueeze(-2),
-                           rules[var_c].unsqueeze(-2))
+                           rules[var_c].unsqueeze(-2), all_cont)
         cl = count[..., 2 * slots + 1]
         cr = count[..., 2 * slots + 2]
         frac_l = cl / (cl + cr).clamp_min(1e-12)
@@ -147,13 +161,15 @@ def tree_predict_excluded(split_var, split_val, split_set, leaf, count, slope,
 
 
 def forest_predict_excluded(forest: Forest, X, rules, excluded_mask,
-                            depth: int | None = None):
+                            depth: int | None = None, *,
+                            all_cont: bool | None = None):
     """Sum-of-trees prediction with exclusion: float32[..., n, k]."""
     if depth is None:
         depth = _max_depth_of(forest.split_var.shape[-1])
     per_tree = tree_predict_excluded(
         forest.split_var, forest.split_val, forest.split_set, forest.leaf,
-        forest.count, forest.slope, X, rules, excluded_mask, depth)
+        forest.count, forest.slope, X, rules, excluded_mask, depth,
+        all_cont=all_cont)
     return per_tree.sum(dim=-3)
 
 

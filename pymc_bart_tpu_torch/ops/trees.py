@@ -93,6 +93,14 @@ def init_forest(m: int, n_nodes: int, n_outputs: int, init_leaf_value,
     )
 
 
+def depth_of_slot(slot: int) -> int:
+    """Tree depth of node slot ``slot`` (the root is depth 0)."""
+    d = 0
+    while 2 ** (d + 1) - 1 <= slot:
+        d += 1
+    return d
+
+
 def level_slots(d: int) -> Tuple[int, int]:
     """[start, end) slot range of level d."""
     return 2**d - 1, 2 ** (d + 1) - 1
@@ -141,16 +149,30 @@ def subset_member(cat_i32: torch.Tensor, split_val: torch.Tensor,
     return own | hash_bit(cat_i32, salt_i32)
 
 
-def decide_left(xv: torch.Tensor, split_val, split_set, rule) -> torch.Tensor:
+def decide_left(xv: torch.Tensor, split_val, split_set, rule,
+                all_cont: bool = False) -> torch.Tensor:
     """Vectorized split decision: does row value ``xv`` go LEFT?
 
     * continuous: left iff ``x <= v`` (NaN compares False -> RIGHT)
     * one-hot:    left iff ``x == v``
     * subset:     left iff ``int(x)`` is in the node's hash-salted subset
+
+    ``all_cont``: the caller knows every split rule is continuous, so the
+    first case alone decides (the same bits, without the one-hot test and the
+    subset hash).  Decide it once per call (``rules_all_continuous``), never
+    per descent round: on the card that would synchronise every round.
     """
     cont = xv <= split_val
+    if all_cont:
+        return cont
     onehot = xv == split_val
     cat = float_to_int32(xv)
     subset = subset_member(cat, split_val, split_set)
     subset = subset & ~torch.isnan(xv)
     return torch.where(rule == 0, cont, torch.where(rule == 1, onehot, subset))
+
+
+def rules_all_continuous(rules) -> bool:
+    """True iff every split rule is continuous (code 0): the ``all_cont``
+    flag of ``decide_left``.  One host read of ``rules``."""
+    return bool((rules == 0).all())

@@ -54,7 +54,7 @@ from ..models.distributions import BernoulliDist, CategoricalDist, NormalDist
 from ..models.expr import Expr, Op, evaluate
 from ..models.inference_data import DataArray, Dataset, InferenceData
 from ..models.model import BARTRV, Deterministic, Model
-from ..ops.trees import Forest
+from ..ops.trees import Forest, rules_all_continuous
 from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt_mod
 from ..utils.posterior import PosteriorForests
@@ -843,7 +843,7 @@ def sample(
             rules=torch.as_tensor(rules_np, dtype=torch.int32, device=device),
             rules_np=rules_np, pg=pg_cfgs[brv.name],
             split_prior=brv.split_prior,
-            all_cont=bool((rules_np == 0).all()),
+            all_cont=rules_all_continuous(rules_np),
             x_nan=bool(np.isnan(X_np).any()))
         for out in (range(k) if separate else (None,)):
             fused = _fused_likelihood(model, brv, out=out)

@@ -69,7 +69,7 @@ from ..ops.select import select_refine, select_refine_nodes, select_refine_plain
 from ..ops.smc import smc_resample
 from ..ops.sums import (FIXED_BITS, alpha_cdf_of, chain_exponent, from_fixed,
                         pow2, sum64, true_div)
-from ..ops.trees import Forest, init_forest
+from ..ops.trees import Forest, init_forest, rules_all_continuous
 from ..parallel.mesh import row_sum
 from .rejuvenate import RejuvRands, gumbel, rejuvenate_forest
 
@@ -679,7 +679,7 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     n, p = X.shape
     Y = Y_target.reshape(-1, n, cfg.n_outputs)
     if all_cont is None:
-        all_cont = bool((rules == 0).all())
+        all_cont = rules_all_continuous(rules)
     rejuvenate_forest(state, rejuv, X, Y, rules, cfg, pg,
                       make_ll_of(lik, lik_const, gauss_w, Y, loglik_fn,
                                  lik_params, rows), all_cont, rows=rows)
@@ -715,7 +715,7 @@ def _step_route(state, rands, X, Y_target, rules, cfg, pg, tuning, gauss_w,
         route is None and not fused_rows_on_chip(cfg, pg, X, C)))
     if bign_possible:       # the two reads synchronise: only where needed
         if all_cont is None:
-            all_cont = bool((rules == 0).all())
+            all_cont = rules_all_continuous(rules)
         if x_nan is None:
             x_nan = bool(torch.isnan(X).any())
     taken, _why = resolve_route(

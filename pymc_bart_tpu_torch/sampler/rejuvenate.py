@@ -114,13 +114,6 @@ def _at(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a.gather(1, idx[:, None])[:, 0]
 
 
-def _decide(xv, split_val, split_set, rule, all_cont: bool):
-    """``decide_left``; with every rule continuous, its first case alone."""
-    if all_cont:
-        return xv <= split_val
-    return decide_left(xv, split_val, split_set, rule)
-
-
 def rows_at_node(sv, sl, st, rules, XT, node, D: int,
                  all_cont: bool = False) -> torch.Tensor:
     """bool[C, n]: the rows routed to slot ``node[c]`` of each chain's tree.
@@ -136,9 +129,9 @@ def rows_at_node(sv, sl, st, rules, XT, node, D: int,
     child, par = up[:, :D] - 1, up[:, 1:] - 1                    # (C, D)
     par = par.clamp_min(0)
     j = sv.gather(1, par).clamp(0, p - 1).to(torch.int64)
-    left = _decide(XT[j], sl.gather(1, par)[..., None],
-                   st.gather(1, par)[..., None], rules[j][..., None],
-                   all_cont)                                     # (C, D, n)
+    left = decide_left(XT[j], sl.gather(1, par)[..., None],
+                       st.gather(1, par)[..., None], rules[j][..., None],
+                       all_cont)                                 # (C, D, n)
     ok = (left == ((child & 1) == 1)[..., None]) | (child <= 0)[..., None]
     return ok.all(dim=1)
 
@@ -197,8 +190,8 @@ def _one_move(r: RejuvRands, sv, sl, st, lf, ct, pred, XT, resid, sum_noi,
                              ).clamp(0, p - 1)[:, 0]
     xcol = XT[var]                                               # (C, n)
     val = gumbel_pick(r.row_gum, mask, xcol, rows)           # (C,)
-    left = mask & _decide(xcol, val[:, None], r.salt[:, None],
-                          rules[var][:, None], all_cont)
+    left = mask & decide_left(xcol, val[:, None], r.salt[:, None],
+                              rules[var][:, None], all_cont)
     cl = row_sum(left.sum(1), rows).to(f32)
     cr = cnt - cl
     zero = torch.zeros_like(resid)

@@ -21,7 +21,7 @@ import torch
 
 from ..config import BartConfig
 from ..ops.predict import forest_predict, forest_predict_excluded
-from ..ops.trees import Forest
+from ..ops.trees import Forest, rules_all_continuous
 
 # rows x trees x draws of one prediction pass: bounds the (draws, m, n)
 # index tensors of the traversal (the excluded path also times the slots)
@@ -103,8 +103,9 @@ def predict_draw_indices(all_trees: PosteriorForests, X, idx,
     device = resolve_device(device)
     X = torch.as_tensor(np.ascontiguousarray(np.asarray(X, np.float32)),
                         device=device)
-    rules = torch.as_tensor(np.asarray(all_trees.rules, np.int32),
-                            device=device)
+    rules_np = np.asarray(all_trees.rules, np.int32)
+    rules = torch.as_tensor(rules_np, device=device)
+    all_cont = rules_all_continuous(rules_np)       # read here, on the host
     idx = np.asarray(idx)
     depth = all_trees.config.max_depth
     n, p = X.shape
@@ -125,7 +126,8 @@ def predict_draw_indices(all_trees: PosteriorForests, X, idx,
     for lo in range(0, len(idx), d_chunk):
         sel = all_trees.select(idx[lo:lo + d_chunk], device)
         if masks is None:
-            out[0, lo:lo + d_chunk] = forest_predict(sel, X, rules, depth)
+            out[0, lo:lo + d_chunk] = forest_predict(sel, X, rules, depth,
+                                                     all_cont=all_cont)
             continue
         for mlo in range(0, M, m_chunk):
             mk = masks[mlo:mlo + m_chunk]
@@ -134,7 +136,7 @@ def predict_draw_indices(all_trees: PosteriorForests, X, idx,
                     (mk.shape[0],) + getattr(sel, f.name).shape)
                 for f in dataclasses.fields(sel)))
             out[mlo:mlo + m_chunk, lo:lo + d_chunk] = forest_predict_excluded(
-                batched, X, rules, mk, depth)
+                batched, X, rules, mk, depth, all_cont=all_cont)
     out = out.cpu().numpy()
     return out if many else out[0]
 

@@ -35,6 +35,16 @@ from pymc_bart_tpu_torch.ops import bign as tbign
 N, P_COLS, M, DEPTH, PARTICLES, CHAINS = 300, 3, 6, 3, 4, 2
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def make_data(lik, seed=0):
     rng = np.random.default_rng(seed)
     X = rng.uniform(size=(N, P_COLS)).astype(np.float32)

@@ -17,6 +17,7 @@ other row by row.
 
 import numpy as np
 import pytest
+import torch
 
 import pymc_bart_tpu as jpmb
 import pymc_bart_tpu_torch as tpmb
@@ -25,6 +26,16 @@ from pymc_bart_tpu_torch.ops import draw as tdraw
 
 KW = dict(tune=40, draws=40, chains=2, random_seed=0, num_particles=5,
           store_trees=False)
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def regression(pmb, X, Y, **kw):

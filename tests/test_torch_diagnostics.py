@@ -8,11 +8,22 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 from scipy.stats import norm, rankdata
 
 from pymc_bart_tpu_torch.models.inference_data import (DataArray, Dataset,
                                                        InferenceData)
 from pymc_bart_tpu_torch.utils import diagnostics
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _idata(**variables):

@@ -35,6 +35,16 @@ from pymc_bart_tpu_torch.sampler import pgbart as tpgbart
 N, P_COLS, M, DEPTH, PARTICLES, CHAINS = 48, 3, 6, 3, 4, 2
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def make_data(seed=0, kind="gauss", with_nan=False, mixed=False):
     """X (N, P_COLS), Y (N, 1), rules (P_COLS,), all NumPy."""
     rng = np.random.default_rng(seed)

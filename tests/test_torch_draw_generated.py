@@ -35,6 +35,16 @@ P_COLS = 3
 MASK = np.uint64(0xFFFFFFFF)
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def philox_first_word(row, stream, k0, k1):
     """Philox-4x32-10 on the counter (row, stream, 0, 0), first output word."""
     c = [np.uint64(row), np.uint64(stream), np.uint64(0), np.uint64(0)]

@@ -15,6 +15,16 @@ from pymc_bart_tpu_torch.sampler import pgbart as tpgbart
 from test_torch_draw import CHAINS, N, P_COLS, make_data, run_two_steps
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(lik):
     """(X, Y, rules, lik_row (CHAINS, N, 1) or None, lik_const)."""
     if lik == "bernoulli":

@@ -10,11 +10,22 @@ of either package give RMSE-vs-true-f 1.83..1.93 and mean sigma 2.33..2.45
 
 import numpy as np
 import pytest
+import torch
 
 import pymc_bart_tpu as jpmb
 import pymc_bart_tpu_torch as tpmb
 
 N, P_COLS, M, TUNE, DRAWS, CHAINS, PARTICLES = 100, 5, 10, 60, 60, 2, 8
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _friedman(n, p, seed=0):

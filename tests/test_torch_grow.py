@@ -19,6 +19,16 @@ from pymc_bart_tpu_torch.config import BartConfig as TBartConfig
 from pymc_bart_tpu_torch.ops.grow import grow_round, grow_round_plain
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _make_case(seed, d, k, response, *, P=4, n=64, p=3, with_nan=False,
                rules=None, take=None):
     """A valid random particle state grown deterministically to depth d

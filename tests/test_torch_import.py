@@ -6,6 +6,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -123,3 +124,89 @@ def test_port_exports_the_public_names_of_the_jax_package():
     assert not NOT_PORTED & port, sorted(NOT_PORTED & port)
     for name in port:
         assert hasattr(pymc_bart_tpu_torch, name), name
+
+
+@pytest.mark.parametrize("sub", ["ops", "models", "sampler", "utils"])
+def test_port_subpackage_exports_the_names_of_the_jax_subpackage(sub):
+    import importlib
+
+    jax_names = set(importlib.import_module(f"pymc_bart_tpu.{sub}").__all__)
+    port = importlib.import_module(f"pymc_bart_tpu_torch.{sub}")
+    assert jax_names <= set(port.__all__), sorted(jax_names
+                                                  - set(port.__all__))
+    for name in port.__all__:
+        assert hasattr(port, name), name
+
+
+def test_depth_of_slot_matches_jax():
+    from pymc_bart_tpu.ops.trees import depth_of_slot as jax_depth
+
+    from pymc_bart_tpu_torch.ops import depth_of_slot
+
+    got = [depth_of_slot(s) for s in range(2**12 + 1)]
+    assert got == [jax_depth(s) for s in range(2**12 + 1)]
+    assert got[0] == 0 and got[2**12 - 2] == 11 and got[2**12 - 1] == 12
+
+
+def _forest_and_rows(rng, rules, m=6, depth=4, n=80):
+    """A random forest over ``rules`` (int32[p]) and rows with NaNs; the
+    categorical columns hold small integer categories."""
+    import torch
+
+    p = len(rules)
+    S = 2 ** (depth + 1) - 1
+    sv = np.full((m, S), -1, np.int32)
+    for j in range(m):
+        for s in range(2**depth - 1):
+            if (s == 0 or sv[j, (s - 1) // 2] >= 0) and rng.random() < 0.75:
+                sv[j, s] = rng.integers(0, p)
+    cont = rules[np.clip(sv, 0, p - 1)] == 0
+    sl = np.where(cont, rng.normal(size=(m, S)),
+                  rng.integers(0, 4, size=(m, S))).astype(np.float32)
+    X = rng.normal(size=(n, p)).astype(np.float32)
+    cat = rules > 0
+    X[:, cat] = rng.integers(0, 4, size=(n, int(cat.sum())))
+    X[rng.random((n, p)) < 0.1] = np.nan
+    t = torch.from_numpy
+    return (t(sv), t(sl), t(rng.integers(-2**31, 2**31, size=(m, S),
+                                         dtype=np.int64).astype(np.int32)),
+            t(rng.normal(size=(m, S, 1)).astype(np.float32)),
+            t(rng.integers(0, 9, size=(m, S)).astype(np.float32)),
+            t(X), t(rules))
+
+
+def test_descent_through_the_shared_continuous_only_rule_is_bit_for_bit():
+    """``ops/predict.py``'s descents (the leaf index and the excluded
+    prediction) give the same results through ``decide_left``'s
+    continuous-only rule (``all_cont=True``) as through the full rule
+    (``False``) on a forest of continuous rules alone; a forest with one-hot
+    and subset rules keeps the full rule (the shortcut would route it
+    otherwise), and ``all_cont=None`` reads the right one from the rules.
+    Rejuvenation decides rows by the same function."""
+    import torch
+
+    from pymc_bart_tpu_torch.ops import predict, trees
+    from pymc_bart_tpu_torch.sampler import rejuvenate
+
+    assert rejuvenate.decide_left is trees.decide_left
+    rng = np.random.default_rng(11)
+    mask = torch.tensor([False, True, False, False])
+
+    def descents(sv, sl, st, leaf, count, X, r, all_cont):
+        return (predict.tree_leaf_index(sv, sl, st, X, r, 4,
+                                        all_cont=all_cont),
+                predict.tree_predict_excluded(sv, sl, st, leaf, count,
+                                              torch.zeros_like(leaf), X, r,
+                                              mask, 4, all_cont=all_cont))
+
+    for rules, shared in ((np.zeros(4, np.int32), True),
+                          (np.array([0, 1, 2, 2], np.int32), False)):
+        args = _forest_and_rows(rng, rules)
+        assert trees.rules_all_continuous(rules) is shared
+        assert trees.rules_all_continuous(args[-1]) is shared
+        full = descents(*args, False)
+        auto = descents(*args, None)
+        forced = descents(*args, True)
+        for a, b, c in zip(auto, full, forced):
+            assert torch.equal(a, b)
+            assert torch.equal(c, b) is shared

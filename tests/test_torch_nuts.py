@@ -11,6 +11,16 @@ from pymc_bart_tpu_torch.sampler import hmc, nuts
 CHAINS = 4
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _run(logp, d, step_fn=nuts.nuts_step, n_tune=300, n_draw=300, seed=0):
     gen = torch.Generator().manual_seed(seed)
     state = nuts.init_state(torch.zeros(CHAINS, d))

@@ -27,6 +27,16 @@ from pymc_bart_tpu_torch.sampler import pgbart as tpgbart
 N, P_COLS, M, DEPTH, PARTICLES = 48, 3, 6, 3, 4
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _setup(seed=0):
     rng = np.random.default_rng(seed)
     X = rng.uniform(size=(N, P_COLS)).astype(np.float32)

@@ -36,6 +36,16 @@ from pymc_bart_tpu_torch.sampler import pgbart as tpgbart
 N, P_COLS, M, DEPTH, PARTICLES = 48, 3, 6, 3, 4
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _setup(seed=0):
     """Centred covariates: the least-squares statistics are then well
     conditioned.  (Uniform [0, 1] covariates give children of a few rows near

@@ -14,6 +14,16 @@ from pymc_bart_tpu.ops.select_pallas import select_refine_pallas
 from pymc_bart_tpu_torch.ops.select import select_refine, select_refine_plain
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed, R, P=5, S=15, n=32):
     rng = np.random.default_rng(seed)
     sv = rng.integers(-1, 2, size=(P, S)).astype(np.int32)

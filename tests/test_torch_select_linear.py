@@ -28,6 +28,16 @@ S = 2 ** (DEPTH + 1) - 1
 SWEEPS = ((0.01, 0.5), (50.0, 0.5), (0.3, 0.9), (0.01, 1e-30))
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(seed, response):
     rng = np.random.default_rng(seed)
     sv = rng.integers(-1, P_COLS, size=(C, P, S)).astype(np.int32)

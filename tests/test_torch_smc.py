@@ -16,6 +16,16 @@ from pymc_bart_tpu_torch.ops.resample import (effective_sample_size,
 from pymc_bart_tpu_torch.ops.smc import smc_resample, smc_resample_plain
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(trial, P=12):
     rng = np.random.default_rng(trial)
     spread = [0.1, 5.0][trial % 2]  # low spread -> no-resample branch

@@ -12,6 +12,16 @@ from pymc_bart_tpu_torch.ops import sums
 from pymc_bart_tpu_torch.sampler import pgbart
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_sum64_is_the_float64_sum_rounded_once():
     rng = np.random.default_rng(0)
     x = (rng.normal(size=(3, 5000)) * 10.0 ** rng.integers(-3, 4, (3, 5000))

@@ -5,11 +5,22 @@ version take sum x, sum x^2 and sum x r by this rule, so that ``var_x``, the
 and in any order of the rows."""
 
 import numpy as np
+import pytest
 import torch
 
 from pymc_bart_tpu_torch.config import BartConfig
 from pymc_bart_tpu_torch.ops import sums
 from pymc_bart_tpu_torch.ops.grow import grow_round_plain
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _case(rng, C=2, P=3, k=2, n=3000, K=6):

@@ -15,6 +15,16 @@ from pymc_bart_tpu_torch.ops import predict as tpredict
 from pymc_bart_tpu_torch.ops import trees as ttrees
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """These tensors are small: one intra-op thread each, since the suite
+    runs several workers on the machine's cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _i32(a):
     return np.ascontiguousarray(a).view(np.int32)
 
