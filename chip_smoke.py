@@ -107,6 +107,9 @@ line:
    growth and resampling kernels only), a large-n run
    the large-n kernel once a step and none of the others.  No run may draw
    the (B, D, C, P, n) row-Gumbel block: every route works from a seed.
+   Each run's line gives where its host time went by the program's own
+   spans and counters (``program``: milliseconds and counts a step), as do
+   phase ``models``'s large-n runs.
 6. ``models``  the separate-trees models and rejuvenation through
    ``sample()``: the heteroscedastic model of ``bench.py`` (n=500, two
    forests of m=30, 4 chains, ``ancestor_sampling``; 200/200 steps by
@@ -151,10 +154,11 @@ line:
    two runs with ``checkpoint_dir`` from one seed agree bit for bit, and
    with a run that saves nothing; a run stopped once its checkpoint after
    half the draws is written (step 90) and resumed equals the uninterrupted
-   run bit for bit (posterior, sample stats, stored forests); the seconds
-   and bytes of a checkpoint and the draw rate with and without
-   checkpointing.  The same resume check on the n=50,000 regression on the
-   large-n route (10/10 steps, chunks of 5).  ``posterior_dtype`` float16
+   run bit for bit (posterior, sample stats, stored forests); one
+   checkpoint a chunk, all of one size, their seconds and bytes (the
+   program's span ``checkpoint`` and counter ``checkpoint_bytes``) and the
+   draw rate with and without checkpointing.  The same resume check on the
+   n=50,000 regression on the large-n route (10/10 steps, chunks of 5).  ``posterior_dtype`` float16
    and bfloat16 within 1e-2 of the float32 run relative to its largest
    value, the sample stats unchanged, the bytes drained by each;
    ``debug_nans`` gives the same bits as the run without it (its draw rate
@@ -197,6 +201,8 @@ line:
    (float errors printed), and ``sample()`` at 100/100 on the per-round
    route (``smc.cu`` only, plain node-space growth) with rmse against the
    true f below half of std(f), its step time and all-reduces a step.
+   On every rank the program's span ``collective`` is entered once a
+   collective (``parallel.mesh.collective_calls``); its seconds are printed.
 12. ``examples`` the six examples of ``examples/port/`` (seven entries) at
    their own budgets through their entries with ``device=None``: each
    example's kernels launched exactly as its steps ask (``draw.cu`` once a
@@ -1757,7 +1763,7 @@ def sample_run(model, route, tune, draws, shape=None, choose=False,
                / timings["draw_seconds_total"],
                vi_top5=np.argsort(vi.sum(axis=(0, 1))[0])[::-1][:5].tolist(),
                launches=launches, gumbel_blocks_drawn=sum(blocks_drawn),
-               plain_calls=plain)
+               plain_calls=plain, program=program_breakdown(timings, steps))
     return idata, post, out
 
 
@@ -1970,6 +1976,35 @@ def counted_sample(build, **kw):
     if not kw.get("store_trees", True):
         entries = len(calls) // (kw["tune"] + kw["draws"])
     return (model, rv, idata, launches, calls[:entries], seconds, timings)
+
+
+def program_span(timings, name):
+    """``(seconds, calls)`` of the program's span ``name`` in a ``sample()``
+    call's ``timings``, summed over every path that ends in it
+    (``tune/checkpoint`` and ``draw/checkpoint``)."""
+    got = [v for path, v in timings["spans"].items()
+           if path.rsplit("/", 1)[-1] == name]
+    return sum(v[0] for v in got), sum(v[1] for v in got)
+
+
+def program_counter(timings, name):
+    """The program's counter ``name``, summed over every path ending in
+    it."""
+    return sum(v for path, v in timings["counters"].items()
+               if path.rsplit("/", 1)[-1] == name)
+
+
+def program_breakdown(timings, steps):
+    """Where a fit's host time went by the program's own spans: each span's
+    milliseconds a step over all its paths (a parent's include its
+    children's), and each counter a step."""
+    spans = {p.rsplit("/", 1)[-1] for p in timings["spans"]}
+    counters = {p.rsplit("/", 1)[-1] for p in timings["counters"]}
+    return dict(
+        span_ms_per_step={s: 1e3 * program_span(timings, s)[0] / steps
+                          for s in sorted(spans)},
+        counters_per_step={c: program_counter(timings, c) / steps
+                           for c in sorted(counters)})
 
 
 def expect_launches(tag, launches, want):
@@ -2302,7 +2337,8 @@ def phase_models(dev, tune, draws, large_tune, large_draws):
             draw_step_ms=1e3 * timings["draw_seconds_total"] / large_draws,
             chain_draws_per_s=LN["C"] * large_draws
             / timings["draw_seconds_total"],
-            rmse_vs_true_f=rmse, sigma_mean=float(sig.mean()), true_sigma=1.0)
+            rmse_vs_true_f=rmse, sigma_mean=float(sig.mean()), true_sigma=1.0,
+            program=program_breakdown(timings, large_tune + large_draws))
         del idata
 
     runs["rejuvenation_card_vs_cpu"] = rejuvenation_on_card_vs_cpu(dev)
@@ -3094,6 +3130,20 @@ def rate(run, draws):
     return C * draws / run["timings"]["draw_seconds_total"]
 
 
+def checkpoints_of(tag, run, tune, draws, chunk):
+    """The checkpoints of a ``checkpoint_dir`` run, from the program's span
+    ``checkpoint`` and counter ``checkpoint_bytes``: one after every tuning
+    and every draw chunk, each of the same size."""
+    seconds, calls = program_span(run["timings"], "checkpoint")
+    nbytes = program_counter(run["timings"], "checkpoint_bytes")
+    want = -(-tune // chunk) + -(-draws // chunk)
+    if calls != want or nbytes % calls:
+        raise AssertionError(f"{tag}: {calls} checkpoints of {nbytes} bytes "
+                             f"in all, expected {want} of one size")
+    return dict(checkpoints=calls, checkpoint_seconds=seconds,
+                checkpoint_bytes=nbytes // calls)
+
+
 def phase_aids(dev):
     """Checkpoint / resume and the debug aids of ``sample()`` on the card."""
     import glob
@@ -3129,14 +3179,11 @@ def phase_aids(dev):
         expect_launches("aids resumed", resumed["launches"],
                         {"pgbart_step_fused": D_ // 2})
         require_same(f"interrupted at step {half} and resumed", resumed, ck1)
-        tm = ck1["timings"]
         out["friedman"] = dict(
             shapes=dict(C=C, P=P, n=N, p=PCOLS, m=M, depth=DEPTH, R=R),
             tune=T, draws=D_, chunk=CH, interrupted_at_step=half,
             resume_bit_for_bit=True, two_runs_bit_for_bit=True,
-            checkpoints=len(tm["checkpoint_seconds"]),
-            checkpoint_seconds=tm["checkpoint_seconds"],
-            checkpoint_bytes=tm["checkpoint_bytes"][-1],
+            **checkpoints_of("aids", ck1, T, D_, CH),
             chain_draws_per_s=rate(plain, D_),
             chain_draws_per_s_checkpointing=rate(ck1, D_),
             launches_resumed=resumed["launches"])
@@ -3167,12 +3214,10 @@ def phase_aids(dev):
                         {"pgbart_step_bign": DL // 2})
         require_same("large-n interrupted and resumed", big_resumed,
                      big_full)
-        tl = big_full["timings"]
         out["large_n"] = dict(
             shapes=dict(LN), tune=TL, draws=DL, chunk=CL,
             interrupted_at_step=TL + DL // 2, resume_bit_for_bit=True,
-            checkpoint_seconds=tl["checkpoint_seconds"],
-            checkpoint_bytes=tl["checkpoint_bytes"][-1])
+            **checkpoints_of("aids large-n", big_full, TL, DL, CL))
         launches["large_n"] = big_full["launches"]
         shutil.rmtree(root)
         root = smoke_dir("aids")
@@ -3631,7 +3676,8 @@ def mesh_rank(rank, init_file, outdir, device):
             draw_seconds_total=timings["draw_seconds_total"],
             tune_seconds=timings["tune_seconds"],
             collectives={k: pmesh.collective_calls[k] - calls0[k]
-                         for k in calls0})
+                         for k in calls0},
+            collective_span=program_span(timings, "collective"))
         for k, v in mesh_outputs(model, rv, idata).items():
             arrays[f"{name}/{k}"] = v
         del idata
@@ -3719,6 +3765,16 @@ def phase_mesh(dev):
                     raise AssertionError(f"mesh ({tag}): rank {r}'s {k} "
                                          "differs from the one-process run")
 
+    def same_collectives(name):
+        """The program's span ``collective`` is entered once a collective on
+        every rank."""
+        for r, i in enumerate(info):
+            calls = i[name]["collective_span"][1]
+            if calls != sum(i[name]["collectives"].values()):
+                raise AssertionError(
+                    f"mesh ({name}): rank {r}'s span `collective` has "
+                    f"{calls} calls against {i[name]['collectives']}")
+
     report = dict(chain_offset=offsets, ranks=MESH_RANKS, backend="gloo",
                   world_seconds=world_seconds)
     for name, (build, kw) in mesh_runs().items():
@@ -3740,6 +3796,7 @@ def phase_mesh(dev):
         if launches[kernel] != steps:
             raise AssertionError(f"mesh ({name}): the one-process run "
                                  f"launched {launches}")
+        same_collectives(name)
         wall = max(i[name]["draw_seconds_total"] for i in info)
         report[name] = dict(
             tune=kw["tune"], draws=kw["draws"], chains=kw["chains"],
@@ -3750,7 +3807,9 @@ def phase_mesh(dev):
             chain_draws_per_s_two_ranks=kw["chains"] * kw["draws"] / wall,
             draw_seconds_per_rank=[i[name]["draw_seconds_total"]
                                    for i in info],
-            collectives_per_rank=[i[name]["collectives"] for i in info])
+            collectives_per_rank=[i[name]["collectives"] for i in info],
+            collective_seconds_per_rank=[i[name]["collective_span"][0]
+                                         for i in info])
     tune, draws = MESH_STEPS["friedman"]
     report["friedman"]["chain_draws_per_s_two_processes_alone"] = C * draws \
         / max(s_["draw_seconds_total"] for s_ in solo)
@@ -3803,6 +3862,7 @@ def phase_mesh(dev):
     if not rmse < 0.5 * float(np.std(fb)):
         raise AssertionError(f"mesh (rows): rmse vs true f {rmse} >= half "
                              f"of std(f) {float(np.std(fb))}")
+    same_collectives("large_rows")
     steps = tune + draws
     report["large_rows"] = dict(
         tune=tune, draws=draws, chains=LN["C"], rmse_vs_true_f=rmse,
@@ -3813,6 +3873,8 @@ def phase_mesh(dev):
                           / steps for i in info],
         all_reduces_per_step=[i["large_rows"]["collectives"]["all_reduce"]
                               / steps for i in info],
+        collective_seconds_per_rank=[i["large_rows"]["collective_span"][0]
+                                     for i in info],
         chain_draws_per_s=LN["C"] * draws / max(
             i["large_rows"]["draw_seconds_total"] for i in info))
     for i in info:

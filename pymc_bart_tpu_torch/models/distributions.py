@@ -17,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
+
 _LOG_2PI = 1.8378770664093453
 _HALF_LOG_2_OVER_PI = -0.22579135264472741  # log(sqrt(2/pi))
 _NEG_INF = float("-inf")
@@ -26,8 +28,11 @@ def _t(x, like=None):
     """Tensor view of a parameter (Python scalars become 0-d float32)."""
     if isinstance(x, torch.Tensor):
         return x
-    dev = like.device if isinstance(like, torch.Tensor) else None
-    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+    if not isinstance(like, torch.Tensor):
+        return torch.as_tensor(x, dtype=torch.float32)
+    # on the card, the copy of a host number waits for the device's queue
+    tracing.count("host_syncs")
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
 
 
 def _gen_device(gen: torch.Generator):

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
+
 AXES = ("chains", "data")
 # collectives issued by this process, by kind (read by chip_smoke.py)
 collective_calls = {"all_reduce": 0, "all_gather": 0, "gather_outputs": 0}
@@ -207,6 +209,7 @@ def _on_host(t: torch.Tensor, group, collective) -> torch.Tensor:
     """Run ``collective(tensor)`` (in place) on ``t``; a CUDA tensor under a
     gloo group goes through a host copy (gloo reduces host memory)."""
     if t.is_cuda and dist.get_backend(group) == "gloo":
+        tracing.count("host_syncs", 2)      # the copy out and the copy back
         host = t.cpu()
         collective(host)
         return host.to(t.device)
@@ -217,8 +220,10 @@ def _on_host(t: torch.Tensor, group, collective) -> torch.Tensor:
 def all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
     """``op`` (``dist.ReduceOp``) of ``t`` over ``group``, as a new tensor."""
     collective_calls["all_reduce"] += 1
-    return _on_host(t.clone(memory_format=torch.contiguous_format), group,
-                    lambda x: dist.all_reduce(x, op=op, group=group))
+    with tracing.span("collective"):
+        return _on_host(t.clone(memory_format=torch.contiguous_format),
+                        group, lambda x: dist.all_reduce(x, op=op,
+                                                         group=group))
 
 
 def row_sum(t: torch.Tensor, rows: Optional[RowShard]) -> torch.Tensor:
@@ -237,13 +242,14 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if size == 1:
         return t
     collective_calls["all_gather"] += 1
-    src = t.contiguous()
-    staged = src.is_cuda and dist.get_backend(group) == "gloo"
-    if staged:
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(size)]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim).to(t.device)
+    with tracing.span("collective"):
+        src = t.contiguous()
+        if src.is_cuda and dist.get_backend(group) == "gloo":
+            tracing.count("host_syncs", 2)  # the copy out and the copy back
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(size)]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts, dim=dim).to(t.device)
 
 
 def chains_gather(t: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
@@ -282,7 +288,8 @@ def gather_outputs(outs: Dict[str, np.ndarray], mesh,
         return outs
     collective_calls["gather_outputs"] += 1
     gathered: List[Dict[str, np.ndarray]] = [None] * dist.get_world_size()
-    dist.all_gather_object(gathered, outs)
+    with tracing.span("collective"):
+        dist.all_gather_object(gathered, outs)
     grid = mesh.mesh.reshape(mesh_shape(mesh)).tolist()
     out = {}
     for name in outs:

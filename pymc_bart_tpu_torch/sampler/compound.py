@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import PgbartConfig
 from ..models import expr as expr_mod
 from ..models.distributions import BernoulliDist, CategoricalDist, NormalDist
@@ -562,8 +563,10 @@ class _HostDrain:
         return host_outs, done
 
     @staticmethod
+    @tracing.spanned("drain_wait")
     def finish(handle):
         host_outs, done = handle
+        tracing.count("host_syncs")
         if done is not None:
             done.synchronize()
         return {k: t.cpu().numpy().copy() for k, t in host_outs.items()}
@@ -659,6 +662,7 @@ def _check_finite(draw: int, bart_static, bart_states, h, stats) -> None:
         named[f"leaf values of {bs['tag']!r}"] = st.forest.leaf
     named["theta"] = h.theta
     named["NUTS energy"] = stats["energy"]
+    tracing.count("host_syncs")
     ok = torch.stack([torch.isfinite(t).all() for t in named.values()]).cpu()
     bad = (~ok).nonzero()
     if len(bad):
@@ -667,6 +671,12 @@ def _check_finite(draw: int, bart_static, bart_states, h, stats) -> None:
                                  "finite")
 
 
+# sample()'s caller, as ``warnings.warn`` counts frames from sample()'s body:
+# sample(), the wrapper of tracing.records_into, the caller
+_CALLER = 3
+
+
+@tracing.records_into("timings", also="profile_dir")
 def sample(
     draws: int = 1000,
     tune: int = 1000,
@@ -702,11 +712,9 @@ def sample(
 
     Keeps the signature of the JAX package's ``sample`` for the arguments it
     supports.  ``device=None`` runs on the GPU and raises if there is none;
-    pass ``device="cpu"`` to run on the CPU.  ``timings``: optional dict
-    filled with ``tune_seconds``, ``draw_chunk_seconds``,
-    ``draw_chunk_sizes`` and ``draw_seconds_total`` (host clock after a
-    device synchronisation).  ``harmonize_adaptation`` averages the adapted
-    ``leaf_sd`` / ``alpha_vec`` across chains at the tune/draw boundary.
+    pass ``device="cpu"`` to run on the CPU.  ``harmonize_adaptation``
+    averages the adapted ``leaf_sd`` / ``alpha_vec`` across chains at the
+    tune/draw boundary.
     ``pgbart_route``: ``None`` lets every PGBART step take the large-n route
     where a chain's rows do not fit the whole-step kernel's shared memory and
     the whole-step function where they do (``pgbart.resolve_route``), where
@@ -772,7 +780,38 @@ def sample(
     the files and hands every rank its part on resume, so ``checkpoint_dir``
     need not be on a filesystem the ranks share).  ``random_seed=None``:
     rank 0's seed.
+
+    ``timings``: optional dict that the call fills (``tracing.py``) with
+    ``tune_seconds`` and ``draw_seconds_total`` (host clock, each phase
+    ended by a device synchronisation that only ``timings`` adds),
+    ``draw_chunk_sizes``, ``drained_bytes`` (this rank's copy to the host),
+    and the program's own spans and counters: ``timings["spans"][path] =
+    [host seconds, calls]`` and ``timings["counters"][path] = total``,
+    where ``path`` joins the names of the spans open at the start with
+    ``/``.  Spans: ``prepare`` (the call's entry to its first tuning step),
+    ``tune`` and ``draw`` (the phases), inside them ``draw_rands``,
+    ``pgbart_step`` (its ``rejuvenate_forest``), ``nuts_step`` (each
+    batched leapfrog ``nuts_leapfrog``), ``collect`` (a draw's values,
+    statistics and updated trees into the chunk's buffers), ``drain_wait``
+    (the wait for a chunk's copy to the host and its conversion),
+    ``checkpoint`` (``checkpoint_dir``), ``collective`` (a mesh's
+    all-reduce, all-gather or output gathering), then ``assemble`` (the
+    draws joined into the ``InferenceData``, forests rebuilt, convergence
+    checks).  Counters: ``nuts_leapfrogs`` (leapfrogs run for all chains at
+    once: ``2^D - 1`` a transition of D doublings), ``host_syncs`` (each
+    point that blocks the host on the card, counted on any device),
+    ``checkpoint_bytes`` (it replaces the list of that name;
+    ``draw_chunk_seconds`` and ``checkpoint_seconds`` are gone too: the
+    spans ``draw`` and ``checkpoint`` hold that time).  With no profiler the
+    spans and counters cost the host about 13 us a step (the host of an
+    H100 machine, Friedman at n=1000; 3 us with ``timings=None``, which
+    records nothing and reads no clock: the decorated functions' own
+    calls).  While a ``torch.profiler``
+    records, each span is also a range ``bart/<name>`` on its clock, at
+    about 12 us a span: ``profile_dir``'s trace shows them (the call then
+    records into a dict of its own if ``timings`` is None).
     """
+    prepare = tracing.span("prepare").start()
     if posterior_dtype is not None and posterior_dtype not in \
             _POSTERIOR_DTYPES:
         raise ValueError(f"posterior_dtype must be None or one of "
@@ -969,7 +1008,7 @@ def sample(
                 f"BART variable {bs['tag']!r} takes the per-round sampler "
                 "route (slower than the whole-step kernels): "
                 f"whole-step route: {why['fused']}; large-n route: "
-                f"{why['bign']}", stacklevel=2)
+                f"{why['bign']}", stacklevel=_CALLER)
 
     def _logp(theta, *bart):
         return compiled.logdensity(theta, dict(zip(names, bart)))
@@ -1091,6 +1130,7 @@ def sample(
         return vis, stats
 
     def sync():
+        tracing.count("host_syncs")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
@@ -1160,15 +1200,13 @@ def sample(
             else:
                 start_tune = tune
                 start_draw = step - tune
-    if timings is not None and checkpoint_dir is not None:
-        timings["checkpoint_seconds"] = []
-        timings["checkpoint_bytes"] = []
 
+    @tracing.spanned("checkpoint")
     def maybe_checkpoint(step: int):
-        if checkpoint_dir is None:
-            return
-        t0 = time.perf_counter()
         carry = _carry(bart_static, bart_states, h, gen)
+        # each tensor's copy to the host waits for the card; the
+        # generator's state is on the host already
+        tracing.count("host_syncs", len(carry) - 1)
         if mesh is not None:
             carry = _gather_carry(bart_static, carry, mesh)
         nbytes = None
@@ -1178,26 +1216,25 @@ def sample(
                 step=step))
         # every rank learns the file's size once it is on disk: no rank runs
         # ahead of a checkpoint that is not written yet
-        nbytes = pmesh.broadcast_object(nbytes, mesh)
-        if timings is not None:
-            timings["checkpoint_seconds"].append(time.perf_counter() - t0)
-            timings["checkpoint_bytes"].append(nbytes)
+        tracing.count("checkpoint_bytes",
+                      pmesh.broadcast_object(nbytes, mesh))
 
     # -- tuning --------------------------------------------------------------
-    tune_t0 = time.perf_counter()
+    prepare.stop()
     t = start_tune
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("tune") as tune_span:
         for c in _even_chunks(tune - start_tune, chunk_size):
             for _ in range(c):
                 one_step(True)
             t += c
-            maybe_checkpoint(t)
+            if checkpoint_dir is not None:
+                maybe_checkpoint(t)
             if progressbar:
                 print(f"tune {t}/{tune}", flush=True)
+        if timings is not None:
+            sync()
     if timings is not None:
-        sync()
-        timings["tune_seconds"] = time.perf_counter() - tune_t0
-        timings["draw_chunk_seconds"] = []
+        timings["tune_seconds"] = tune_span.seconds
         timings["draw_chunk_sizes"] = []
         timings["drained_bytes"] = 0
     h = hmc.finalize_adaptation(h)
@@ -1235,12 +1272,54 @@ def sample(
 
     def gathered(host_outs):
         return pmesh.gather_outputs(host_outs, mesh, value_rows)
+
+    @tracing.spanned("collect")
+    def collect(outs, vi_buf, c, j, vis, stats):
+        """Draw ``j``'s values, inclusion rows, statistics and updated trees
+        into the chunk's buffers (``c`` draws)."""
+        vals = per_chain(_collect)(theta_l(), *bart_values())
+        for nm, v in vals.items():
+            if store_dtype is not None and v.is_floating_point():
+                v = v.to(store_dtype)
+            key = f"values/{nm}"
+            if key not in outs:
+                outs[key] = torch.empty(
+                    (Cl, c) + v.shape[1:], dtype=v.dtype, device=device)
+            outs[key][:, j] = v
+        # one inclusion row per BART RV: a separate-trees group reports the
+        # sum of its forests' split counts
+        vi_buf[:, j].zero_()
+        for bs, v in zip(bart_static, vis):
+            vi_buf[:, j, bs["rv_index"], : v.shape[1]] += v
+        for nm, v in stats.items():
+            key = f"stats/{nm}"
+            if key not in outs:
+                outs[key] = torch.empty((Cl, c), dtype=v.dtype,
+                                        device=device)
+            outs[key][:, j] = v[chain_part]
+        if store_trees:
+            # only the draw's updated trees ship per draw: the tree batch,
+            # or every tree where rejuvenation moved them all
+            for bi, (bs, st) in enumerate(zip(bart_static, bart_states)):
+                cfg_i, pg_i = bs["cfg"], bs["pg"]
+                B_i = (cfg_i.m if pg_i.ancestor_sampling else
+                       pg_i.batch_size(cfg_i.m, False))
+                jt = (st.batch_offset.to(torch.int64)[:, None]
+                      - B_i + torch.arange(B_i, device=device)) % cfg_i.m
+                packed = _pack_forest_slice(bs, st.forest, jt)
+                for key, v in packed.items():
+                    key = f"deltas/{bi}/{key}"
+                    if key not in outs:
+                        outs[key] = torch.empty(
+                            (Cl, c) + v.shape[1:], dtype=v.dtype,
+                            device=device)
+                    outs[key][:, j] = v
+
     draw_t0 = time.perf_counter()
     t = start_draw
     try:
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("draw") as draw_span:
             for c in _even_chunks(draws - start_draw, chunk_size):
-                chunk_t0 = time.perf_counter()
                 outs: Dict[str, torch.Tensor] = {}
                 if store_trees:
                     for i, (bs, st) in enumerate(zip(bart_static,
@@ -1255,47 +1334,7 @@ def sample(
                     if debug_nans:
                         _check_finite(t + j, bart_static, bart_states, h,
                                       stats)
-                    vals = per_chain(_collect)(theta_l(), *bart_values())
-                    for nm, v in vals.items():
-                        if store_dtype is not None and v.is_floating_point():
-                            v = v.to(store_dtype)
-                        key = f"values/{nm}"
-                        if key not in outs:
-                            outs[key] = torch.empty(
-                                (Cl, c) + v.shape[1:], dtype=v.dtype,
-                                device=device)
-                        outs[key][:, j] = v
-                    # one inclusion row per BART RV: a separate-trees group
-                    # reports the sum of its forests' split counts
-                    vi_buf[:, j].zero_()
-                    for bs, v in zip(bart_static, vis):
-                        vi_buf[:, j, bs["rv_index"], : v.shape[1]] += v
-                    for nm, v in stats.items():
-                        key = f"stats/{nm}"
-                        if key not in outs:
-                            outs[key] = torch.empty((Cl, c), dtype=v.dtype,
-                                                    device=device)
-                        outs[key][:, j] = v[chain_part]
-                    if store_trees:
-                        # only the draw's updated trees ship per draw: the
-                        # tree batch, or every tree where rejuvenation moved
-                        # them all
-                        for bi, (bs, st) in enumerate(zip(bart_static,
-                                                          bart_states)):
-                            cfg_i, pg_i = bs["cfg"], bs["pg"]
-                            B_i = (cfg_i.m if pg_i.ancestor_sampling else
-                                   pg_i.batch_size(cfg_i.m, False))
-                            jt = (st.batch_offset.to(torch.int64)[:, None]
-                                  - B_i + torch.arange(B_i, device=device)
-                                  ) % cfg_i.m
-                            packed = _pack_forest_slice(bs, st.forest, jt)
-                            for key, v in packed.items():
-                                key = f"deltas/{bi}/{key}"
-                                if key not in outs:
-                                    outs[key] = torch.empty(
-                                        (Cl, c) + v.shape[1:], dtype=v.dtype,
-                                        device=device)
-                                outs[key][:, j] = v
+                    collect(outs, vi_buf, c, j, vis, stats)
                 outs["vi"] = vi_buf
                 # NumPy has no bfloat16: such values cross as raw 16-bit
                 # words under their own prefix
@@ -1322,8 +1361,6 @@ def sample(
                     maybe_checkpoint(tune + t + c)
                 t += c
                 if timings is not None:
-                    timings["draw_chunk_seconds"].append(
-                        time.perf_counter() - chunk_t0)
                     timings["draw_chunk_sizes"].append(c)
                 if progressbar:
                     rate = (t - start_draw) * C / max(
@@ -1331,15 +1368,12 @@ def sample(
                     print(f"draw {t}/{draws} ({rate:.1f} chain-draws/s)",
                           flush=True)
             if pending is not None:
-                final_t0 = time.perf_counter()
                 acc.append(gathered(drainer.finish(pending)))
                 pending = None
-                if timings is not None and timings["draw_chunk_seconds"]:
-                    timings["draw_chunk_seconds"][-1] += (
-                        time.perf_counter() - final_t0)
+            if timings is not None:
+                sync()
         if timings is not None:
-            sync()
-            timings["draw_seconds_total"] = time.perf_counter() - draw_t0
+            timings["draw_seconds_total"] = draw_span.seconds
     finally:
         if prof is not None:
             prof.stop()
@@ -1348,6 +1382,8 @@ def sample(
             prof.export_chrome_trace(os.path.join(
                 profile_dir, "draws.pt.trace.json" if rank == 0
                 else f"draws.rank{rank}.pt.trace.json"))
+
+    assemble = tracing.span("assemble").start()
 
     def joined(prefix):
         """Every chunk's arrays named ``prefix + name``, by name, joined
@@ -1442,5 +1478,6 @@ def sample(
     if convergence_checks and C >= 2 and draws >= 4:
         from ..utils.diagnostics import maybe_warn_convergence
 
-        maybe_warn_convergence(idata)
+        maybe_warn_convergence(idata, stacklevel=_CALLER)
+    assemble.stop()
     return idata

@@ -22,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from .. import tracing
 from ..parallel.mesh import RowShard, row_sum
 
 
@@ -131,6 +132,7 @@ def hmc_step(gen: torch.Generator, state: HmcState, logp_fn: Callable,
     u_acc = torch.rand((C,), generator=gen, device=dev)
 
     q, r, logp1 = theta, r0, logp0
+    tracing.count("host_syncs")
     for i in range(int(n_steps.max())):     # one host sync per step
         do = (i < n_steps)[:, None]
         r_half = r + 0.5 * step * grad

@@ -29,12 +29,14 @@ from typing import Callable
 
 import torch
 
+from .. import tracing
 from .hmc import (HmcState, adapt, finalize_adaptation, init_state,  # noqa: F401
                   value_and_grad)
 
 _DIVERGENCE = 1000.0
 
 
+@tracing.spanned("nuts_step")
 def nuts_step(gen: torch.Generator, state: HmcState, logp_fn: Callable,
               tuning: bool, max_tree_depth: int = 8,
               target_accept: float = 0.8, full_stats: bool = False):
@@ -76,11 +78,13 @@ def nuts_step(gen: torch.Generator, state: HmcState, logp_fn: Callable,
         r_first_ck = [None] * (depth + 1)
         rsum_ck = [None] * (depth + 1)
         e = eps[:, None]
+        leapfrog = tracing.span("nuts_leapfrog")
         for i in range(n_leaves):
-            r_half = r + 0.5 * e * grad
-            z = z + e * r_half * inv_mass
-            logp, grad = value_and_grad(logp_fn, z)
-            r = r_half + 0.5 * e * grad
+            with leapfrog:
+                r_half = r + 0.5 * e * grad
+                z = z + e * r_half * inv_mass
+                logp, grad = value_and_grad(logp_fn, z)
+                r = r_half + 0.5 * e * grad
             energy = logp - 0.5 * (r * r * inv_mass).sum(dim=1)
             w_leaf = energy - h0
             new_div = ~(w_leaf > -_DIVERGENCE) | ~torch.isfinite(w_leaf)
@@ -122,10 +126,12 @@ def nuts_step(gen: torch.Generator, state: HmcState, logp_fn: Callable,
     sum_acc = torch.zeros((C,), device=dev)
     n_leaves_tot = torch.zeros((C,), dtype=torch.int32, device=dev)
 
+    doublings = 0
     for depth in range(L):
         active = ~(turning | diverged)
         if not bool(active.any()):      # the one host sync per doubling
             break
+        doublings += 1
         go_right = rand(C) < 0.5
         u_bias = rand(C)
         eps = torch.where(go_right, step, -step)
@@ -160,6 +166,11 @@ def nuts_step(gen: torch.Generator, state: HmcState, logp_fn: Callable,
         one = active.to(torch.int32)
         depth_c = depth_c + one
         n_leaves_tot = n_leaves_tot + one * (2**depth)
+
+    # a check a doubling entered, one more where the loop stopped early; the
+    # leapfrogs run for all chains at once
+    tracing.count("host_syncs", doublings + (doublings < L))
+    tracing.count("nuts_leapfrogs", 2**doublings - 1)
 
     theta_new = z_prop
     accept_prob = sum_acc / n_leaves_tot.to(torch.float32).clamp_min(1.0)

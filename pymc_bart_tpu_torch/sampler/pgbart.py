@@ -60,6 +60,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..config import BartConfig, PgbartConfig
 from ..ops import bign as _bign
 from ..ops import draw as _draw
@@ -219,6 +220,7 @@ def init_state(X, Y_target, cfg: BartConfig, split_prior=None, *,
     )
 
 
+@tracing.spanned("draw_rands")
 def draw_rands(gen: torch.Generator, *, B: int, C: int, P: int, D: int,
                n: int, k: int, S: int, num_refinements: int,
                device, row_gumbels: bool = True,
@@ -602,6 +604,7 @@ def resolve_route(route: Optional[str], cfg: BartConfig, pg: PgbartConfig, X,
     return "rounds", why
 
 
+@tracing.spanned("pgbart_step")
 def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
                 cfg: BartConfig, pg: PgbartConfig, tuning: bool, gauss_w,
                 impl: Optional[str] = None, *, lik: str = "gauss",
@@ -680,9 +683,10 @@ def pgbart_step(state: PgbartState, rands: StepRands, X, Y_target, rules,
     Y = Y_target.reshape(-1, n, cfg.n_outputs)
     if all_cont is None:
         all_cont = rules_all_continuous(rules)
-    rejuvenate_forest(state, rejuv, X, Y, rules, cfg, pg,
-                      make_ll_of(lik, lik_const, gauss_w, Y, loglik_fn,
-                                 lik_params, rows), all_cont, rows=rows)
+    with tracing.span("rejuvenate_forest"):
+        rejuvenate_forest(state, rejuv, X, Y, rules, cfg, pg,
+                          make_ll_of(lik, lik_const, gauss_w, Y, loglik_fn,
+                                     lik_params, rows), all_cont, rows=rows)
     return state, split_var_counts(state.forest, p)
 
 

@@ -153,10 +153,12 @@ def check_convergence(idata: InferenceData, rhat_threshold: float = 1.1,
 
 
 def maybe_warn_convergence(idata: InferenceData,
-                           rhat_threshold: float = 1.1) -> Dict[str, float]:
+                           rhat_threshold: float = 1.1,
+                           stacklevel: int = 1) -> Dict[str, float]:
     """Warn (``UserWarning``) when any posterior variable's checked
     split-R-hat exceeds ``rhat_threshold``; returns the per-variable
-    maxima either way."""
+    maxima either way.  ``stacklevel`` counts as ``warnings.warn`` would
+    in the caller: 1, the default, names the caller's line."""
     import warnings
 
     rhats = check_convergence(idata)
@@ -169,7 +171,7 @@ def maybe_warn_convergence(idata: InferenceData,
             "have not converged for these quantities.  Consider more "
             "tune/draws, or ancestor_sampling=True for per-row BART "
             "functionals (PG path degeneracy).",
-            UserWarning, stacklevel=3,
+            UserWarning, stacklevel=stacklevel + 1,
         )
     return rhats
 

@@ -2,7 +2,8 @@
 normalisation with average ranks for ties and the inverse normal of
 ``torch.special.ndtri``, held to SciPy's (which the test may import and the
 port may not) to 1e-12; a constant quantity has R-hat 1 and draws no
-warning; chains that disagree still do."""
+warning; chains that disagree still do, and the warning names the
+caller's line."""
 
 import warnings
 
@@ -76,3 +77,30 @@ def test_chains_that_disagree_are_reported_whatever_the_threshold():
     assert loose["theta"] > 1.1
     with pytest.warns(UserWarning, match="theta"):
         diagnostics.maybe_warn_convergence(idata)
+
+
+def test_the_convergence_warning_names_the_callers_line():
+    """``stacklevel`` counts as ``warnings.warn`` would in the caller: the
+    default names the caller's own line, 2 the line that called it (as
+    ``sample()`` passes its own caller's)."""
+    apart = np.random.default_rng(3).normal(size=(4, 80)) \
+        + np.arange(4)[:, None] * 3.0
+    idata = _idata(theta=apart)
+
+    def through_a_wrapper():
+        return diagnostics.maybe_warn_convergence(idata, stacklevel=2)
+
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        diagnostics.maybe_warn_convergence(idata)
+        line = _line()
+        through_a_wrapper()
+    assert [(w.filename, w.lineno) for w in said] == [
+        (__file__, line - 1), (__file__, line + 1)]
+
+
+def _line():
+    """The line that called this function."""
+    import inspect
+
+    return inspect.currentframe().f_back.f_lineno

@@ -34,7 +34,7 @@ MODULES = [
     "pymc_bart_tpu_torch.utils.importance",
     "pymc_bart_tpu_torch.utils.plots",
     "pymc_bart_tpu_torch.utils.checkpoint",
-    "pymc_bart_tpu_torch.parallel.mesh",
+    "pymc_bart_tpu_torch.parallel.mesh", "pymc_bart_tpu_torch.tracing",
 ]
 
 

@@ -117,6 +117,21 @@ def _save(outdir, rank, tag, out):
     np.savez(os.path.join(outdir, f"{tag}_rank{rank}.npz"), **out)
 
 
+def _traced_run(pmesh, outdir, rank, tag, build, mesh, **kw):
+    """``_run`` with ``timings``: the calls of the program's ``collective``
+    span and the increase of ``collective_calls`` are saved beside."""
+    before = sum(pmesh.collective_calls.values())
+    timings = {}
+    out = _run(build, mesh, timings=timings, **kw)
+    spans = {k: v[1] for k, v in timings["spans"].items()
+             if k.split("/")[-1] == "collective"}
+    _save(outdir, rank, f"{tag}_collectives", {
+        "calls": np.array(sum(pmesh.collective_calls.values()) - before),
+        "span_calls": np.array(sum(spans.values())),
+        "paths": np.array(sorted(spans))})
+    return out
+
+
 def _world_of_two(rank, init_file, outdir):
     torch.set_num_threads(1)
     from pymc_bart_tpu_torch.parallel import mesh as pmesh
@@ -127,7 +142,8 @@ def _world_of_two(rank, init_file, outdir):
                                  device="cpu")
     mesh = pmesh.make_mesh()
     for tag, (build, kw) in MODELS.items():
-        _save(outdir, rank, tag, _run(build, mesh, **kw))
+        _save(outdir, rank, tag, _traced_run(pmesh, outdir, rank, tag, build,
+                                             mesh, **kw))
     # checkpoint / resume: every rank stops once the checkpoint of step 10
     # (6 tuning + 4 draws) is on disk, then all resume.  Rank 1's
     # checkpoint_dir is a directory of its own that nothing writes to (ranks
@@ -171,8 +187,9 @@ def _world_of_four(rank, init_file, outdir):
     _save(outdir, rank, "chains8",
           _run(_regression, pmesh.make_mesh(), chains=8))
     mesh = pmesh.make_mesh(n_data_shards=2)
-    _save(outdir, rank, "rows", _run(_regression_long, mesh,
-                                     route_warnings=True, **_LONG))
+    _save(outdir, rank, "rows", _traced_run(
+        pmesh, outdir, rank, "rows", _regression_long, mesh,
+        route_warnings=True, **_LONG))
     refusals = []
     import pymc_bart_tpu_torch as pmb
     for build in (_refused_generic, _refused_linear, _refused_deterministic):
@@ -285,6 +302,21 @@ def test_row_sharding_refusals(four):
     for r in _load(four, "refusals", 4):
         for msg, pat in zip(r["messages"].tolist(), want):
             assert pat in msg, (msg, pat)
+
+
+@pytest.mark.parametrize("tag", list(MODELS) + ["rows"])
+def test_collective_span_counts_every_collective(two, four, tag):
+    world, d = (4, four) if tag == "rows" else (2, two)
+    for r in _load(d, f"{tag}_collectives", world):
+        assert int(r["calls"]) > 0
+        assert int(r["span_calls"]) == int(r["calls"]), r
+        paths = set(r["paths"].tolist())
+        # the drained chunks' gathering in the draw phase, the adaptation's
+        # mean after the tuning phase
+        assert {"draw/collective", "collective"} <= paths
+        if tag == "rows":       # NUTS's observed sums, PGBART's reductions
+            assert {"draw/nuts_step/nuts_leapfrog/collective",
+                    "draw/pgbart_step/collective"} <= paths, paths
 
 
 def test_chains_not_a_multiple_of_the_mesh_raise(two):
