@@ -77,6 +77,7 @@ class Expr:
 class Const(Expr):
     def __init__(self, value):
         self.value = value
+        self.on_device = {}  # device -> the value as a tensor there
 
 
 class Op(Expr):
@@ -85,6 +86,7 @@ class Op(Expr):
         self.args = args
         self.kwargs = kwargs
         self.tag = None  # optional structured description (e.g. getitem)
+        self.on_device = {}  # (argument index, device) -> a constant there
 
 
 def _env_device(env: Dict[str, Any]):
@@ -94,25 +96,43 @@ def _env_device(env: Dict[str, Any]):
     return torch.device("cpu")
 
 
+_ARRAYS = (np.ndarray, np.generic, list, tuple)
+
+
+def _constant(cache, key, x, env):
+    """``x`` (a NumPy array or list) as a float32 tensor on the device of
+    the environment's tensors, copied there once and kept in ``cache``."""
+    dev = _env_device(env)
+    t = cache.get((key, dev))
+    if t is None:
+        t = cache[(key, dev)] = torch.as_tensor(np.asarray(x, np.float32),
+                                                device=dev)
+    return t
+
+
 def evaluate(x: Any, env: Dict[str, Any]):
     """Evaluate an expression (or plain value) against ``env``.
 
     ``env`` maps RV/Data names to tensors.  Named leaves (FreeRV / BARTRV /
     Data / Deterministic) are looked up by name; NumPy arrays and lists
-    become float32 tensors on the device of the environment's tensors;
+    become float32 tensors on the device of the environment's tensors (those
+    inside an expression copied once a device, at their first evaluation);
     Python scalars stay scalars.
     """
     if isinstance(x, Op):
-        args = [evaluate(a, env) for a in x.args]
+        args = [_constant(x.on_device, i, a, env) if isinstance(a, _ARRAYS)
+                else evaluate(a, env) for i, a in enumerate(x.args)]
         return x.fn(*args, **x.kwargs)
     if isinstance(x, Const):
+        if isinstance(x.value, _ARRAYS):
+            return _constant(x.on_device, None, x.value, env)
         return evaluate(x.value, env)
     if isinstance(x, Expr):
         name = getattr(x, "name", None)
         if name is None or name not in env:
             raise KeyError(f"expression leaf {name!r} not found in environment")
         return env[name]
-    if isinstance(x, (np.ndarray, np.generic, list, tuple)):
+    if isinstance(x, _ARRAYS):
         return torch.as_tensor(np.asarray(x, np.float32),
                                device=_env_device(env))
     return x

@@ -342,6 +342,22 @@ class CompiledModel:
             torch.as_tensor(np.asarray(orv.observed, np.float32),
                             device=self.device)
             for orv in model.observed_rvs)
+        # the distributions' constant parameters as float32 tensors on the
+        # device, made once: a log-density evaluation copies nothing from
+        # the host (which would wait for the card and cannot be captured)
+        self.prior_params = [tuple(map(self._on_device, rv.params))
+                             for rv in self.free_params]
+        self.observed_params = [tuple(map(self._on_device, orv.params))
+                                for orv in model.observed_rvs]
+
+    def _on_device(self, p):
+        """A Python number or a NumPy / list constant as the float32 tensor
+        ``distributions._t`` / ``expr.evaluate`` would copy it to; an
+        expression as it is."""
+        if isinstance(p, bool) or not isinstance(
+                p, (int, float) + expr_mod._ARRAYS):
+            return p
+        return torch.as_tensor(np.asarray(p, np.float32), device=self.device)
 
     # -- environment construction (one chain) ------------------------------
     def bart_external(self, name: str, f):
@@ -377,15 +393,16 @@ class CompiledModel:
 
     def observed_logp(self, env):
         lp = torch.zeros((), device=self.device)
-        for orv, value in zip(self.model.observed_rvs, self.observed):
-            params = tuple(evaluate(p, env) for p in orv.params)
+        for orv, value, ps in zip(self.model.observed_rvs, self.observed,
+                                  self.observed_params):
+            params = tuple(evaluate(p, env) for p in ps)
             lp = lp + orv.dist.logp(value, *params).sum()
         return lp
 
     def prior_logp(self, env):
         lp = torch.zeros((), device=self.device)
-        for rv in self.free_params:
-            params = tuple(evaluate(p, env) for p in rv.params)
+        for rv, ps in zip(self.free_params, self.prior_params):
+            params = tuple(evaluate(p, env) for p in ps)
             lp = lp + rv.dist.logp(env[rv.name], *params).sum()
         return lp
 
@@ -531,6 +548,23 @@ def _unpack_forest_deltas(bs, delta_chunks, snap0_chunks):
     full = {key: np.concatenate(v, axis=1) for key, v in pieces.items()}
     return (full["sv"], full["sl"], full["ss"], full["lf"], full["ct"],
             full["sp"])
+
+
+class _StaticLogp:
+    """``logp_fn(theta)`` of one fit: ``fn(theta, *values)`` over copies of
+    the BART values that keep their addresses for the fit (what a captured
+    NUTS graph reads); ``update`` copies a step's values in."""
+
+    def __init__(self, fn, values):
+        self.fn = fn
+        self.values = tuple(v.clone() for v in values)
+
+    def update(self, values):
+        for buf, v in zip(self.values, values):
+            buf.copy_(v)
+
+    def __call__(self, theta):
+        return self.fn(theta, *self.values)
 
 
 class _HostDrain:
@@ -797,8 +831,15 @@ def sample(
     ``checkpoint`` (``checkpoint_dir``), ``collective`` (a mesh's
     all-reduce, all-gather or output gathering), then ``assemble`` (the
     draws joined into the ``InferenceData``, forests rebuilt, convergence
-    checks).  Counters: ``nuts_leapfrogs`` (leapfrogs run for all chains at
-    once: ``2^D - 1`` a transition of D doublings), ``host_syncs`` (each
+    checks).  On a CUDA device NUTS replays its doublings as CUDA graphs
+    (``nuts.Graphs``), a graph a tree depth captured the second time the
+    fit reaches it (span ``nuts_capture``); a replay is one entry of
+    ``nuts_leapfrog`` counted as its ``2^j`` leapfrogs.  Counters:
+    ``nuts_leapfrogs`` (leapfrogs run for all chains at once: ``2^D - 1`` a
+    transition of D doublings), ``nuts_graph_replays``,
+    ``nuts_eager_doublings`` (doublings replayed or run eagerly: the first
+    at each depth, on the CPU, with a data axis), ``nuts_graph_captures``,
+    ``host_syncs`` (each
     point that blocks the host on the card, counted on any device),
     ``checkpoint_bytes`` (it replaces the list of that name;
     ``draw_chunk_seconds`` and ``checkpoint_seconds`` are gone too: the
@@ -1053,8 +1094,13 @@ def sample(
         # the current values itself (lik_params); no row data
         return None, bs["Yt"]
 
+    # the log-density NUTS reads, over BART values at fixed addresses, and
+    # the fit's NUTS graphs, which read them (dropped when the draws end)
+    static_logp = None
+    nuts_graphs = nuts.Graphs()
+
     def one_step(tuning: bool):
-        nonlocal h
+        nonlocal h, static_logp
         vis = []
         for i, bs in enumerate(bart_static):
             cfg, pg = bs["cfg"], bs["pg"]
@@ -1094,10 +1140,11 @@ def sample(
             bart_now = tuple(pmesh.chains_gather(v, mesh)
                              for v in bart_values())
             if obs_rows is None:
-                batched = per_chain(_logp)
-
-                def logp_fn(theta):
-                    return batched(theta, *bart_now)
+                if static_logp is None:
+                    static_logp = _StaticLogp(per_chain(_logp), bart_now)
+                else:
+                    static_logp.update(bart_now)
+                logp_fn = static_logp
             else:
                 prior_b, obs_b = per_chain(_prior), per_chain(_observed)
                 logp_fn = hmc.ShardedLogp(
@@ -1106,7 +1153,8 @@ def sample(
 
             if algorithm == "nuts":
                 h, stats = nuts.nuts_step(gen, h, logp_fn, tuning=tuning,
-                                          full_stats=True)
+                                          full_stats=True,
+                                          graphs=nuts_graphs)
             else:
                 h, accept = hmc.hmc_step(gen, h, logp_fn, tuning=tuning,
                                          max_leapfrog=max_leapfrog)
@@ -1375,6 +1423,7 @@ def sample(
         if timings is not None:
             timings["draw_seconds_total"] = draw_span.seconds
     finally:
+        nuts_graphs.close()
         if prof is not None:
             prof.stop()
             os.makedirs(profile_dir, exist_ok=True)

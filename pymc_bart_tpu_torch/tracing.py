@@ -136,20 +136,22 @@ class _Span:
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        self.stop()
+        return False
+
+    def start(self):
+        return self.__enter__()
+
+    def stop(self, calls: int = 1):
+        """End the entry, counted as ``calls`` entries (a replayed CUDA
+        graph that does the work of several)."""
         t1 = _perf_counter()
         node = self._stack.pop()
         if node.rf is not None:
             node.rf.__exit__(None, None, None)
             node.rf = None
         node.seconds += t1 - node.t0
-        node.calls += 1
-        return False
-
-    def start(self):
-        return self.__enter__()
-
-    def stop(self):
-        self.__exit__(None, None, None)
+        node.calls += calls
 
 
 class _NoSpan:
@@ -161,7 +163,7 @@ class _NoSpan:
     def start(self):
         return self
 
-    def stop(self):
+    def stop(self, calls: int = 1):
         pass
 
     def __enter__(self):

@@ -151,7 +151,7 @@ def test_sample_writes_the_span_paths_and_counters(traced):
     assert set(t["counters"]) == {
         f"{p}/{c}" for p in ("tune", "draw") for c in (
             "host_syncs", "nuts_step/host_syncs", "nuts_step/nuts_leapfrogs",
-            "nuts_step/nuts_leapfrog/host_syncs")} | {
+            "nuts_step/nuts_eager_doublings")} | {
         "draw/drain_wait/host_syncs"}
     # the phases' ends and each chunk's drain
     assert t["counters"]["tune/host_syncs"] == 1
@@ -174,17 +174,17 @@ def test_removed_timings_keys_are_absent(traced, tmp_path):
 def test_leapfrog_count_equals_the_tree_depths_nuts_reports(tune):
     timings = {}
     out = _fit(timings, tune=tune)
-    _D, leapfrogs, checks = _doublings_and_checks(out)
+    D, leapfrogs, checks = _doublings_and_checks(out)
     c = timings["counters"]
     assert c["draw/nuts_step/nuts_leapfrogs"] == int(leapfrogs.sum())
     assert timings["spans"]["draw/nuts_step/nuts_leapfrog"][1] == \
         int(leapfrogs.sum())
-    # a host check a doubling, and a scalar copied to the device at each
-    # evaluation of the log-density (HalfNormal's Python scale): once before
-    # the first doubling, once a leapfrog
-    assert c["draw/nuts_step/host_syncs"] == int(checks.sum()) + KW["draws"]
-    assert c["draw/nuts_step/nuts_leapfrog/host_syncs"] == \
-        int(leapfrogs.sum())
+    # a host check a doubling; no evaluation of the log-density copies a
+    # scalar to the device (HalfNormal's scale is a tensor made once)
+    assert c["draw/nuts_step/host_syncs"] == int(checks.sum())
+    assert "draw/nuts_step/nuts_leapfrog/host_syncs" not in c
+    # on the CPU every doubling runs eagerly
+    assert c["draw/nuts_step/nuts_eager_doublings"] == int(D.sum())
     if tune:
         assert c["tune/nuts_step/nuts_leapfrogs"] == \
             timings["spans"]["tune/nuts_step/nuts_leapfrog"][1] >= tune
