@@ -160,15 +160,17 @@ def run_rank(rank, world, cell_name, seed, seconds, trace, root, t_start,
             torch.cuda.synchronize(dev)
 
     # -- set-up: the data sets, their models, a warm-up fit of a few steps ---
+    model_mod = reg.model(cfg["model"])
+    check_mod = reg.reference(model_mod.CHECK)
     data = [fitmod.make_data(reg, cfg, seed, j)
             for j in range(traffic["datasets"])]
-    models = [fitmod.build_model(pmb, cfg, X, Y) for X, Y, _f in data]
+    models = [model_mod.build(pmb, cfg, X, Y) for X, Y, _f in data]
     kw = fitmod.sample_kwargs(cfg, traffic)
     if control:
         kw.update(control)
     warm = dict(kw, **cell["warmup"])
-    fitmod.fit(pmb, *models[0], warm, fitmod.derive(seed, 3), device=dev,
-               mesh=mesh)
+    fitmod.fit(pmb, *models[0], warm, fitmod.derive(seed, 3),
+               model_mod.DRAWS, device=dev, mesh=mesh)
     spans = slice_ = None
     if trace:
         spans = Spans().install()
@@ -187,7 +189,8 @@ def run_rank(rank, world, cell_name, seed, seconds, trace, root, t_start,
         if spans is not None:
             spans.fit = i
         wall, timings, out, warns = fitmod.fit(
-            pmb, *models[i % len(models)], kw, rs, device=dev, mesh=mesh)
+            pmb, *models[i % len(models)], kw, rs, model_mod.DRAWS,
+            device=dev, mesh=mesh)
         records.append(dict(index=i, wall=wall, timings=timings, seed=rs,
                             warnings=len(warns)))
         if rank == 0:
@@ -210,7 +213,7 @@ def run_rank(rank, world, cell_name, seed, seconds, trace, root, t_start,
         spans.before = slice_.before
         try:
             fitmod.fit(pmb, *models[0], kw, fitmod.derive(seed, 4),
-                       device=dev, mesh=mesh)
+                       model_mod.DRAWS, device=dev, mesh=mesh)
         except SliceDone:
             pass
         slice_.stop()
@@ -229,7 +232,10 @@ def run_rank(rank, world, cell_name, seed, seconds, trace, root, t_start,
     del models
     if on_card:
         torch.cuda.empty_cache()
-    numbers, failed = judgemod.judge(outputs, data, cell, kw, seed)
+    j0 = time.perf_counter()
+    numbers, failed = judgemod.judge(outputs, data, cell, kw, seed,
+                                     check_mod)
+    judge_s = time.perf_counter() - j0
     kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
     run_ = Run(cell=cell, config=cfg, traffic=traffic, kw=kw, chips=world,
                chains=kw["chains"], chains_local=kw["chains"] // world,
@@ -260,9 +266,13 @@ def run_rank(rank, world, cell_name, seed, seconds, trace, root, t_start,
                                    "idle_gaps": sl[0]["idle_gaps"]}
     result["checks"] = numbers
     result["_lines"] = judgemod.lines(numbers)
-    result["_forbidden"] = sorted({m for r in ranks for m in r["forbidden"]})
+    # every rank's at the window's close, and what this process loaded
+    # since: the check, the metrics' readers
+    result["_forbidden"] = sorted({m for r in ranks for m in r["forbidden"]}
+                                  | set(forbidden_modules()))
     result["_notes"] = {"fit_walls": [r["wall"] for r in records],
                         "warnings": sum(r["warnings"] for r in records),
+                        "judge_s": judge_s,
                         "idle_by_span": sl[0]["idle_by_span"] if sl else None,
                         "device_events_matched": (
                             sl[0]["device_events_matched"] if sl else None)}

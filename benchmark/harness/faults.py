@@ -49,15 +49,17 @@ def half_rows(rank):
 
 
 def answer_altered(rank):
-    """The first draw of ``mu`` of every chunk altered where it reaches the
-    host."""
+    """The first draw of chain 0 of every variable the program stores,
+    altered by one in every chunk where it reaches the host."""
     from pymc_bart_tpu_torch.sampler import compound
 
     orig = compound._HostDrain.finish
 
     def finish(handle):
         out = orig(handle)
-        out["values/mu"][0, 0] += 1.0
+        for key, values in out.items():
+            if key.startswith("values/"):
+                values[0, 0] += 1
         return out
     compound._HostDrain.finish = staticmethod(finish)
 

@@ -2,9 +2,10 @@
 ``sample()`` fits with the defaults users get.
 
 A configuration (``configs/<name>.json``) gives the data (``generator``,
-``n``, ``p``, ``noise_sd``, ``seed_offset``), the model (``model``, ``m``,
-``max_depth``, ``sigma_prior_scale``: the scale of sigma's HalfNormal
-prior) and the sampler's settings and budget (``num_particles``,
+``n``, ``p``, ``seed_offset``, and the generator's keyword arguments
+``data_args``), the model (``model``, which names
+``models/<model>.py``, and the sizes it reads, such as ``m``,
+``max_depth``) and the sampler's settings and budget (``num_particles``,
 ``num_refinements``, ``batch``, ``chains``, ``tune``, ``draws``).  A traffic
 mix (``traffic/<name>.json``) gives how the fits come: ``datasets``, the
 number of data sets drawn from the seed in set-up that the fits take in
@@ -16,7 +17,8 @@ import warnings
 
 import numpy as np
 
-# what a fit keeps for the check: its draws and its stored forests
+# what a fit keeps for the check besides its model's draws: the arrays of
+# its stored forests, as the program returned them
 KEPT_TREES = ("split_var", "split_val", "leaf")
 
 
@@ -30,23 +32,10 @@ def derive(seed, *words):
 def make_data(reg, config, seed, index=0):
     """``(X, Y, f)``: data set ``index`` of the configuration's data, drawn
     from ``seed`` by its generator in ``reg`` (a ``registry.Registry``)."""
-    gen = reg.generator(config["generator"])
+    gen = reg.reference(config["generator"])
     return gen.generate(config["n"], config["p"],
                         derive(seed, 0, config["seed_offset"], index),
-                        noise_sd=config["noise_sd"])
-
-
-def build_model(pmb, config, X, Y):
-    """The configuration's model: ``Normal(BART, HalfNormal)``.  Returns
-    ``(model, bart_rv)``."""
-    if config["model"] != "bart_normal":
-        raise ValueError(f"unknown model {config['model']!r}")
-    with pmb.Model() as model:
-        mu = pmb.BART("mu", X, Y, m=config["m"],
-                      max_depth=config["max_depth"])
-        sigma = pmb.HalfNormal("sigma", config["sigma_prior_scale"])
-        pmb.Normal("y", mu, sigma, observed=Y)
-    return model, mu
+                        **config["data_args"])
 
 
 def sample_kwargs(config, traffic):
@@ -59,11 +48,12 @@ def sample_kwargs(config, traffic):
     return kw
 
 
-def fit(pmb, model, rv, kw, random_seed, device=None, mesh=None):
+def fit(pmb, model, rv, kw, random_seed, keep, device=None, mesh=None):
     """One whole fit: ``sample()`` from the call to the returned
     ``InferenceData``.  Returns ``(wall seconds, timings, outputs,
-    warnings)``; ``outputs`` holds the draws of ``mu`` and ``sigma`` and the
-    stored forests' arrays, as the program returned them."""
+    warnings)``; ``outputs`` holds the draws of the variables named in
+    ``keep``, the fit's seed and the stored forests' arrays, as the program
+    returned them."""
     import time
 
     timings = {}
@@ -74,9 +64,8 @@ def fit(pmb, model, rv, kw, random_seed, device=None, mesh=None):
                            timings=timings, device=device, mesh=mesh, **kw)
         wall = time.perf_counter() - t0
     trees = rv.all_trees
-    out = {"mu": idata.posterior["mu"].values,
-           "sigma": idata.posterior["sigma"].values,
-           "random_seed": random_seed}
+    out = {name: idata.posterior[name].values for name in keep}
+    out["random_seed"] = random_seed
     for key in KEPT_TREES:
         out[key] = getattr(trees, key)
     return wall, timings, out, [str(w.message) for w in caught]

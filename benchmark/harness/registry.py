@@ -3,11 +3,12 @@
 ``BENCHMARK.json`` at the root of the checkout names the cells, their
 configurations and traffic mixes, and the metrics.  Each cell is
 ``workloads/<cell>.json``, each configuration ``configs/<config>.json``,
-each traffic mix ``traffic/<traffic>.json``, each data generator (with its
-true function) ``reference/<generator>.py`` and each metric's reader
-``metrics/<metric>.py`` (a function ``read(run)``), all under the
-benchmark's folder.  A cell, configuration, mix or metric is added by
-adding its files."""
+each traffic mix ``traffic/<traffic>.json``, each model (its builder, the
+draws a fit keeps, the name of its check) ``models/<model>.py``, each data
+generator (with its true function) and each model's check
+``reference/<name>.py``, and each metric's reader ``metrics/<metric>.py``
+(a function ``read(run)``), all under the benchmark's folder.  A cell,
+configuration, mix, model or metric is added by adding its files."""
 
 import importlib.util
 import json
@@ -73,11 +74,20 @@ class Registry:
         path = self._named("metrics", name, ".py")
         return _module(path, f"_bench_metric_{name.replace('.', '_')}").read
 
-    def generator(self, name):
-        """The data generator ``reference/<name>.py`` (``generate``,
-        ``true_f``)."""
+    def model(self, name):
+        """The model ``models/<name>.py``: ``build(pmb, config, X, Y)`` ->
+        ``(model, bart_rv)``, ``DRAWS`` (the posterior variables a fit
+        keeps) and ``CHECK`` (the name of its check in ``reference/``)."""
+        return _module(self._named("models", name, ".py"),
+                       f"_bench_model_{name}")
+
+    def reference(self, name):
+        """The plain NumPy module ``reference/<name>.py``: a data generator
+        (``generate``, ``true_f``) or a model's check (``numbers(out, data,
+        kw, sizes, rng)``).  It loads as a module of the reference package,
+        so it may import its siblings (``from . import forest``)."""
         return _module(self._named("reference", name, ".py"),
-                       f"_bench_data_{name}")
+                       f"{BENCH_DIR.name}.reference.{name}")
 
     def metrics_of(self, cell_name, trace):
         """``[(name, unit)]`` the cell reports: the end-to-end metrics with

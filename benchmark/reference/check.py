@@ -1,7 +1,8 @@
-"""The numbers that decide whether a run of a BART regression cell is
-correct, from the program's outputs and the inputs alone (plain NumPy).
+"""The check of the model ``bart_normal`` (``models/bart_normal.py``): the
+numbers that decide whether a run of its cell is correct, from the
+program's outputs and the inputs alone (plain NumPy).
 
-Every fit of the window is an answer.  For each one:
+Every fit of the window is an answer.  For each one (``numbers``):
 
 * ``mu_gap``: the widest gap between a stored draw of ``mu`` and the sum of
   the leaf values that the stored forest of the same draw gives on the
@@ -25,6 +26,8 @@ import numpy as np
 
 from . import forest
 
+# every number ``numbers`` reads; a cell's ``limits`` give each one a limit
+NUMBERS = ("structure_errors", "mu_gap", "sigma_gap", "rmse_f")
 # the sampler's seed of the duplicate-value jitter, from the fit's seed
 JITTER_SALT = 0x5EED
 
@@ -76,6 +79,25 @@ def fit_numbers(out, X, Y, f, draws_idx, rows_idx):
     sigma_gap = float(np.max(np.abs(sigma.mean(1) / rms.mean(1) - 1.0)))
     rmse_f = float(np.sqrt(np.mean((mu.mean(axis=(0, 1)) - f) ** 2)))
     return {"mu_gap": mu_gap, "sigma_gap": sigma_gap, "rmse_f": rmse_f}
+
+
+def numbers(out, data, kw, sizes, rng):
+    """The numbers of one fit: ``out`` its outputs, ``data`` its data set
+    ``(X, Y, f)``, ``kw`` the ``sample()`` arguments (``chains``,
+    ``draws``), ``sizes`` the cell's ``check`` (``draws_per_fit``,
+    ``rows_per_fit``) and ``rng`` the run's generator of the sampled draws
+    and rows, shared by its fits in turn.  A fit whose outputs have the
+    wrong shape reads ``structure_errors`` alone."""
+    X, Y, f = data
+    n, p = X.shape
+    nums = {"structure_errors": structure_errors(
+        out, kw["chains"], kw["draws"], n, p)}
+    if shape_errors(out, kw["chains"], kw["draws"], n) == 0:
+        idx = sample_draws(rng, kw["chains"], kw["draws"],
+                           sizes["draws_per_fit"])
+        rows = sample_rows(rng, n, sizes["rows_per_fit"])
+        nums.update(fit_numbers(out, X, Y, f, idx, rows))
+    return nums
 
 
 def sample_rows(rng, n, k):

@@ -35,42 +35,55 @@ def jitter_duplicates(X, seed):
 
 def leaf_slots(split_var, split_val, X):
     """The slot each row reaches in each tree: int64 (..., m, n) for
-    ``split_var`` / ``split_val`` (..., m, S) and ``X`` (n, p)."""
+    ``split_var`` / ``split_val`` (..., m, S) and ``X`` (n, p).
+
+    A tree is descended inner node by inner node, parents first, each
+    sending the rows that reach it to its children; a split on the last
+    level of slots has no children and keeps its rows.  A tree equal to the
+    same tree of the forest before it (a stored forest repeats the trees a
+    draw did not update) takes that tree's slots."""
     split_var = np.asarray(split_var)
     S = split_var.shape[-1]
-    depth = int(np.log2(S + 1)) - 1
     lead = split_var.shape[:-1]
+    m = lead[-1] if lead else 1
     sv = split_var.reshape(-1, S)
     sl = np.asarray(split_val, np.float32).reshape(-1, S)
-    n = X.shape[0]
-    node = np.zeros((sv.shape[0], n), np.int64)
-    rows = np.arange(n)[None, :]
-    trees = np.arange(sv.shape[0])[:, None]
-    for _ in range(depth):
-        var = sv[trees, node]
-        inner = var >= 0
-        x = X[rows, np.where(inner, var, 0)]
-        left = x <= sl[trees, node]
-        child = 2 * node + np.where(left, 1, 2)
-        node = np.where(inner, child, node)
-    return node.reshape(lead + (n,))
+    Xt = np.asarray(X, np.float32).T.copy()                     # (p, n)
+    T, n = sv.shape[0], Xt.shape[1]
+    new = np.ones(T, bool)
+    new[m:] = ((sv[m:] != sv[:-m]) | (sl[m:] != sl[:-m])).any(axis=1)
+    trees = np.flatnonzero(new)
+    node = np.zeros((trees.size, n), np.int64)
+    inner = sv[trees, :S // 2] >= 0
+    for k, s in zip(*(a.tolist() for a in np.nonzero(inner))):
+        t = trees[k]
+        at = node[k] == s
+        x = Xt[sv[t, s], at]
+        node[k, at] = np.where(x <= sl[t, s], 2 * s + 1, 2 * s + 2)
+    # each tree takes the slots of the last new tree at its place
+    src = np.where(new, np.arange(T), 0).reshape(-1, m)
+    src = np.maximum.accumulate(src, axis=0).reshape(-1)
+    return node[(np.cumsum(new) - 1)[src]].reshape(lead + (n,))
 
 
 def predict(split_var, split_val, leaf, X, block=4096):
-    """Sum-of-trees prediction (..., n) in float64 of forests
-    ``split_var`` / ``split_val`` (..., m, S) and ``leaf`` (..., m, S) or
-    (..., m, S, 1), on the rows of ``X`` (n, p), in blocks of rows."""
+    """Sum-of-trees prediction in float64 of forests ``split_var`` /
+    ``split_val`` (..., m, S) with ``leaf`` (..., m, S) or (..., m, S, k),
+    on the rows of ``X`` (n, p), in blocks of rows: (..., n) for one output
+    (``leaf`` (..., m, S) or k = 1), (..., k, n) for k > 1 outputs."""
     leaf = np.asarray(leaf)
-    if leaf.ndim == np.ndim(split_var) + 1:
-        leaf = leaf[..., 0]
-    m, S = leaf.shape[-2:]
-    lead = leaf.shape[:-2]
-    lf = leaf.reshape(-1, S).astype(np.float64)
+    if leaf.ndim == np.ndim(split_var):
+        leaf = leaf[..., None]
+    m, S, k = leaf.shape[-3:]
+    lead = leaf.shape[:-3]
+    lf = leaf.reshape(-1, S, k).astype(np.float64)
     trees = np.arange(lf.shape[0])[:, None]
     X = np.asarray(X, np.float32)
     out = []
     for r0 in range(0, X.shape[0], block):
         slots = leaf_slots(split_var, split_val, X[r0:r0 + block])
-        vals = lf[trees, slots.reshape(lf.shape[0], -1)]
-        out.append(vals.reshape(lead + (m, -1)).sum(axis=-2))
-    return np.concatenate(out, axis=-1)
+        vals = lf[trees, slots.reshape(lf.shape[0], -1)]     # (T, rows, k)
+        vals = vals.reshape(lead + (m, -1, k)).sum(axis=-3)
+        out.append(np.moveaxis(vals, -1, -2))
+    got = np.concatenate(out, axis=-1)
+    return got[..., 0, :] if k == 1 else got

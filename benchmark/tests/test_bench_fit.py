@@ -2,7 +2,6 @@
 card skipped): the sound program passes the reference check, and the
 control and each planted fault come out not correct."""
 
-import json
 import time
 
 import pytest
@@ -79,33 +78,13 @@ def restored(monkeypatch):
                         compound._HostDrain.__dict__["finish"])
 
 
-# a chain mesh over four ranks and a reader of its collectives, added as
-# files, as a later change would add a cell on four cards
-MESH_TRAFFIC = {"sample": {"chains": 16}, "datasets": 8,
-                "mesh": {"chain_shards": 4, "data_shards": 1}}
-COLLECTIVES_READER = """
-def read(run):
-    if run.chips == 1:
-        return None
-    return run.collectives / run.steps(run.fits)
-"""
-
-
 @pytest.fixture
 def mesh_root(tmp_path):
+    """A copy of the benchmark with a tiny cell on the four-card cell's
+    chain mesh (``traffic/refit_chains16_mesh4.json``), read by
+    ``metrics/collectives_per_step.py``."""
     root = copy_benchmark(tmp_path)
-    bench = root / "benchmark"
-    (bench / "traffic" / "chains16_mesh4.json").write_text(
-        json.dumps(MESH_TRAFFIC))
-    (bench / "metrics" / "collectives_per_step.py").write_text(
-        COLLECTIVES_READER)
-    add_cell(root, "tiny.mesh", "tiny", "chains16_mesh4", chips=4)
-    spec = json.loads((root / "BENCHMARK.json").read_text())
-    spec["per_layer"].append({"name": "collectives_per_step", "unit": "1",
-                              "better": "lower", "source": "program_counter",
-                              "layer": "parallelism", "moves": "fit_s",
-                              "workloads": ["tiny.mesh"]})
-    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    add_cell(root, "tiny.mesh", "tiny", "refit_chains16_mesh4", chips=4)
     return root
 
 

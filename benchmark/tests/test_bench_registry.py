@@ -17,11 +17,15 @@ def test_every_named_file_is_found():
         cell = reg.cell(w["name"])
         assert cell["config"]["name"] == w["config"]
         assert cell["traffic"]["name"] == w["traffic"]
-        assert set(cell["limits"]) >= {"structure_errors", "mu_gap",
-                                       "sigma_gap", "rmse_f"}
+        check = reg.reference(reg.model(cell["config"]["model"]).CHECK)
+        assert set(cell["limits"]) == set(check.NUMBERS)
     for c in spec["configs"]:
         cfg = json.loads((ROOT / c["file"]).read_text())
-        assert callable(reg.generator(cfg["generator"]).generate)
+        assert callable(reg.reference(cfg["generator"]).generate)
+        model = reg.model(cfg["model"])
+        assert callable(model.build) and model.DRAWS
+        check = reg.reference(model.CHECK)
+        assert callable(check.numbers) and "structure_errors" in check.NUMBERS
     for m in spec["end_to_end"] + spec["per_layer"]:
         assert callable(reg.metric_reader(m["name"]))
 
