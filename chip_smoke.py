@@ -2891,6 +2891,7 @@ def time_bign(dev, gen, bound, timed):
     """Times of the large-n kernel at n = 50,000 (gauss: the entry of the
     ``kernels`` line; bernoulli beside it) and the crossover table against
     the whole-step kernel."""
+    from pymc_bart_tpu_torch import tracing
     from pymc_bart_tpu_torch.ops.bign import launches_per_step
     from pymc_bart_tpu_torch.sampler.pgbart import resolve_route
 
@@ -2909,8 +2910,18 @@ def time_bign(dev, gen, bound, timed):
                          lambda: bign_step(case, st_p, r_pre, False, "plain")))
         t["pre_drawn_ms"] = cuda_ms(
             lambda: bign_step(case, st_k, r_pre, False, "kernel"))[0]
-        t["cuda_kernels_per_step"] = launches_per_step(
+        # the kernels the launcher reports it enqueued for one step, against
+        # the count its design gives
+        counted = {}
+        with tracing.recording(counted):
+            bign_step(case, st_k, r_gen, False, "kernel")
+        kernels = counted["counters"]["bign_step/bign_launches"]
+        designed = launches_per_step(
             case["pg"].batch_size(case["cfg"].m, False), case["cfg"].max_depth)
+        if kernels != designed:
+            raise AssertionError(f"large-n {name}: the launcher enqueued "
+                                 f"{kernels} kernels, designed {designed}")
+        t["cuda_kernels_per_step"] = kernels
         # one step as the main path issues it: blocks drawn, step enqueued,
         # host clock around a synchronisation
         times = []

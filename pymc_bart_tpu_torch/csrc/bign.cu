@@ -864,17 +864,21 @@ cudaError_t launch_step(void (*kernel)(Params...), dim3 grid, cudaStream_t st,
   do {                                                                         \
     const cudaError_t e_ = launch_step(kernel, grid, st, overlap, __VA_ARGS__); \
     if (e_ != cudaSuccess) return (int)e_;                                     \
+    ++*launched;                                                               \
   } while (0)
 
 extern "C" int pgbart_bign_args_size() { return (int)sizeof(BignArgs); }
 extern "C" int pgbart_bign_max_depth() { return kMaxDepth; }
 
-// Enqueues one whole step on `stream`: B * (4 + 3 D) + 1 kernels (mirrored by
-// ops/bign.py::launches_per_step) after one memset of the tickets; returns 0
-// or a CUDA error code.
+// Enqueues one whole step on `stream`: B * (4 + 3 D) + 1 kernels (the count
+// ops/bign.py::launches_per_step predicts) after one memset of the tickets;
+// returns 0 or a CUDA error code, and leaves in `*launched` the kernels it
+// enqueued.
 // `args` points to a BignArgs (an untyped pointer: the struct is local to this
 // file, and a function that names it in its signature is not exported).
-extern "C" int pgbart_bign_launch(const void* args, void* stream_) {
+extern "C" int pgbart_bign_launch(const void* args, void* stream_,
+                                  int* launched) {
+  *launched = 0;
   const BignArgs a = *static_cast<const BignArgs*>(args);
   if (!valid(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream_;

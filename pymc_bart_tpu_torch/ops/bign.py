@@ -50,6 +50,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..config import BartConfig, PgbartConfig
 from . import _build
 from .draw import LIK_CODES, target_rows
@@ -415,7 +416,7 @@ def _lib():
     lib = _build.load("bign")
     fn = lib.pgbart_bign_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(_BignArgs), _P]
+        fn.argtypes = [ctypes.POINTER(_BignArgs), _P, ctypes.POINTER(_I)]
         fn.restype = _I
         lib.pgbart_bign_gumbel_block.argtypes = [ctypes.POINTER(_BignArgs),
                                                  _P, _P]
@@ -435,10 +436,11 @@ def _lib():
 
 
 def launches_per_step(B: int, D: int) -> int:
-    """CUDA kernels one call of the wrapper enqueues (mirrors csrc/bign.cu):
-    per tree 2 to set up, 3 a level (the node-space work between two row
-    passes runs in the tail of the pass's last block), 2 to select and
-    commit; 1 a step."""
+    """CUDA kernels one call of the wrapper should enqueue, as csrc/bign.cu
+    is designed: per tree 2 to set up, 3 a level (the node-space work
+    between two row passes runs in the tail of the pass's last block), 2 to
+    select and commit; 1 a step.  The launcher reports the kernels it did
+    enqueue (the counter ``bign_launches``)."""
     return B * (4 + 3 * D) + 1
 
 
@@ -663,9 +665,12 @@ def pgbart_step_bign_kernel(state, rands, X, Y_target, cfg: BartConfig,
     for d in range(D):
         a.p_grow[d] = float(cfg.alpha * (1.0 + d) ** (-cfg.beta))
 
+    launched = _I(0)
     with torch.cuda.device(dev):
-        err = lib.pgbart_bign_launch(ctypes.byref(a), _build.current_stream())
+        err = lib.pgbart_bign_launch(ctypes.byref(a), _build.current_stream(),
+                                     ctypes.byref(launched))
     _build.check_launch(err, "pgbart_step_bign")
+    tracing.count("bign_launches", launched.value)
     pgbart_step_bign.launches += 1
     return state, vi
 
@@ -686,15 +691,21 @@ def pgbart_step_bign(state, rands, X, Y_target, cfg: BartConfig,
     ``(state, variable_inclusion (C, p))``.  Runs the CUDA kernels for a
     state on a CUDA device and the plain version for one on the CPU; ``impl``
     forces ``"kernel"`` or ``"plain"``.  ``pgbart_step_bign.launches`` counts
-    the wrapper's launches of the step (one launcher call each).
+    the wrapper's calls of the launcher, as the other wrappers count theirs.
+
+    Under ``tracing.recording`` the call is the span ``bign_step`` and counts
+    ``bign_launches``: the CUDA kernels the launcher reports it enqueued, 0
+    on the plain version.
     """
     if impl is None:
         impl = "kernel" if state.forest.split_var.is_cuda else "plain"
-    if impl == "kernel":
-        return pgbart_step_bign_kernel(state, rands, X, Y_target, cfg, pg,
-                                       w_chain, tuning, lik=lik,
-                                       lik_const=lik_const, llw=llw)
-    if impl == "plain":
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    with tracing.span("bign_step"):
+        if impl == "kernel":
+            return pgbart_step_bign_kernel(state, rands, X, Y_target, cfg, pg,
+                                           w_chain, tuning, lik=lik,
+                                           lik_const=lik_const, llw=llw)
         reason = bign_unsupported_reason(cfg, pg, None, lik, True, True, False)
         if reason is not None:
             raise ValueError(f"pgbart_step_bign: {reason}")
@@ -707,10 +718,11 @@ def pgbart_step_bign(state, rands, X, Y_target, cfg: BartConfig,
             w_chain = torch.zeros((state.sum_trees.shape[0],),
                                   dtype=torch.float32,
                                   device=state.sum_trees.device)
-        return pgbart_step_bign_plain(state, rands, X, Y_target, cfg, pg,
-                                      w_chain, tuning, lik=lik,
-                                      lik_const=lik_const, llw=llw)
-    raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+        out = pgbart_step_bign_plain(state, rands, X, Y_target, cfg, pg,
+                                     w_chain, tuning, lik=lik,
+                                     lik_const=lik_const, llw=llw)
+        tracing.count("bign_launches", 0)
+        return out
 
 
 pgbart_step_bign.launches = 0
